@@ -1,0 +1,11 @@
+"""PyTorch/CUDA port of the checkpoint time-vs-energy system.
+
+Laid out like the JAX reference package: ``core`` (parameters, failure
+processes, closed forms, solvers, scalar simulator), ``sim`` (scenarios,
+grid sweeps, the event-level Monte-Carlo engine, dispatch and precision),
+``kernels`` (hand-written CUDA kernels for Hopper, each beside its plain
+PyTorch version, built at first use from ``csrc/``) and ``interop``
+(carries the reference's state across).  Entry points take ``device=``
+and default to ``"cuda"``.
+"""
+from . import core, sim  # noqa: F401

@@ -1,0 +1,170 @@
+"""Exact expectation formulas of the paper (§3.1 time, §3.2 energy).
+
+Every function takes ``T`` as a scalar, array or tensor and evaluates in
+float64 on ``device`` (default ``"cuda"``), returning a tensor of
+``T``'s shape.  The expressions are the reference's term for term.
+:func:`K_dE_dT_autodiff` is an independent ``torch.autograd`` cross-check
+of the analytic derivative.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .._device import F64, as_f64
+from .params import CheckpointParams, PowerParams
+
+
+# --------------------------------------------------------------------------
+# §3.1 — execution time
+# --------------------------------------------------------------------------
+
+def time_fault_free(T, ckpt: CheckpointParams, T_base: float = 1.0,
+                    device="cuda"):
+    """T_ff = T_base * T / (T - (1-omega) C)."""
+    T = as_f64(T, device)
+    return T_base * T / (T - ckpt.a)
+
+
+def time_lost_per_failure(T, ckpt: CheckpointParams, device="cuda"):
+    """Expected time lost per failure = D + R + omega*C + T/2."""
+    T = as_f64(T, device)
+    return ckpt.D + ckpt.R + ckpt.omega * ckpt.C + T / 2.0
+
+
+def time_final(T, ckpt: CheckpointParams, T_base: float = 1.0,
+               device="cuda"):
+    """T_final = T_base * T / ((T - a)(b - T/(2 mu))), valid on
+    a < T < 2*mu*b (returned as-is outside)."""
+    T = as_f64(T, device)
+    a, b, mu = ckpt.a, ckpt.b, ckpt.mu
+    return T_base * T / ((T - a) * (b - T / (2.0 * mu)))
+
+
+def time_final_prime(T, ckpt: CheckpointParams, T_base: float = 1.0,
+                     device="cuda"):
+    """dT_final/dT = T_base (-ab + T^2/2mu) / ((T-a)^2 (b - T/2mu)^2)."""
+    T = as_f64(T, device)
+    a, b, mu = ckpt.a, ckpt.b, ckpt.mu
+    num = -a * b + T**2 / (2.0 * mu)
+    den = (T - a) ** 2 * (b - T / (2.0 * mu)) ** 2
+    return T_base * num / den
+
+
+def expected_failures(T, ckpt: CheckpointParams, T_base: float = 1.0,
+                      device="cuda"):
+    """E[#failures] = T_final / mu."""
+    return time_final(T, ckpt, T_base, device) / ckpt.mu
+
+
+# --------------------------------------------------------------------------
+# §3.2 — energy
+# --------------------------------------------------------------------------
+
+class PhaseTimes(NamedTuple):
+    """Expected cumulative phase durations over the whole execution."""
+
+    T_final: torch.Tensor   # wall clock
+    T_cal: torch.Tensor     # CPU-busy time (power overhead P_cal)
+    T_io: torch.Tensor      # I/O-busy time (power overhead P_io)
+    T_down: torch.Tensor    # downtime (power overhead P_down)
+
+
+def _re_exec(T, ckpt: CheckpointParams):
+    """Expected work re-executed per failure (paper §3.2)."""
+    C, omega = ckpt.C, ckpt.omega
+    return omega * C + (T**2 - C**2) / (2.0 * T) + omega * C**2 / (2.0 * T)
+
+
+def _io_per_failure(T, ckpt: CheckpointParams):
+    """Expected extra I/O time per failure: R + C^2/(2T)."""
+    return ckpt.R + ckpt.C**2 / (2.0 * T)
+
+
+def phase_times(T, ckpt: CheckpointParams, T_base: float = 1.0,
+                device="cuda") -> PhaseTimes:
+    """All phase expectations of §3.2 (T_final != T_cal + T_io + T_down
+    unless omega == 0: CPU and I/O overlap during checkpoints)."""
+    T = as_f64(T, device)
+    C, D, mu, omega = ckpt.C, ckpt.D, ckpt.mu, ckpt.omega
+    Tf = time_final(T, ckpt, T_base, T.device)
+    n_fail = Tf / mu
+    T_cal = T_base + n_fail * _re_exec(T, ckpt)
+    ckpt_io = T_base * C / (T - (1.0 - omega) * C)
+    T_io = ckpt_io + n_fail * _io_per_failure(T, ckpt)
+    T_down = n_fail * D
+    return PhaseTimes(T_final=Tf, T_cal=T_cal, T_io=T_io, T_down=T_down)
+
+
+def energy_final(T, ckpt: CheckpointParams, power: PowerParams,
+                 T_base: float = 1.0, device="cuda"):
+    """E_final = T_cal P_cal + T_io P_io + T_down P_down + T_final P_static."""
+    ph = phase_times(T, ckpt, T_base, device)
+    return (ph.T_cal * power.P_cal
+            + ph.T_io * power.P_io
+            + ph.T_down * power.P_down
+            + ph.T_final * power.P_static)
+
+
+def energy_final_prime(T, ckpt: CheckpointParams, power: PowerParams,
+                       T_base: float = 1.0, device="cuda"):
+    """Analytic dE_final/dT (see the reference for the derivation)."""
+    T = as_f64(T, device)
+    C, mu, omega = ckpt.C, ckpt.mu, ckpt.omega
+    a = ckpt.a
+    Tf = time_final(T, ckpt, T_base, T.device)
+    Tfp = time_final_prime(T, ckpt, T_base, T.device)
+    W = (power.P_cal * _re_exec(T, ckpt)
+         + power.P_io * _io_per_failure(T, ckpt)
+         + power.P_down * ckpt.D)
+    Wp = (power.P_cal * (0.5 + (1.0 - omega) * C**2 / (2.0 * T**2))
+          - power.P_io * C**2 / (2.0 * T**2))
+    return (power.P_static * Tfp
+            - power.P_io * T_base * C / (T - a) ** 2
+            + Tfp / mu * W
+            + Tf / mu * Wp)
+
+
+# --------------------------------------------------------------------------
+# K(T) * dE/dT — the paper's quadratic
+# --------------------------------------------------------------------------
+
+def K_factor(T, ckpt: CheckpointParams, power: PowerParams,
+             T_base: float = 1.0, device="cuda"):
+    """K = (T-a)^2 (b - T/2mu)^2 / (P_static * T_base)  (paper §3.2)."""
+    T = as_f64(T, device)
+    a, b, mu = ckpt.a, ckpt.b, ckpt.mu
+    return (T - a) ** 2 * (b - T / (2.0 * mu)) ** 2 / (power.P_static * T_base)
+
+
+def K_dE_dT(T, ckpt: CheckpointParams, power: PowerParams,
+            T_base: float = 1.0, device="cuda"):
+    """K(T) * E'(T) — an exact quadratic polynomial in T (paper §3.2)."""
+    return K_factor(T, ckpt, power, T_base, device) * energy_final_prime(
+        T, ckpt, power, T_base, device)
+
+
+def K_dE_dT_autodiff(T, ckpt: CheckpointParams, power: PowerParams,
+                     T_base: float = 1.0, device="cuda"):
+    """Independent cross-check of :func:`K_dE_dT`: K(T) times the
+    ``torch.autograd`` derivative of E_final written out afresh."""
+    C, R, D, mu, omega = ckpt.C, ckpt.R, ckpt.D, ckpt.mu, ckpt.omega
+    a, b = ckpt.a, ckpt.b
+    Pc, Pi, Pd, Ps = power.P_cal, power.P_io, power.P_down, power.P_static
+
+    def e_final(t):
+        tf = T_base * t / ((t - a) * (b - t / (2.0 * mu)))
+        nf = tf / mu
+        t_cal = T_base + nf * (omega * C + (t**2 - C**2) / (2 * t)
+                               + omega * C**2 / (2 * t))
+        t_io = (T_base * C / (t - (1 - omega) * C)
+                + nf * (R + C**2 / (2 * t)))
+        t_down = nf * D
+        return t_cal * Pc + t_io * Pi + t_down * Pd + tf * Ps
+
+    tv = as_f64(T, device).detach().clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(e_final(tv).sum(), tv)
+    tv = tv.detach()
+    k = (tv - a) ** 2 * (b - tv / (2 * mu)) ** 2 / (Ps * T_base)
+    return (k * g).to(F64)

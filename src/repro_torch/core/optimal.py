@@ -1,0 +1,272 @@
+"""Optimal checkpoint periods: AlgoT, AlgoE, and literature baselines.
+
+AlgoT  — closed form  T_opt = sqrt(2 a b mu)  (paper Eq. (1)).
+AlgoE  — the minimum-branch root of the exact quadratic K(T)*E'(T), its
+         coefficients recovered by interpolating the analytic product at
+         3 points (a 4th verifies the residual), guarded by a golden-section
+         argmin of E_final.
+Young  — T = sqrt(2 C mu) + C                      [Young 1974]
+Daly   — T = sqrt(2 C (mu + D + R)) + C            [Daly 2004]
+MSK    — Meneses–Sarood–Kalé energy model as the paper's §3.2 side note
+         describes it (omega = 0; per-failure re-exec (T-2C)/2, I/O C).
+
+These are scalar solvers: the model is evaluated as f64 tensors on
+``device`` and the root bookkeeping runs on the host.  The closed forms
+that read only the dataclass fields (Young, Daly, the derived
+coefficients) are plain host arithmetic and take no device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+import math
+from typing import Callable, Tuple
+
+import numpy as np
+
+from .._device import as_f64
+from . import model
+from .params import CheckpointParams, PowerParams
+
+_GOLDEN = (math.sqrt(5.0) - 1.0) / 2.0
+
+logger = logging.getLogger(__name__)
+
+
+def _scalar(x) -> float:
+    """One model evaluation as a host float."""
+    return x.item()
+
+
+def golden_section(f: Callable[[float], float], lo: float, hi: float,
+                   tol: float = 1e-10, max_iter: int = 200) -> float:
+    """Minimize unimodal ``f`` on [lo, hi] to relative tolerance ``tol``."""
+    a, b = float(lo), float(hi)
+    c = b - _GOLDEN * (b - a)
+    d = a + _GOLDEN * (b - a)
+    fc, fd = f(c), f(d)
+    for _ in range(max_iter):
+        if abs(b - a) <= tol * (abs(a) + abs(b)):
+            break
+        if fc < fd:
+            b, d, fd = d, c, fc
+            c = b - _GOLDEN * (b - a)
+            fc = f(c)
+        else:
+            a, c, fc = c, d, fd
+            d = a + _GOLDEN * (b - a)
+            fd = f(d)
+    return 0.5 * (a + b)
+
+
+def _bracket(ckpt: CheckpointParams) -> Tuple[float, float]:
+    """Valid open interval for T, slightly shrunk for numerical safety."""
+    lo, hi = ckpt.valid_period_range()
+    if hi <= lo:
+        raise ValueError(
+            f"No valid period: need lower bound max(a={ckpt.a}, C={ckpt.C})"
+            f"={lo} < 2*mu*b={hi}; platform MTBF mu={ckpt.mu} too small for "
+            f"these checkpoint costs.")
+    span = hi - lo
+    return lo + 1e-9 * span + 1e-12, hi - 1e-9 * span
+
+
+# --------------------------------------------------------------------------
+# AlgoT — time-optimal period
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PeriodResult:
+    """A solved period plus provenance: whether the closed form was clamped
+    into the valid bracket and which method produced it."""
+
+    T: float
+    clamped: bool = False
+    method: str = "closed_form"      # "closed_form" | "numeric"
+
+
+def t_opt_time_ex(ckpt: CheckpointParams, device="cuda") -> PeriodResult:
+    """AlgoT with provenance (see :class:`PeriodResult`)."""
+    val = 2.0 * ckpt.a * ckpt.b * ckpt.mu
+    if val <= 0:
+        # omega == 1 (a == 0) or mu too small: numeric fallback.
+        return PeriodResult(T=t_opt_time_numeric(ckpt, device=device),
+                            method="numeric")
+    t = math.sqrt(val)
+    lo, hi = _bracket(ckpt)
+    t_clamped = float(min(max(t, lo), hi))
+    return PeriodResult(T=t_clamped, clamped=t_clamped != t)
+
+
+def t_opt_time(ckpt: CheckpointParams, device="cuda") -> float:
+    """Paper Eq. (1); logs a warning when the closed form is clamped to the
+    edge of the valid bracket (a boundary answer)."""
+    res = t_opt_time_ex(ckpt, device)
+    if res.clamped:
+        logger.warning(
+            "t_opt_time: closed form sqrt(2*a*b*mu) fell outside the valid "
+            "period bracket and was clamped to %g (ckpt=%r); treat as a "
+            "boundary answer", res.T, ckpt)
+    return res.T
+
+
+def t_opt_time_numeric(ckpt: CheckpointParams, T_base: float = 1.0,
+                       device="cuda") -> float:
+    """Golden-section argmin of the exact T_final (validation path)."""
+    lo, hi = _bracket(ckpt)
+    return golden_section(
+        lambda t: _scalar(model.time_final(t, ckpt, T_base, device)), lo, hi)
+
+
+# --------------------------------------------------------------------------
+# AlgoE — energy-optimal period
+# --------------------------------------------------------------------------
+
+def energy_quadratic_coefficients(ckpt: CheckpointParams, power: PowerParams,
+                                  device="cuda") -> Tuple[float, float, float]:
+    """Coefficients (c2, c1, c0) of the exact quadratic Q(T) = K(T) * E'(T),
+    interpolated at 3 points and verified at a 4th."""
+    lo, hi = _bracket(ckpt)
+    ts = np.array([lo + 0.2 * (hi - lo), lo + 0.45 * (hi - lo),
+                   lo + 0.7 * (hi - lo)])
+    qs = np.array(model.K_dE_dT(ts, ckpt, power, device=device).tolist())
+    V = np.vander(ts, 3)            # columns: t^2, t, 1
+    c2, c1, c0 = np.linalg.solve(V, qs)
+
+    t4 = lo + 0.9 * (hi - lo)
+    q4 = _scalar(model.K_dE_dT(t4, ckpt, power, device=device))
+    q4_poly = c2 * t4**2 + c1 * t4 + c0
+    scale = max(abs(q4), abs(q4_poly), abs(c0), 1e-300)
+    if not abs(q4 - q4_poly) <= 1e-6 * scale:
+        raise AssertionError(
+            f"K*E' deviates from a quadratic: {q4} vs {q4_poly} "
+            f"(paper §3.2 cancellation violated — formula bug?)")
+    return float(c2), float(c1), float(c0)
+
+
+def derived_coefficients(ckpt: CheckpointParams, power: PowerParams,
+                         ) -> Tuple[float, float, float]:
+    """Corrected closed-form quadratic coefficients (the reference's
+    erratum-corrected algebra)."""
+    C, mu = ckpt.C, ckpt.mu
+    a, b, omega = ckpt.a, ckpt.b, ckpt.omega
+    al, be, ga = power.alpha, power.beta, power.gamma
+    P = al * omega * C + be * ckpt.R + ga * ckpt.D
+    Q = (be - al * (1.0 - omega)) * C**2
+    c2 = (1 / (2 * mu) + P / (2 * mu**2) + al * b / (2 * mu)
+          + (al * a - be * C) / (4 * mu**2))
+    c1 = (be * C - al * a) * b / mu + Q / (2 * mu**2)
+    c0 = (-a * b * (P + mu) / mu - be * C * b**2
+          - Q * (b / (2 * mu) + a / (4 * mu**2)))
+    return float(c2), float(c1), float(c0)
+
+
+def _pick_energy_root(c2: float, c1: float, c0: float, lo: float, hi: float,
+                      energy: Callable[[float], float],
+                      numeric: Callable[[], float]) -> float:
+    """AlgoE root selection on Q = K*E': the unique in-bracket root with
+    Q' > 0 (a minimum of E, since K > 0); otherwise cross-check against the
+    numeric argmin and prefer it on disagreement."""
+    roots = np.roots([c2, c1, c0]) if abs(c2) > 0 else np.array(
+        [-c0 / c1] if abs(c1) > 0 else [])
+    cands = [float(r.real) for r in np.atleast_1d(roots)
+             if abs(r.imag) < 1e-9 * max(1.0, abs(r.real))
+             and lo < r.real < hi]
+    if not cands:
+        return numeric()
+    es = [energy(t) for t in cands]
+    t_best = cands[int(np.argmin(es))]
+    if len(cands) == 1 and 2.0 * c2 * t_best + c1 > 0.0:
+        return t_best
+    t_num = numeric()
+    e_num = energy(t_num)
+    if 2.0 * c2 * t_best + c1 <= 0.0 or e_num < min(es) * (1.0 - 1e-12):
+        return t_num
+    return t_best
+
+
+def t_opt_energy(ckpt: CheckpointParams, power: PowerParams,
+                 device="cuda") -> float:
+    """AlgoE: the positive root of K(T) E'(T) = 0, guarded by
+    :func:`_pick_energy_root`."""
+    lo, hi = _bracket(ckpt)
+    try:
+        c2, c1, c0 = energy_quadratic_coefficients(ckpt, power, device)
+    except AssertionError:
+        return t_opt_energy_numeric(ckpt, power, device=device)
+    return _pick_energy_root(
+        c2, c1, c0, lo, hi,
+        energy=lambda t: _scalar(model.energy_final(t, ckpt, power,
+                                                    device=device)),
+        numeric=lambda: t_opt_energy_numeric(ckpt, power, device=device))
+
+
+def t_opt_energy_numeric(ckpt: CheckpointParams, power: PowerParams,
+                         T_base: float = 1.0, device="cuda") -> float:
+    """Golden-section argmin of the exact E_final (validation path)."""
+    lo, hi = _bracket(ckpt)
+    return golden_section(
+        lambda t: _scalar(model.energy_final(t, ckpt, power, T_base,
+                                             device)), lo, hi)
+
+
+# --------------------------------------------------------------------------
+# Literature baselines
+# --------------------------------------------------------------------------
+
+def t_young(ckpt: CheckpointParams) -> float:
+    """Young 1974: T = sqrt(2 C mu) + C (blocking model)."""
+    return math.sqrt(2.0 * ckpt.C * ckpt.mu) + ckpt.C
+
+
+def t_daly(ckpt: CheckpointParams) -> float:
+    """Daly 2004 (first-order form): T = sqrt(2 C (mu + D + R)) + C."""
+    return math.sqrt(2.0 * ckpt.C * (ckpt.mu + ckpt.D + ckpt.R)) + ckpt.C
+
+
+def _msk_energy(T, ckpt: CheckpointParams, power: PowerParams,
+                T_base: float = 1.0, device="cuda"):
+    """MSK energy objective (omega forced to 0; re-exec (T-2C)/2 and a full
+    checkpoint of I/O per failure)."""
+    ck0 = CheckpointParams(C=ckpt.C, R=ckpt.R, D=ckpt.D, mu=ckpt.mu, omega=0.0)
+    T = as_f64(T, device)
+    Tf = model.time_final(T, ck0, T_base, T.device)
+    nf = Tf / ck0.mu
+    T_cal = T_base + nf * (T - 2.0 * ck0.C) / 2.0
+    T_io = T_base * ck0.C / (T - ck0.C) + nf * (ck0.R + ck0.C)
+    T_down = nf * ck0.D
+    return (T_cal * power.P_cal + T_io * power.P_io
+            + T_down * power.P_down + Tf * power.P_static)
+
+
+def t_msk_energy(ckpt: CheckpointParams, power: PowerParams,
+                 device="cuda") -> float:
+    """Energy-optimal period under the MSK approximation (numeric argmin)."""
+    ck0 = CheckpointParams(C=ckpt.C, R=ckpt.R, D=ckpt.D, mu=ckpt.mu, omega=0.0)
+    lo, hi = _bracket(ck0)
+    lo = max(lo, 2.0 * ck0.C + 1e-12)  # MSK re-exec term needs T > 2C
+    return golden_section(
+        lambda t: _scalar(_msk_energy(t, ck0, power, device=device)), lo, hi)
+
+
+STRATEGIES = ("algo_t", "algo_e", "young", "daly", "msk_energy")
+
+
+def period_for(strategy: str, ckpt: CheckpointParams,
+               power: PowerParams | None = None, device="cuda") -> float:
+    """Uniform entry point over :data:`STRATEGIES`."""
+    if strategy == "algo_t":
+        return t_opt_time(ckpt, device)
+    if strategy == "algo_e":
+        if power is None:
+            raise ValueError("algo_e needs PowerParams")
+        return t_opt_energy(ckpt, power, device)
+    if strategy == "young":
+        return t_young(ckpt)
+    if strategy == "daly":
+        return t_daly(ckpt)
+    if strategy == "msk_energy":
+        if power is None:
+            raise ValueError("msk_energy needs PowerParams")
+        return t_msk_energy(ckpt, power, device)
+    raise ValueError(f"unknown strategy {strategy!r}; one of {STRATEGIES}")

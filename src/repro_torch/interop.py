@@ -1,0 +1,52 @@
+"""Carry the reference package's state into the port.
+
+This system's counterpart of carrying a model's weights across: the
+reference's parameter grids, parameter dataclasses and failure schedules
+become the port's tensors and dataclasses.  Everything here works by duck
+typing on plain mappings and arrays, so the port never imports the
+reference package.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from ._device import F64, resolve_device
+from .core.params import CheckpointParams, PowerParams
+from .sim.scenarios import ParamGrid
+
+
+def grid_from_fields(fields: Mapping[str, np.ndarray],
+                     device="cuda") -> ParamGrid:
+    """A :class:`ParamGrid` on ``device`` from a mapping of the nine field
+    arrays (what the reference's ``ParamGrid.fields()`` returns)."""
+    dev = resolve_device(device)
+    return ParamGrid(**{f: torch.as_tensor(np.asarray(fields[f],
+                                                      dtype=np.float64),
+                                           dtype=F64, device=dev)
+                        for f in ("C", "R", "D", "mu", "omega", "P_static",
+                                  "P_cal", "P_io", "P_down")})
+
+
+def ckpt_from_fields(fields: Mapping[str, float]) -> CheckpointParams:
+    """:class:`CheckpointParams` from ``dataclasses.asdict`` of the
+    reference's checkpoint parameters."""
+    return CheckpointParams(**{k: float(fields[k])
+                               for k in ("C", "R", "D", "mu", "omega")})
+
+
+def power_from_fields(fields: Mapping[str, float]) -> PowerParams:
+    """:class:`PowerParams` from ``dataclasses.asdict`` of the reference's
+    power parameters."""
+    return PowerParams(**{k: float(fields[k])
+                          for k in ("P_static", "P_cal", "P_io", "P_down")})
+
+
+def schedule_to_device(gaps, device="cuda",
+                       dtype: torch.dtype = F64) -> torch.Tensor:
+    """A host failure schedule (numpy, any shape) as a contiguous tensor
+    of ``dtype`` on ``device``."""
+    return torch.as_tensor(np.ascontiguousarray(gaps, dtype=np.float64),
+                           device=resolve_device(device)).to(dtype)

@@ -1,0 +1,3 @@
+"""Hand-written Hopper kernels of the port, each beside its plain PyTorch
+version (``event_sweep``).  Kernels are built at first use (``_build``),
+never at import."""

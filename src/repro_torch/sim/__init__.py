@@ -1,0 +1,30 @@
+"""Vectorized simulation + sweep subsystem (PyTorch).
+
+Layers:
+  scenarios — the scenario catalog and the struct-of-tensors
+              :class:`ParamGrid` the batched layers consume.
+  sweep     — batched closed-form model + period solvers (AlgoT/AlgoE/
+              Young/Daly/MSK) for a whole grid, chunked to a memory budget.
+  engine    — the event-level Monte-Carlo engine over (grid point x
+              trial) lanes, through the event kernel.
+  dispatch  — memory-budget chunking and precision resolution.
+  precision — :class:`PrecisionPolicy` (f64 oracle on the CPU,
+              compensated f32 on CUDA) with documented tolerances.
+
+The scalar ``repro_torch.core.simulator.simulate_once`` is the oracle the
+engine is held against.
+"""
+from .dispatch import DispatchConfig, resolve_precision, chunk_plan
+from .precision import PrecisionPolicy, F64, COMPENSATED_F32
+from .scenarios import (ParamGrid, Scenario, get_scenario, list_scenarios,
+                        register_scenario, mu_rho_grid, nodes_grid,
+                        product_grid, grid_from_scenarios, robustness_grid)
+from .engine import (TrajectoryBatch, ScheduledRNG, ScheduleBlock,
+                     simulate_trajectories, simulate_grid, sampled_schedules,
+                     presample_gaps, fail_capacity_points,
+                     default_fail_capacity)
+from .sweep import (GridResult, evaluate_grid, golden_section_batched,
+                    t_opt_time_batched, t_opt_energy_batched,
+                    t_young_batched, t_daly_batched, t_msk_energy_batched,
+                    time_final_batched, energy_final_batched,
+                    sweep_rho_grid, sweep_mu_rho_grid, sweep_nodes_grid)

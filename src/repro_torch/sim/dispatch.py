@@ -1,0 +1,124 @@
+"""Memory-bounded dispatch knobs for the grid workloads.
+
+The model sweep (``sim.sweep``) and the Monte-Carlo engine
+(``sim.engine``) cut their grid axis, and the engine its trials axis, into
+chunks sized from a device-memory budget, so a 10^6-point grid or a
+multi-gigabyte failure schedule streams through a bounded working set.
+Every per-point computation is independent, so the chunk size never
+changes a model sweep's results; the engine's auto-sampled schedules are
+drawn chunk by chunk from one seeded generator, so a fixed seed with a
+fixed :class:`DispatchConfig` gives the same results every time.
+
+Configuration resolves from :class:`DispatchConfig` (explicit argument) or
+the environment, as in the reference::
+
+    REPRO_SWEEP_MEMORY_MB  device-memory budget per call (default 2048)
+    REPRO_SWEEP_CHUNK      explicit grid-axis chunk size (overrides budget)
+    REPRO_PRECISION        precision policy name (f64 / compensated_f32;
+                           default = the device's policy)
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import warnings
+from typing import List, Optional, Tuple
+
+from . import precision as _precision
+from .precision import PrecisionPolicy
+
+#: default device-memory budget per call (bytes).
+DEFAULT_MEMORY_BUDGET = 2 << 30
+
+
+def _env_int(name: str) -> Optional[int]:
+    """Parse an optional integer env knob; a malformed value warns and
+    falls back to the default."""
+    raw = os.environ.get(name)
+    if not raw:
+        return None
+    try:
+        return int(raw)
+    except ValueError:
+        warnings.warn(f"{name}={raw!r} is not an integer; ignoring it",
+                      RuntimeWarning, stacklevel=3)
+        return None
+
+
+@dataclasses.dataclass(frozen=True)
+class DispatchConfig:
+    """Execution knobs.  ``memory_mb`` bounds each call's device working set
+    (None = ``$REPRO_SWEEP_MEMORY_MB`` or 2 GiB); ``chunk`` forces a
+    grid-axis chunk size (None = ``$REPRO_SWEEP_CHUNK`` or the budget);
+    ``precision`` pins the :class:`PrecisionPolicy` (a policy, a name, or
+    None = ``$REPRO_PRECISION`` or the device default)."""
+
+    memory_mb: Optional[int] = None
+    chunk: Optional[int] = None
+    precision: Optional[object] = None
+
+    def budget(self) -> int:
+        """The device-memory budget in bytes."""
+        mb = self.memory_mb if self.memory_mb is not None \
+            else _env_int("REPRO_SWEEP_MEMORY_MB")
+        return int(mb) << 20 if mb else DEFAULT_MEMORY_BUDGET
+
+    def chunk_size(self) -> Optional[int]:
+        """The forced grid-axis chunk size, if any."""
+        return self.chunk if self.chunk is not None \
+            else _env_int("REPRO_SWEEP_CHUNK")
+
+
+def resolve(config: Optional[DispatchConfig]) -> DispatchConfig:
+    return config if config is not None else DispatchConfig()
+
+
+def resolve_precision(config: Optional[DispatchConfig] = None,
+                      precision=None, device="cuda") -> PrecisionPolicy:
+    """The :class:`PrecisionPolicy` a call runs under: explicit
+    ``precision`` > ``config.precision`` > ``$REPRO_PRECISION`` > the
+    default of ``device`` (f64 on the CPU, compensated f32 on CUDA).  A
+    malformed env value warns and falls through to the device default."""
+    if precision is not None:
+        return _precision.resolve(precision)
+    cfg = resolve(config)
+    if cfg.precision is not None:
+        return _precision.resolve(cfg.precision)
+    env = os.environ.get("REPRO_PRECISION", "").strip()
+    if env:
+        try:
+            return _precision.resolve(env)
+        except ValueError:
+            warnings.warn(
+                f"REPRO_PRECISION={env!r} is not a known policy "
+                f"({sorted(_precision.POLICIES)}); using the device "
+                f"default", RuntimeWarning, stacklevel=2)
+    return _precision.default_policy(device)
+
+
+def chunk_plan(size: int, per_point_bytes: int,
+               config: Optional[DispatchConfig] = None
+               ) -> List[Tuple[int, int]]:
+    """Cut a grid axis of ``size`` into ``(start, stop)`` chunks whose
+    device working set (``per_point_bytes`` each) stays within the budget;
+    an explicit chunk size wins over the budget."""
+    cfg = resolve(config)
+    size = int(size)
+    if size <= 0:
+        return []
+    forced = cfg.chunk_size()
+    if forced is not None:
+        step = max(1, int(forced))
+    else:
+        step = max(1, cfg.budget() // max(1, int(per_point_bytes)))
+    return [(s, min(s + step, size)) for s in range(0, size, step)]
+
+
+def trial_chunk(n_trials: int, per_trial_bytes: int,
+                config: Optional[DispatchConfig] = None) -> int:
+    """Trials per block: all of them, unless one grid point at the full
+    trial count would exceed the budget."""
+    budget = resolve(config).budget()
+    if n_trials * per_trial_bytes <= budget:
+        return int(n_trials)
+    return max(1, min(int(n_trials), budget // max(1, int(per_trial_bytes))))

@@ -1,0 +1,321 @@
+"""Scenario catalog + parameter grids for the batched layers.
+
+A :class:`Scenario` is one named (checkpoint, power) operating point: the
+paper's figure setups and the §4 exascale scenarios live in one registry.
+A :class:`ParamGrid` is the struct-of-arrays form the batched sweep and
+engine consume: the nine resilience/power parameters as broadcast f64
+tensors of one shape, on one device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .._device import F64, resolve_device
+from ..core.failures import (FailureProcess, Weibull, as_process,
+                             get_process)
+from ..core.params import (CheckpointParams, PowerParams,
+                           EXASCALE_POWER_RHO55, EXASCALE_POWER_RHO7,
+                           MU_IND_JAGUAR_MIN)
+
+
+# ---------------------------------------------------------------------------
+# Scenario: one named operating point
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Scenario:
+    name: str
+    ckpt: CheckpointParams
+    power: PowerParams
+    T_base: float = 1.0
+    description: str = ""
+    #: inter-failure distribution; None = the paper's exponential process.
+    process: Optional[FailureProcess] = None
+
+
+_REGISTRY: Dict[str, Callable[..., Scenario]] = {}
+
+
+def register_scenario(name: str):
+    """Decorator: register a named Scenario constructor."""
+    def deco(fn: Callable[..., Scenario]):
+        _REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+def get_scenario(name: str, **kwargs) -> Scenario:
+    try:
+        ctor = _REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown scenario {name!r}; "
+                       f"one of {sorted(_REGISTRY)}") from None
+    return ctor(**kwargs)
+
+
+def list_scenarios() -> dict:
+    """name -> first docstring line of each registered constructor."""
+    return {n: (fn.__doc__ or "").strip().splitlines()[0] if fn.__doc__ else ""
+            for n, fn in sorted(_REGISTRY.items())}
+
+
+@register_scenario("fig12")
+def fig12(mu_min: float = 300.0, rho: float = 5.5,
+          alpha: float = 1.0) -> Scenario:
+    """Figures 1-2: C=R=10 min, D=1 min, omega=1/2; power from target rho."""
+    ck = CheckpointParams(C=10.0, R=10.0, D=1.0, mu=mu_min, omega=0.5)
+    pw = PowerParams.from_rho(rho=rho, alpha=alpha)
+    return Scenario(name=f"fig12(mu={mu_min:g},rho={rho:g})", ckpt=ck,
+                    power=pw, description="paper Figures 1-2 setup")
+
+
+@register_scenario("fig3")
+def fig3(n_nodes: float = 1.0e6, rho: float = 5.5) -> Scenario:
+    """Figure 3: C=R=1 min, D=0.1 min, omega=1/2, mu=120 min @ 1e6 nodes."""
+    mu = 120.0 * (1.0e6 / float(n_nodes))
+    ck = CheckpointParams(C=1.0, R=1.0, D=0.1, mu=mu, omega=0.5)
+    pw = EXASCALE_POWER_RHO55 if abs(rho - 5.5) < 1e-9 else (
+        EXASCALE_POWER_RHO7 if abs(rho - 7.0) < 1e-9
+        else PowerParams.from_rho(rho=rho, alpha=1.0))
+    return Scenario(name=f"fig3(N={n_nodes:g},rho={rho:g})", ckpt=ck,
+                    power=pw, description="paper Figure 3 scalability setup")
+
+
+@register_scenario("exascale_rho55")
+def exascale_rho55(mu_min: float = 300.0) -> Scenario:
+    """Exascale scenario #1: 20 mW/node, half static (rho = 5.5)."""
+    ck = CheckpointParams(C=10.0, R=10.0, D=1.0, mu=mu_min, omega=0.5)
+    return Scenario(name=f"exascale_rho55(mu={mu_min:g})", ckpt=ck,
+                    power=EXASCALE_POWER_RHO55,
+                    description="paper §4 Exascale power scenario, rho=5.5")
+
+
+@register_scenario("exascale_rho7")
+def exascale_rho7(mu_min: float = 300.0) -> Scenario:
+    """Exascale scenario #2: P_static = 5 mW, same overheads (rho = 7)."""
+    ck = CheckpointParams(C=10.0, R=10.0, D=1.0, mu=mu_min, omega=0.5)
+    return Scenario(name=f"exascale_rho7(mu={mu_min:g})", ckpt=ck,
+                    power=EXASCALE_POWER_RHO7,
+                    description="paper §4 Exascale power scenario, rho=7")
+
+
+@register_scenario("jaguar")
+def jaguar(n_nodes: int = 45208, C: float = 10.0, R: float = 10.0,
+           D: float = 1.0, omega: float = 0.5) -> Scenario:
+    """Jaguar-derived platform: mu_ind ~ 125 years, mu = mu_ind / N."""
+    ck = CheckpointParams(C=C, R=R, D=D,
+                          mu=MU_IND_JAGUAR_MIN / float(n_nodes), omega=omega)
+    return Scenario(name=f"jaguar(N={n_nodes})", ckpt=ck,
+                    power=EXASCALE_POWER_RHO55,
+                    description="Jaguar per-proc MTBF scaled to N units")
+
+
+@register_scenario("robustness")
+def robustness(base: str = "exascale_rho55", process: str = "weibull",
+               shape: float = 0.7, sigma: float = 1.0,
+               trace=None, **base_kwargs) -> Scenario:
+    """Any registered scenario under a non-exponential failure process."""
+    sc = get_scenario(base, **base_kwargs)
+    if process == "weibull":
+        proc: FailureProcess = get_process("weibull", shape=shape)
+        tag = f"weibull(k={shape:g})"
+    elif process == "lognormal":
+        proc = get_process("lognormal", sigma=sigma)
+        tag = f"lognormal(sigma={sigma:g})"
+    elif process == "trace":
+        if trace is None:
+            raise ValueError("process='trace' needs trace=[gaps...]")
+        proc = get_process("trace", gaps=tuple(trace))
+        tag = f"trace(n={len(proc.gaps)})"
+    else:
+        proc = as_process(process)
+        tag = proc.name
+    return Scenario(name=f"robustness[{sc.name}, {tag}]", ckpt=sc.ckpt,
+                    power=sc.power, T_base=sc.T_base, process=proc,
+                    description=f"{sc.description or sc.name} under "
+                                f"{tag} failures")
+
+
+# ---------------------------------------------------------------------------
+# ParamGrid: struct-of-tensors parameter batches
+# ---------------------------------------------------------------------------
+
+_FIELDS = ("C", "R", "D", "mu", "omega",
+           "P_static", "P_cal", "P_io", "P_down")
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamGrid:
+    """Broadcast f64 tensors of checkpoint + power parameters, one device.
+
+    All nine fields share one shape after construction.  Fields given as
+    numbers or arrays go to the device of the fields given as tensors; with
+    no tensor field at all the grid lands on the default ``"cuda"`` device
+    (use the ``device=`` of the constructors below to choose).
+    """
+
+    C: torch.Tensor
+    R: torch.Tensor
+    D: torch.Tensor
+    mu: torch.Tensor
+    omega: torch.Tensor
+    P_static: torch.Tensor
+    P_cal: torch.Tensor
+    P_io: torch.Tensor
+    P_down: torch.Tensor
+
+    def __post_init__(self):
+        vals = [getattr(self, f) for f in _FIELDS]
+        dev = next((v.device for v in vals if isinstance(v, torch.Tensor)),
+                   None)
+        dev = resolve_device("cuda" if dev is None else dev)
+        arrs = torch.broadcast_tensors(
+            *(torch.as_tensor(v, dtype=F64, device=dev) for v in vals))
+        for f, a in zip(_FIELDS, arrs):
+            object.__setattr__(self, f, a.contiguous())
+
+    # -- shape plumbing ------------------------------------------------------
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.C.shape)
+
+    @property
+    def size(self) -> int:
+        return self.C.numel()
+
+    @property
+    def device(self) -> torch.device:
+        return self.C.device
+
+    def ravel(self) -> "ParamGrid":
+        return ParamGrid(**{f: getattr(self, f).reshape(-1) for f in _FIELDS})
+
+    def reshape(self, shape) -> "ParamGrid":
+        return ParamGrid(**{f: getattr(self, f).reshape(shape)
+                            for f in _FIELDS})
+
+    def to(self, device) -> "ParamGrid":
+        dev = resolve_device(device)
+        return ParamGrid(**{f: getattr(self, f).to(dev) for f in _FIELDS})
+
+    def take(self, idx) -> "ParamGrid":
+        """The flat grid restricted to raveled points ``idx``."""
+        flat = self.ravel()
+        return ParamGrid(**{f: getattr(flat, f)[idx] for f in _FIELDS})
+
+    def fields(self) -> dict:
+        """Dict-of-tensors view."""
+        return {f: getattr(self, f) for f in _FIELDS}
+
+    # -- derived (paper §3) --------------------------------------------------
+    @property
+    def a(self) -> torch.Tensor:
+        return (1.0 - self.omega) * self.C
+
+    @property
+    def b(self) -> torch.Tensor:
+        return 1.0 - (self.D + self.R + self.omega * self.C) / self.mu
+
+    def period_bounds(self) -> tuple:
+        """(lo, hi) of the raw valid-period interval per grid point."""
+        return torch.maximum(self.a, self.C), 2.0 * self.mu * self.b
+
+    def valid(self) -> torch.Tensor:
+        """Non-degenerate mask."""
+        lo, hi = self.period_bounds()
+        return hi > lo * (1.0 + 1e-9)
+
+    @property
+    def rho(self) -> torch.Tensor:
+        return (self.P_static + self.P_io) / (self.P_static + self.P_cal)
+
+    # -- object views --------------------------------------------------------
+    def ckpt_at(self, idx) -> CheckpointParams:
+        return CheckpointParams(C=float(self.C[idx]), R=float(self.R[idx]),
+                                D=float(self.D[idx]), mu=float(self.mu[idx]),
+                                omega=float(self.omega[idx]))
+
+    def power_at(self, idx) -> PowerParams:
+        return PowerParams(P_static=float(self.P_static[idx]),
+                           P_cal=float(self.P_cal[idx]),
+                           P_io=float(self.P_io[idx]),
+                           P_down=float(self.P_down[idx]))
+
+    # -- constructors --------------------------------------------------------
+    @classmethod
+    def from_params(cls, ckpt: CheckpointParams, power: PowerParams,
+                    device="cuda") -> "ParamGrid":
+        t = lambda x: torch.tensor(x, dtype=F64, device=resolve_device(device))
+        return cls(C=t(ckpt.C), R=t(ckpt.R), D=t(ckpt.D), mu=t(ckpt.mu),
+                   omega=t(ckpt.omega), P_static=t(power.P_static),
+                   P_cal=t(power.P_cal), P_io=t(power.P_io),
+                   P_down=t(power.P_down))
+
+
+def _col(xs, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(xs, dtype=np.float64), dtype=F64,
+                        device=resolve_device(device))
+
+
+def grid_from_scenarios(scens: Iterable[Scenario],
+                        device="cuda") -> ParamGrid:
+    """Stack scenarios along one leading axis (shape ``(len(scens),)``)."""
+    scens = list(scens)
+    c = lambda xs: _col(xs, device)
+    return ParamGrid(
+        C=c([s.ckpt.C for s in scens]), R=c([s.ckpt.R for s in scens]),
+        D=c([s.ckpt.D for s in scens]), mu=c([s.ckpt.mu for s in scens]),
+        omega=c([s.ckpt.omega for s in scens]),
+        P_static=c([s.power.P_static for s in scens]),
+        P_cal=c([s.power.P_cal for s in scens]),
+        P_io=c([s.power.P_io for s in scens]),
+        P_down=c([s.power.P_down for s in scens]))
+
+
+def product_grid(ckpts: Sequence[CheckpointParams],
+                 powers: Sequence[PowerParams], device="cuda") -> ParamGrid:
+    """Outer product grid of shape ``(len(ckpts), len(powers))``."""
+    col = lambda xs: _col(xs, device)[:, None]
+    row = lambda xs: _col(xs, device)[None, :]
+    return ParamGrid(
+        C=col([c.C for c in ckpts]), R=col([c.R for c in ckpts]),
+        D=col([c.D for c in ckpts]), mu=col([c.mu for c in ckpts]),
+        omega=col([c.omega for c in ckpts]),
+        P_static=row([p.P_static for p in powers]),
+        P_cal=row([p.P_cal for p in powers]),
+        P_io=row([p.P_io for p in powers]),
+        P_down=row([p.P_down for p in powers]))
+
+
+def mu_rho_grid(mus: Sequence[float], rhos: Sequence[float],
+                alpha: float = 1.0, device="cuda") -> ParamGrid:
+    """Figures 1-2 grid: fig12 resilience x powers at target rho values."""
+    ckpts = [get_scenario("fig12", mu_min=float(m)).ckpt for m in mus]
+    powers = [PowerParams.from_rho(rho=float(r), alpha=alpha) for r in rhos]
+    return product_grid(ckpts, powers, device)
+
+
+def nodes_grid(n_nodes: Sequence[float], power: PowerParams,
+               device="cuda") -> ParamGrid:
+    """Figure 3 grid: scalability in N at one power scenario (1-D)."""
+    ckpts = [get_scenario("fig3", n_nodes=float(n)).ckpt for n in n_nodes]
+    return product_grid(ckpts, [power], device).reshape((len(ckpts),))
+
+
+def robustness_grid(shapes: Sequence[float], mu_mins: Sequence[float],
+                    base: str = "exascale_rho55", device="cuda",
+                    ) -> Tuple[ParamGrid, Weibull]:
+    """Weibull-shape x platform-MTBF grid over an exascale scenario family,
+    plus the Weibull process whose ``shape`` array has one k per row."""
+    scens = [get_scenario(base, mu_min=float(m)) for m in mu_mins]
+    row = grid_from_scenarios(scens, device)
+    shp = (len(shapes), len(mu_mins))
+    grid = ParamGrid(**{f: torch.broadcast_to(getattr(row, f), shp)
+                        for f in _FIELDS})
+    shape_arr = np.broadcast_to(
+        np.asarray(shapes, dtype=np.float64)[:, None], shp)
+    return grid, Weibull(shape=shape_arr)

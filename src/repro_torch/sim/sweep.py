@@ -1,0 +1,357 @@
+"""Batched closed-form model + period solvers over a :class:`ParamGrid`.
+
+Elementwise tensor counterparts of ``core.model`` and ``core.optimal``:
+the §3.1/§3.2 expectations, a branchless golden-section minimizer, the
+AlgoT closed form, the AlgoE quadratic root (the corrected coefficients of
+``optimal.derived_coefficients``) and the Young/Daly/MSK baselines, for a
+whole grid at once, chunked to the device-memory budget.
+
+Root selection matches the scalar solver: E' = Q/K with K > 0 on the
+valid interval, so the energy minimum is the root of Q where Q' > 0; any
+point where that root is missing, complex, out of the bracket, or beaten
+by the golden-section argmin falls back to the numeric result.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Sequence
+
+import torch
+
+from .._device import F64, resolve_device
+from ..core.params import PowerParams
+from . import dispatch as _dispatch
+from . import precision as _precision
+from . import scenarios
+from .scenarios import ParamGrid
+
+_GOLDEN = (math.sqrt(5.0) - 1.0) / 2.0
+
+#: device-memory estimate per grid point of the model sweep (the stacked
+#: golden-section state plus its elementwise temporaries, with headroom);
+#: sizes the chunks of :func:`evaluate_grid`.
+_MODEL_BYTES_PER_POINT = 4096
+
+# p: dict of broadcastable tensors with the ParamGrid field names.
+
+
+def _ab(p):
+    a = (1.0 - p["omega"]) * p["C"]
+    b = 1.0 - (p["D"] + p["R"] + p["omega"] * p["C"]) / p["mu"]
+    return a, b
+
+
+def time_final_batched(T, p, T_base=1.0):
+    """§3.1: T_final = T_base * T / ((T-a)(b - T/2mu)), elementwise."""
+    a, b = _ab(p)
+    return T_base * T / ((T - a) * (b - T / (2.0 * p["mu"])))
+
+
+def _re_exec(T, p):
+    C, omega = p["C"], p["omega"]
+    return (omega * C + (T**2 - C**2) / (2.0 * T)
+            + omega * C**2 / (2.0 * T))
+
+
+def _io_per_failure(T, p):
+    return p["R"] + p["C"]**2 / (2.0 * T)
+
+
+def energy_final_batched(T, p, T_base=1.0):
+    """§3.2: E_final = T_cal P_cal + T_io P_io + T_down P_down + Tf P_static."""
+    C, omega = p["C"], p["omega"]
+    Tf = time_final_batched(T, p, T_base)
+    nf = Tf / p["mu"]
+    T_cal = T_base + nf * _re_exec(T, p)
+    T_io = T_base * C / (T - (1.0 - omega) * C) + nf * _io_per_failure(T, p)
+    T_down = nf * p["D"]
+    # Plain left-associated chain under the f64 oracle, Neumaier-compensated
+    # under a reduced-precision policy (sim/precision.py).
+    return _precision.psum((T_cal * p["P_cal"], T_io * p["P_io"],
+                            T_down * p["P_down"], Tf * p["P_static"]))
+
+
+def _bracket(p):
+    """Shrunk (lo, hi, valid) per grid point; degenerate points get a
+    harmless placeholder bracket and are masked by ``valid``."""
+    a, b = _ab(p)
+    lo0 = torch.maximum(a, p["C"])
+    hi0 = 2.0 * p["mu"] * b
+    valid = hi0 > lo0 * (1.0 + 1e-9)
+    hi0 = torch.where(valid, hi0, 2.0 * lo0 + 1.0)
+    span = hi0 - lo0
+    return lo0 + 1e-9 * span + 1e-12, hi0 - 1e-9 * span, valid
+
+
+def golden_section_batched(f: Callable, lo, hi, iters: int = 40):
+    """Elementwise golden-section argmin of ``f`` on [lo, hi]: the
+    branchless form of ``optimal.golden_section``, one batched evaluation
+    of ``f`` per iteration."""
+    a, b = lo, hi
+    c = b - _GOLDEN * (b - a)
+    d = a + _GOLDEN * (b - a)
+    fc, fd = f(c), f(d)
+    for _ in range(iters):
+        left = fc < fd
+        a2 = torch.where(left, a, c)
+        b2 = torch.where(left, d, b)
+        new = torch.where(left, b2 - _GOLDEN * (b2 - a2),
+                          a2 + _GOLDEN * (b2 - a2))
+        fnew = f(new)
+        c, d, fc, fd = (torch.where(left, new, d),
+                        torch.where(left, c, new),
+                        torch.where(left, fnew, fd),
+                        torch.where(left, fc, fnew))
+        a, b = a2, b2
+    return 0.5 * (a + b)
+
+
+# ---------------------------------------------------------------------------
+# Period solvers
+# ---------------------------------------------------------------------------
+
+def _t_opt_time_from(p, t_num):
+    """AlgoT closed form, falling back to the supplied numeric argmin."""
+    a, b = _ab(p)
+    lo, hi, _ = _bracket(p)
+    val = 2.0 * a * b * p["mu"]
+    t_closed = torch.clamp(torch.sqrt(torch.clamp_min(val, 0.0)), lo, hi)
+    return torch.where(val > 0.0, t_closed, t_num)
+
+
+def t_opt_time_batched(p, T_base=1.0):
+    """AlgoT, Eq. (1) closed form; numeric fallback where it degenerates;
+    NaN at degenerate grid points."""
+    lo, hi, valid = _bracket(p)
+    t_num = golden_section_batched(
+        lambda t: time_final_batched(t, p, T_base), lo, hi)
+    return torch.where(valid, _t_opt_time_from(p, t_num), math.nan)
+
+
+def _energy_quadratic(p):
+    """Vectorized corrected coefficients (``optimal.derived_coefficients``)."""
+    a, b = _ab(p)
+    C, mu, omega = p["C"], p["mu"], p["omega"]
+    al = p["P_cal"] / p["P_static"]
+    be = p["P_io"] / p["P_static"]
+    ga = p["P_down"] / p["P_static"]
+    P = al * omega * C + be * p["R"] + ga * p["D"]
+    Q = (be - al * (1.0 - omega)) * C**2
+    c2 = (1.0 / (2.0 * mu) + P / (2.0 * mu**2) + al * b / (2.0 * mu)
+          + (al * a - be * C) / (4.0 * mu**2))
+    c1 = (be * C - al * a) * b / mu + Q / (2.0 * mu**2)
+    c0 = (-a * b * (P + mu) / mu - be * C * b**2
+          - Q * (b / (2.0 * mu) + a / (4.0 * mu**2)))
+    return c2, c1, c0
+
+
+def _t_opt_energy_from(p, T_base, t_num):
+    """AlgoE quadratic root, guarded by the supplied numeric argmin."""
+    lo, hi, _ = _bracket(p)
+    c2, c1, c0 = _energy_quadratic(p)
+
+    disc = c1**2 - 4.0 * c2 * c0
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    safe_c2 = torch.where(torch.abs(c2) > 1e-300, c2, 1.0)
+    r1 = (-c1 - sq) / (2.0 * safe_c2)
+    r2 = (-c1 + sq) / (2.0 * safe_c2)
+    safe_c1 = torch.where(torch.abs(c1) > 1e-300, c1, 1.0)
+    rlin = -c0 / safe_c1
+
+    def is_min_root(r):
+        # E'' sign at a root of E' equals the sign of Q' (K > 0 in-bracket).
+        return ((disc >= 0.0) & (torch.abs(c2) > 1e-300)
+                & (r > lo) & (r < hi) & (2.0 * c2 * r + c1 > 0.0))
+
+    lin_ok = (torch.abs(c2) <= 1e-300) & (torch.abs(c1) > 1e-300) \
+        & (rlin > lo) & (rlin < hi) & (c1 > 0.0)
+
+    t_root = torch.where(is_min_root(r1), r1,
+                         torch.where(is_min_root(r2), r2,
+                                     torch.where(lin_ok, rlin, t_num)))
+    # Never return a root whose energy loses to the numeric argmin.
+    e_root = energy_final_batched(t_root, p, T_base)
+    e_num = energy_final_batched(t_num, p, T_base)
+    return torch.where(e_root <= e_num * (1.0 + 1e-9), t_root, t_num)
+
+
+def t_opt_energy_batched(p, T_base=1.0):
+    """AlgoE: minimum-branch quadratic root, numeric fallback elementwise;
+    NaN at degenerate grid points."""
+    lo, hi, valid = _bracket(p)
+    t_num = golden_section_batched(
+        lambda t: energy_final_batched(t, p, T_base), lo, hi)
+    return torch.where(valid, _t_opt_energy_from(p, T_base, t_num), math.nan)
+
+
+def t_young_batched(p):
+    return torch.sqrt(2.0 * p["C"] * p["mu"]) + p["C"]
+
+
+def t_daly_batched(p):
+    return torch.sqrt(2.0 * p["C"] * (p["mu"] + p["D"] + p["R"])) + p["C"]
+
+
+def _msk_energy(T, p0, T_base=1.0):
+    """MSK objective on the omega=0 parameter set (paper §3.2 side note)."""
+    C, R = p0["C"], p0["R"]
+    Tf = time_final_batched(T, p0, T_base)
+    nf = Tf / p0["mu"]
+    T_cal = T_base + nf * (T - 2.0 * C) / 2.0
+    T_io = T_base * C / (T - C) + nf * (R + C)
+    T_down = nf * p0["D"]
+    return _precision.psum((T_cal * p0["P_cal"], T_io * p0["P_io"],
+                            T_down * p0["P_down"], Tf * p0["P_static"]))
+
+
+def _msk_setup(p):
+    """(omega=0 params, lo, hi, valid) for the MSK numeric argmin."""
+    p0 = dict(p)
+    p0["omega"] = torch.zeros_like(p["omega"])
+    lo, hi, valid = _bracket(p0)
+    return p0, torch.maximum(lo, 2.0 * p0["C"] + 1e-12), hi, valid
+
+
+def t_msk_energy_batched(p, T_base=1.0):
+    """MSK energy-optimal period; NaN at degenerate points."""
+    p0, lo, hi, valid = _msk_setup(p)
+    t = golden_section_batched(lambda t: _msk_energy(t, p0, T_base), lo, hi)
+    return torch.where(valid, t, math.nan)
+
+
+# ---------------------------------------------------------------------------
+# Grid evaluation
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GridResult:
+    """Periods/ratios for a whole grid; tensors of ``grid.shape`` on the
+    grid's device.
+
+    Degenerate points (``~valid``) carry T_time = T_energy = T_msk = C and
+    ratios of exactly 1.0; their Tf_*/E_* are NaN.
+    """
+
+    grid: ParamGrid
+    T_base: float
+    T_time: torch.Tensor         # AlgoT period
+    T_energy: torch.Tensor       # AlgoE period
+    T_young: torch.Tensor
+    T_daly: torch.Tensor
+    T_msk: torch.Tensor
+    Tf_time: torch.Tensor        # T_final at the AlgoT period
+    Tf_energy: torch.Tensor      # T_final at the AlgoE period
+    E_time: torch.Tensor         # E_final at the AlgoT period
+    E_energy: torch.Tensor       # E_final at the AlgoE period
+    time_ratio: torch.Tensor     # Tf_energy / Tf_time  (>= 1, "loss")
+    energy_ratio: torch.Tensor   # E_time / E_energy    (>= 1, "gain")
+    valid: torch.Tensor
+
+    @property
+    def energy_saving(self) -> torch.Tensor:
+        return 1.0 - 1.0 / self.energy_ratio
+
+    @property
+    def time_overhead(self) -> torch.Tensor:
+        return self.time_ratio - 1.0
+
+
+_FIELD_ORDER = ("C", "R", "D", "mu", "omega",
+                "P_static", "P_cal", "P_io", "P_down")
+_OUT_ORDER = ("T_time", "T_energy", "T_young", "T_daly", "T_msk",
+              "Tf_time", "Tf_energy", "E_time", "E_energy",
+              "time_ratio", "energy_ratio", "valid")
+
+
+def _evaluate_core(P, T_base):
+    """All outputs of :func:`evaluate_grid` for one stacked (9, N) chunk,
+    as a (12, N) tensor of P's dtype."""
+    p = dict(zip(_FIELD_ORDER, P))
+    lo, hi, valid = _bracket(p)
+    p0, lo_m, hi_m, _ = _msk_setup(p)
+
+    # The three numeric argmins (AlgoT fallback, AlgoE guard, MSK) share
+    # ONE golden-section loop over a stacked leading axis; each row
+    # evaluates its own objective.
+    def objective(t):
+        return torch.stack([time_final_batched(t[0], p, T_base),
+                            energy_final_batched(t[1], p, T_base),
+                            _msk_energy(t[2], p0, T_base)])
+
+    t_num = golden_section_batched(objective,
+                                   torch.stack([lo, lo, lo_m]),
+                                   torch.stack([hi, hi, hi_m]))
+    Tt = _t_opt_time_from(p, t_num[0])
+    Te = _t_opt_energy_from(p, T_base, t_num[1])
+    Ty = t_young_batched(p)
+    Td = t_daly_batched(p)
+    Tm = t_num[2]
+    Tf_t = time_final_batched(Tt, p, T_base)
+    Tf_e = time_final_batched(Te, p, T_base)
+    E_t = energy_final_batched(Tt, p, T_base)
+    E_e = energy_final_batched(Te, p, T_base)
+    C = p["C"]
+    return torch.stack([torch.where(valid, Tt, C),
+                        torch.where(valid, Te, C),
+                        Ty, Td,
+                        torch.where(valid, Tm, C),
+                        torch.where(valid, Tf_t, math.nan),
+                        torch.where(valid, Tf_e, math.nan),
+                        torch.where(valid, E_t, math.nan),
+                        torch.where(valid, E_e, math.nan),
+                        torch.where(valid, Tf_e / Tf_t, 1.0),
+                        torch.where(valid, E_t / E_e, 1.0),
+                        valid.to(C.dtype)])
+
+
+def evaluate_grid(grid: ParamGrid, T_base: float = 1.0, dispatch=None,
+                  precision=None, device="cuda") -> GridResult:
+    """Periods + time/energy ratios for every grid point, on ``device``.
+
+    The grid axis is cut into chunks that fit the device-memory budget
+    (``dispatch`` is a :class:`~repro_torch.sim.dispatch.DispatchConfig`;
+    None = environment defaults); the computation is elementwise, so the
+    chunk size never changes results.  ``precision`` selects the
+    :class:`~repro_torch.sim.precision.PrecisionPolicy` (None = config /
+    env / device default): a reduced-precision policy computes in its dtype
+    with compensated energy sums and returns f64 tensors.
+    """
+    dev = resolve_device(device)
+    pol = _dispatch.resolve_precision(dispatch, precision, dev)
+    flat = grid.ravel().to(dev)
+    P = torch.stack([getattr(flat, f) for f in _FIELD_ORDER])
+    raw = torch.empty((len(_OUT_ORDER), flat.size), dtype=F64, device=dev)
+    with _precision.use_policy(pol):
+        for start, stop in _dispatch.chunk_plan(
+                flat.size, _MODEL_BYTES_PER_POINT, dispatch):
+            raw[:, start:stop] = _evaluate_core(
+                pol.cast(P[:, start:stop]), float(T_base))
+    out = {k: raw[i].reshape(grid.shape) for i, k in enumerate(_OUT_ORDER)}
+    out["valid"] = out["valid"] > 0.5
+    return GridResult(grid=grid, T_base=float(T_base), **out)
+
+
+# ---------------------------------------------------------------------------
+# Figure-level conveniences
+# ---------------------------------------------------------------------------
+
+def sweep_rho_grid(rhos: Sequence[float], mu_minutes: float,
+                   alpha: float = 1.0, device="cuda") -> GridResult:
+    """Figure 1: rho swept at one MTBF (grid shape ``(1, len(rhos))``)."""
+    return evaluate_grid(scenarios.mu_rho_grid([mu_minutes], rhos, alpha,
+                                               device), device=device)
+
+
+def sweep_mu_rho_grid(mus: Sequence[float], rhos: Sequence[float],
+                      alpha: float = 1.0, device="cuda") -> GridResult:
+    """Figure 2: the (mu x rho) ratio surfaces in one call."""
+    return evaluate_grid(scenarios.mu_rho_grid(mus, rhos, alpha, device),
+                         device=device)
+
+
+def sweep_nodes_grid(n_nodes: Sequence[float], power: PowerParams,
+                     device="cuda") -> GridResult:
+    """Figure 3: scalability in N at one power scenario."""
+    return evaluate_grid(scenarios.nodes_grid(n_nodes, power, device),
+                         device=device)
