@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card and check it.
+"""Drive the PyTorch port's main paths once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -7,11 +7,15 @@ Phases (any failure exits non-zero; no result line is printed then):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; requires ``torch.cuda.is_available()``.
-2. build: compiles the event kernel from ``src/repro_torch/csrc`` and
-   prints the build time and the compiler's register report.
-3. parity: the kernel against its plain PyTorch version on the card,
-   bitwise, under both precision policies, on a dyadic schedule, a ragged
-   shape (B=37, N=333, F=200) and the exhaustion/truncation case.
+2. build: compiles every kernel source of ``src/repro_torch/csrc`` (one
+   nvcc each, all started together) and prints the build times and the
+   compiler's register reports.
+3. parity: the event kernel against its plain PyTorch version on the
+   card, bitwise, under both precision policies, on a dyadic schedule, a
+   ragged shape (B=37, N=333, F=200) and the exhaustion/truncation case;
+   the int8 quantize and dequantize kernels against theirs, bitwise (int8
+   payloads, scale bits, output bits; a NaN compares as NaN), on
+   ``quant_cases()``.
 4. model sweep: ``evaluate_grid`` on the 1,000,000-point
    ``mu_rho_grid(linspace(30,600,1000), linspace(1,10,1000))`` under both
    policies; the compensated periods, re-evaluated in f64, must be within
@@ -25,11 +29,27 @@ Phases (any failure exits non-zero; no result line is printed then):
    run replayed through the scalar oracle ``simulate_once(gaps=...)``
    (floats <= 1e-12 relative, equal failure counts, checkpoint counts
    within one); compensated per-point means within 1e-5 of f64.  The
-   MC-to-model gaps are reported, not gated.
-6. times: CUDA-event medians of 5 warm runs of the kernel and of the
-   plain version over each run's schedules (compared bitwise again at
-   these shapes), the schedule sampling, and the end-to-end calls; the
-   kernel's bound from the bytes it consumes.
+   MC-to-model gaps are reported, not gated.  Then the dispatch check:
+   on Weibull at the AlgoE periods, every lane's auto-sampled gaps and
+   every ``simulate_trajectories`` output are bitwise equal under
+   ``DispatchConfig()``, ``chunk=7`` and ``memory_mb=64``.
+6. checkpoint runtime at full width: xLSTM-125M's params and AdamW
+   moments (519,271,056 f32, drawn on the card from a seeded generator)
+   plus an int32 step, through ``CheckpointManager`` (buddy, the policy's
+   m) over ``ShardedStore(compress=True)`` under
+   ``CheckpointPolicy("algo_e_ml")``: a deep checkpoint, a buddy-only one,
+   a dropped buddy, a restore from the store.  Gates: every dequantized
+   leaf bitwise equal to the plain version's dequantization of its
+   payload and within half its group's scale (+1e-6 of the group's
+   max|x|) of the original; uncompressed leaves bitwise equal; payload
+   <= 0.27 of the f32 bytes; 57 quantize and 57 dequantize launches and
+   no plain-version call; every deep flush recorded "ok"; the policy's
+   (T, m) solved on the card within 1e-8 of the CPU's on the same
+   observations.  Prints the save and restore splits.
+7. times: CUDA-event medians of 5 warm runs of each kernel and of its
+   plain version at the main-path shapes (compared again), the schedule
+   sampling, and the end-to-end calls; each kernel's bound from the bytes
+   it moves.
 
 Near the end it prints one JSON line ``{"gates": {...}}`` with every
 gate's numbers, then one ``{"kernels": [...]}`` line, then the card's name
@@ -67,11 +87,105 @@ _OPS_PER_GAP = {"f64": 40, "compensated_f32": 72}
 #: grid (512 trials): AlgoT time/energy, AlgoE time/energy.
 _REF_GAPS = {"algo_t": (0.047, 0.033), "algo_e": (0.127, 0.111)}
 
+SOURCES = ("event_sweep.cu", "quant_blockwise.cu")
+
 N_TRIALS = 4096
 T_BASE = 4000.0
 #: (mu, rho) points of the model sweep and of the MC grid.
 SWEEP_SHAPE = (1000, 1000)
 MC_SHAPE = (32, 32)
+
+
+#: xLSTM-125M's 22 parameter leaves (path, shape), all f32, in the
+#: reference's flatten order: the runtime's default arch,
+#: src/repro/configs/xlstm_125m.py at full width (173,090,352 parameters;
+#: tests/test_torch_ckpt.py holds this table against the reference's
+#: jax.eval_shape).  The checkpointed state is these, AdamW's m and v of
+#: the same shapes, and an int32 step.
+XLSTM_125M_LEAVES = (
+    (("embed",), (50432, 768)),
+    (("final_norm", "bias"), (768,)),
+    (("final_norm", "scale"), (768,)),
+    (("lm_head",), (768, 50432)),
+    (("stages", 0, "ln1", "bias"), (6, 768)),
+    (("stages", 0, "ln1", "scale"), (6, 768)),
+    (("stages", 0, "mlstm", "b_if"), (6, 8)),
+    (("stages", 0, "mlstm", "down"), (6, 1536, 768)),
+    (("stages", 0, "mlstm", "up"), (6, 768, 1536)),
+    (("stages", 0, "mlstm", "w_if"), (6, 768, 8)),
+    (("stages", 0, "mlstm", "w_o"), (6, 768, 1536)),
+    (("stages", 0, "mlstm", "wk"), (6, 1536, 1536)),
+    (("stages", 0, "mlstm", "wq"), (6, 1536, 1536)),
+    (("stages", 0, "mlstm", "wv"), (6, 1536, 1536)),
+    (("stages", 1, "ln1", "bias"), (6, 768)),
+    (("stages", 1, "ln1", "scale"), (6, 768)),
+    (("stages", 1, "slstm", "b"), (6, 3072)),
+    (("stages", 1, "slstm", "ffn_d"), (6, 1024, 768)),
+    (("stages", 1, "slstm", "ffn_g"), (6, 768, 1024)),
+    (("stages", 1, "slstm", "ffn_u"), (6, 768, 1024)),
+    (("stages", 1, "slstm", "r"), (6, 4, 192, 768)),
+    (("stages", 1, "slstm", "w"), (6, 768, 3072)),
+)
+
+
+def xlstm_state(make):
+    """The checkpointed state ``(params, AdamWState(step, m, v, None))``
+    with the structure of the reference's trainer state (dicts, the
+    ``stages`` tuple, the empty ``tail``), each f32 leaf ``make(kind,
+    shape)`` for kind in params/m/v and the step ``make("step", ())``."""
+    import collections
+    state_t = collections.namedtuple("AdamWState", "step m v master")
+
+    def tree(kind):
+        root: dict = {}
+        for path, shape in XLSTM_125M_LEAVES:
+            node = root
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = make(kind, shape)
+
+        def fix(node):
+            if not isinstance(node, dict):
+                return node
+            if all(isinstance(k, int) for k in node):
+                return tuple(fix(node[i]) for i in range(len(node)))
+            return {k: fix(v) for k, v in node.items()}
+        out = fix(root)
+        out["tail"] = ()
+        return out
+    return (tree("params"), state_t(step=make("step", ()), m=tree("m"),
+                                    v=tree("v"), master=None))
+
+
+def quant_cases():
+    """(name, f32 numpy array) cases of the quantize parity check, from
+    numpy seed 12: lognormal magnitudes with random signs at 4,096, 5,000
+    (padded by 120) and 2^20 + 17 elements, and one array of 128-lane
+    groups with a NaN, a +inf, a -inf, all zeros, halfway ties at scale 1,
+    subnormals, and the +-127 clip edge."""
+    import numpy as np
+    rng = np.random.default_rng(12)
+
+    def lognormal(n):
+        sign = np.where(rng.random(n) < 0.5, -1.0, 1.0)
+        return (rng.lognormal(0.0, 1.0, n) * sign).astype(np.float32)
+    groups = [lognormal(128) for _ in range(8)]
+    groups[0][5] = np.nan
+    groups[1][77] = np.inf
+    groups[2][100] = -np.inf
+    groups[3][:] = 0.0
+    ties = groups[4]                   # max|x| = 127 -> scale exactly 1
+    ties[:] = np.round(ties)
+    ties[:8] = [127.0, 0.5, 1.5, -2.5, 126.5, -0.5, 2.5, -126.5]
+    groups[5][:] = (rng.standard_normal(128) * 1e-39).astype(np.float32)
+    groups[6][:64] = (rng.standard_normal(64) * 1e-40).astype(np.float32)
+    groups[6][64] = 3e-38              # smallest normals beside subnormals
+    clip = groups[7]
+    clip[:4] = [127.00001, -127.00001, 126.99999, -126.99999]
+    return [("lognormal_4096", lognormal(4096)),
+            ("lognormal_5000_pad120", lognormal(5000)),
+            ("lognormal_1048593", lognormal(2**20 + 17)),
+            ("special_values", np.concatenate(groups))]
 
 
 def fail(msg: str) -> None:
@@ -114,15 +228,26 @@ def phase_device():
 # 2. build
 # ---------------------------------------------------------------------------
 
-def phase_build() -> float:
-    from repro_torch.kernels import _build, event_sweep as es
-    t0 = time.perf_counter()
+def phase_build() -> dict:
+    """Build every kernel source in parallel; returns seconds per source."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import event_sweep as es
+    from repro_torch.kernels import quant_blockwise as qb
+
+    def one(src):
+        t0 = time.perf_counter()
+        _build.build(src)
+        return time.perf_counter() - t0
+    with ThreadPoolExecutor(len(SOURCES)) as ex:
+        secs = dict(zip(SOURCES, ex.map(one, SOURCES)))
     es.load_library()
-    secs = time.perf_counter() - t0
-    log(f"build: event_sweep.cu in {secs:.3f} s")
-    for line in _build.build_log("event_sweep.cu").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    qb.load_library()
+    for src in SOURCES:
+        log(f"build: {src} in {secs[src]:.3f} s")
+        for line in _build.build_log(src).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
     return secs
 
 
@@ -210,6 +335,56 @@ def phase_parity(dev) -> float:
     if event_sweep.launches <= before:
         fail("the launch counter did not increase")
     return max_err
+
+
+def _bits_equal(a, b) -> bool:
+    """Bitwise equality of two tensors; NaNs compare as NaN (the card's
+    NaN payload is its own)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.dtype.is_floating_point:
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(torch.where(nan, 0.0, a).view(torch.int32),
+                            torch.where(nan, 0.0, b).view(torch.int32)))
+
+
+def _max_abs(a, b) -> float:
+    import torch
+    a, b = a.double(), b.double()
+    ok = torch.isfinite(a) & torch.isfinite(b)
+    return float((a - b)[ok].abs().max()) if bool(ok.any()) else 0.0
+
+
+def phase_quant_parity(dev) -> tuple:
+    """Quantize/dequantize kernels against their plain versions on the card,
+    bitwise, on every ``quant_cases()`` array; returns the largest
+    absolute differences (quantize, dequantize)."""
+    import torch
+    from repro_torch.kernels import ops, quant_blockwise as qb
+    err_q = err_d = 0.0
+    before = (qb.quantize.launches, qb.dequantize.launches)
+    for name, x in quant_cases():
+        t = torch.from_numpy(x).to(dev)
+        q, s, pad = ops.quantize_array(t)
+        x2 = torch.cat([t, t.new_zeros(pad)]).reshape(q.shape)
+        pq, ps = qb.quantize_plain(x2)
+        d, pd = qb.dequantize(q, s), qb.dequantize_plain(q, s)
+        torch.cuda.synchronize()
+        ok = (_bits_equal(q, pq), _bits_equal(s, ps), _bits_equal(d, pd))
+        err_q = max(err_q, _max_abs(q, pq), _max_abs(s, ps))
+        err_d = max(err_d, _max_abs(d, pd))
+        log(f"parity quant {name:22s} {tuple(q.shape)} pad {pad}: q "
+            f"bitwise={ok[0]} scales bitwise={ok[1]} dequant "
+            f"bitwise={ok[2]} nan scales {int(torch.isnan(s).sum())} "
+            f"inf scales {int(torch.isinf(s).sum())}")
+        if not all(ok):
+            fail(f"quant kernels != plain versions on {name}")
+    if (qb.quantize.launches, qb.dequantize.launches) <= before:
+        fail("the quant launch counters did not increase")
+    return err_q, err_d
 
 
 # ---------------------------------------------------------------------------
@@ -413,8 +588,258 @@ def gate_mc(mc_grid, model, runs, dev) -> dict:
     return report
 
 
+def _gap_fingerprint(gaps):
+    """Per-lane exact fingerprint of a (P, N, F) f64 schedule: the sums
+    over j of (j + 1) times each 16-bit chunk of gap j's bits (integer
+    sums, so the summation order cannot change them)."""
+    import torch
+    bits = gaps.contiguous().view(torch.int64)
+    w = torch.arange(1, bits.shape[-1] + 1, dtype=torch.int64,
+                     device=bits.device)
+    return torch.stack([(((bits >> (16 * c)) & 0xFFFF) * w).sum(-1)
+                        for c in range(4)], dim=-1)
+
+
+def phase_dispatch_invariance(mc_grid, model, dev) -> dict:
+    """Auto-sampled gaps and results under three DispatchConfigs, on
+    Weibull(0.7) at the AlgoE periods: every lane's schedule and every
+    output must be bitwise equal."""
+    import torch
+    from repro_torch.core import Weibull
+    from repro_torch.sim import (F64, DispatchConfig, sampled_schedules,
+                                 simulate_trajectories)
+    kw = dict(T_base=T_BASE, n_trials=N_TRIALS, seed=7,
+              process=Weibull(shape=0.7), device=dev)
+    T = model.T_energy
+    fps, outs, blocks = [], [], []
+    cfgs = (DispatchConfig(), DispatchConfig(chunk=7),
+            DispatchConfig(memory_mb=64))
+    for cfg in cfgs:
+        fp = torch.full((mc_grid.size, N_TRIALS, 4), -1, dtype=torch.int64,
+                        device=dev)
+        n = 0
+        for blk in sampled_schedules(T, mc_grid, dispatch=cfg, **kw):
+            fp[blk.points[:, None], torch.arange(
+                blk.trials.start, blk.trials.stop, device=dev)] = \
+                _gap_fingerprint(blk.gaps)
+            n += 1
+        fps.append(fp)
+        blocks.append(n)
+        outs.append(simulate_trajectories(T, mc_grid, dispatch=cfg,
+                                          precision=F64, **kw))
+    if bool((fps[0] < 0).any()):
+        fail("dispatch check: some lane was never sampled")
+    gaps_equal = all(torch.equal(fps[0], f) for f in fps[1:])
+    fields = ("wall_time", "energy", "work_executed", "io_time",
+              "down_time", "n_failures", "n_checkpoints", "truncated",
+              "gaps_exhausted")
+    outs_equal = all(torch.equal(getattr(outs[0], f), getattr(o, f))
+                     for o in outs[1:] for f in fields)
+    log(f"dispatch check weibull/f64/algo_e: blocks {blocks} for "
+        f"DispatchConfig(), chunk=7, memory_mb=64; lane gaps bitwise equal "
+        f"{gaps_equal}; simulate_trajectories outputs bitwise equal "
+        f"{outs_equal}")
+    if not (gaps_equal and outs_equal):
+        fail("auto-sampled MC depends on the DispatchConfig")
+    return {"blocks": blocks, "gaps_equal": gaps_equal,
+            "outputs_equal": outs_equal}
+
+
 # ---------------------------------------------------------------------------
-# 6. times
+# 6. the checkpoint runtime at full width
+# ---------------------------------------------------------------------------
+
+#: the checkpointed state's draws (params N(0, 0.02), m N(0, 1e-3), v the
+#: square of N(0, 1e-3)) come from a torch.Generator on the card with this
+#: seed.
+CKPT_SEED = 2026
+#: the policy: the paper's two-level Exascale powers, a one-day platform
+#: MTBF, priors for the buddy level (a RAM-to-RAM copy) and the deep
+#: level; the measured costs replace them as checkpoints complete.
+POLICY_CFG = dict(strategy="algo_e_ml", C_s=60.0, R_s=60.0, D_s=60.0,
+                  C1_s=0.5, R1_s=0.5, q=0.1, mu_s=24 * 3600.0, omega=0.5)
+
+
+def _ckpt_sizes() -> tuple:
+    """(compressed leaves, f32 bytes) of the checkpointed params and
+    moments: 57 and 2,077,084,224 at xLSTM-125M's widths."""
+    import numpy as np
+    sizes = [int(np.prod(s)) for _, s in XLSTM_125M_LEAVES]
+    return 3 * sum(n >= 4096 for n in sizes), 3 * 4 * sum(sizes)
+
+
+def _xlstm_on_card(dev):
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(CKPT_SEED)
+
+    def make(kind, shape):
+        if kind == "step":
+            return torch.tensor(1000, dtype=torch.int32, device=dev)
+        x = torch.empty(shape, dtype=torch.float32, device=dev)
+        x.normal_(0.0, 0.02 if kind == "params" else 1e-3, generator=gen)
+        return x.square_() if kind == "v" else x
+    return xlstm_state(make)
+
+
+def run_ckpt_path(dev, root: Path) -> dict:
+    """Drive the checkpoint runtime once through its entry points; returns
+    what the gates and the report need.  Counters are read by the caller
+    around it."""
+    import torch
+    from repro_torch.ckpt import (CheckpointManager, ManagerConfig,
+                                  ShardedStore, StoreConfig)
+    from repro_torch.core import CheckpointPolicy, PolicyConfig
+    from repro_torch.energy import (PAPER_EXASCALE_ML_PROFILE, EnergyMeter,
+                                    Phase)
+    prof = PAPER_EXASCALE_ML_PROFILE
+    state = _xlstm_on_card(dev)
+    torch.cuda.synchronize()
+    pol = CheckpointPolicy(PolicyConfig(**POLICY_CFG), prof.power_params(),
+                           ml_power=prof.ml_power_params(), device=dev)
+    store = ShardedStore(StoreConfig(root=str(root), compress=True,
+                                     device=dev))
+    mgr = CheckpointManager(store, pol, ManagerConfig(pfs_every=None))
+    meter = EnergyMeter(prof)
+
+    t0 = time.perf_counter()
+    first = mgr.maybe_checkpoint(1, state)
+    mgr.wait()
+    t_deep = time.perf_counter() - t0
+    save_split = dict(store.last_save)
+    not_due = mgr.maybe_checkpoint(2, state)
+    step2 = 1 + pol.period_steps()
+    t0 = time.perf_counter()
+    second = mgr.maybe_checkpoint(step2, state)
+    t_buddy = time.perf_counter() - t0
+    m_policy = pol.deep_every()
+    mgr.drop_buddy()                        # hard failure: buddy lost too
+    t0 = time.perf_counter()
+    restored, r_step, source = mgr.restore(state)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    for st in mgr.stats:
+        meter.add(Phase.CHECKPOINT_IO if st["level"] >= 2
+                  else Phase.CHECKPOINT_IO_BUDDY, st["C_s"])
+    meter.add(Phase.RECOVERY_IO, t_restore)
+    return {"state": state, "restored": restored, "store": store,
+            "manager": mgr, "policy": pol, "levels": (first, not_due, second),
+            "step2": step2, "m_policy": m_policy, "restore_step": r_step,
+            "source": source, "t_deep_s": t_deep, "t_buddy_s": t_buddy,
+            "t_restore_s": t_restore, "save_split": save_split,
+            "restore_split": dict(store.last_restore),
+            "meter": meter.report()}
+
+
+def gate_ckpt(run: dict, dev) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.ckpt.tree import tree_leaves
+    from repro_torch.core import CheckpointPolicy, PolicyConfig
+    from repro_torch.energy import PAPER_EXASCALE_ML_PROFILE
+    from repro_torch.kernels import quant_blockwise as qb
+    mgr, store = run["manager"], run["store"]
+    first, not_due, second = run["levels"]
+    log(f"ckpt: maybe_checkpoint -> level {first} at step 1, {not_due} at "
+        f"step 2, {second} at step {run['step2']} (policy m "
+        f"{run['m_policy']}); restore after a dropped buddy from "
+        f"{run['source']} at step {run['restore_step']}")
+    if (first, not_due, second) != (2, 0, 1):
+        fail(f"ckpt: expected a deep, a skipped and a buddy-only "
+             f"checkpoint, got levels {(first, not_due, second)}")
+    if (run["source"], run["restore_step"]) != ("store", 1):
+        fail("ckpt: the restore did not come from the deep store")
+    deep = [st for st in mgr.stats if st["level"] == 2]
+    if mgr.flush_errors or len(deep) != 1:
+        fail(f"ckpt: deep flush outcomes not all ok ({mgr.flush_errors}, "
+             f"{len(deep)} recorded of 1)")
+
+    gen = store.latest()
+    man = json.loads((gen / "manifest.json").read_text())
+    with np.load(gen / man["shards"]["0"]["file"]) as data:
+        payload = {k: data[k] for k in data.files}
+    orig, back = tree_leaves(run["state"]), tree_leaves(run["restored"])
+    n_comp = n_plain_equal = 0
+    worst = 0.0
+    for entry, x, y in zip(man["leaves"], orig, back):
+        i = entry["index"]
+        if not entry["compressed"]:
+            if not torch.equal(x, y):
+                fail(f"ckpt: uncompressed leaf {i} not restored bitwise")
+            continue
+        n_comp += 1
+        q = torch.from_numpy(payload[f"leaf_{i}_q"]).to(dev)
+        s = torch.from_numpy(payload[f"leaf_{i}_s"]).to(dev)
+        want = qb.dequantize_plain(q, s).reshape(-1)
+        want = want[:want.numel() - entry["pad"]].reshape(x.shape)
+        if not _bits_equal(y, want):
+            fail(f"ckpt: leaf {i} != plain dequantization of its payload")
+        n_plain_equal += 1
+        g = lambda t: torch.cat([t.reshape(-1), t.new_zeros(
+            entry["pad"])]).reshape(-1, 128).double()
+        xg, yg = g(x), g(y)
+        bound = 0.5 * s.reshape(-1, 1).double() \
+            + 1e-6 * xg.abs().amax(-1, keepdim=True)
+        err = (xg - yg).abs()
+        worst = max(worst, float((err / bound).max()))
+    n_want, f32_bytes = _ckpt_sizes()
+    n_bytes = deep[0]["bytes"]
+    ratio = n_bytes / f32_bytes
+    log(f"ckpt gates: {n_comp} compressed leaves, all bitwise equal to the "
+        f"plain dequantization; max error / (scale/2 + 1e-6 max|x|) "
+        f"{worst:.6f} (<= 1); payload {n_bytes} bytes = {ratio:.6f} of the "
+        f"f32 bytes (<= 0.27)")
+    if n_comp != n_want or worst > 1.0 or ratio > 0.27:
+        fail("ckpt: compressed leaves outside their gates")
+
+    # the policy, solved on the card and on the CPU from the same
+    # observations (the manager's records, in order)
+    prof = PAPER_EXASCALE_ML_PROFILE
+    sols = {}
+    for where in (dev, "cpu"):
+        pol = CheckpointPolicy(PolicyConfig(**POLICY_CFG),
+                               prof.power_params(),
+                               ml_power=prof.ml_power_params(), device=where)
+        for st in mgr.stats:
+            pol.observe_checkpoint(
+                duration_s=st["C_s"], level=st["level"],
+                slowdown_work_fraction=(st["write_s"] / st["measured_s"]
+                                        if st["measured_s"] > 0 else 0.0))
+        sols[str(where)] = (pol.period_seconds(), pol.deep_every())
+    (Tg, mg), (Tc, mc) = sols[str(dev)], sols["cpu"]
+    rel = abs(Tg - Tc) / abs(Tc)
+    log(f"ckpt policy algo_e_ml from the measured C: card (T={Tg!r} s, "
+        f"m={mg}), cpu (T={Tc!r} s, m={mc}), rel {rel:.3e} (<= 1e-8)")
+    if mg != mc or rel > 1e-8:
+        fail("ckpt: the policy's (T, m) differs between card and CPU")
+    return {"compressed_leaves": n_comp, "max_err_over_bound": worst,
+            "payload_bytes": n_bytes, "payload_ratio": ratio,
+            "policy_T_card": Tg, "policy_T_cpu": Tc, "policy_m": mg,
+            "policy_rel": rel, "flush_errors": len(mgr.flush_errors)}
+
+
+def report_ckpt(run: dict) -> dict:
+    mgr = run["manager"]
+    deep = next(st for st in mgr.stats if st["level"] == 2)
+    buddy = next(st for st in mgr.stats if st["level"] == 1)
+    save = {"snapshot_d2h": deep["snapshot_s"], **run["save_split"],
+            "flush_total": deep["write_s"]}
+    restore = {**run["restore_split"], "total": run["t_restore_s"]}
+    log("ckpt save (s): " + ", ".join(f"{k} {v:.4f}"
+                                      for k, v in save.items()))
+    log(f"ckpt buddy-only checkpoint (s): snapshot_d2h "
+        f"{buddy['snapshot_s']:.4f}, push {buddy['write_s']:.4f}")
+    log("ckpt restore (s): " + ", ".join(f"{k} {v:.4f}"
+                                         for k, v in restore.items()))
+    log(f"ckpt energy meter (paper two-level profile, normalized powers): "
+        f"{json.dumps(run['meter'])}")
+    return {"save_s": save, "buddy_s": {"snapshot_d2h": buddy["snapshot_s"],
+                                        "push": buddy["write_s"]},
+            "restore_s": restore, "C2_s": deep["C_s"], "C1_s": buddy["C_s"]}
+
+
+# ---------------------------------------------------------------------------
+# 7. times
 # ---------------------------------------------------------------------------
 
 def _events_ms(fn, reps: int = 5) -> float:
@@ -520,35 +945,141 @@ def phase_times(big, mc_grid, model, runs, peaks, dev) -> list:
     return variants
 
 
+#: floating-point operations per element of quantize (abs, max, divide,
+#: round, two clamps, convert) and of dequantize (convert, multiply).
+_QUANT_OPS = {"quantize": 7, "dequantize": 2}
+
+
+def phase_quant_times(run: dict, peaks, dev) -> dict:
+    """CUDA-event times of the quantize and dequantize kernels and of their
+    plain versions over the 57 compressed leaves of the checkpoint (one
+    checkpoint's worth, at the path's shapes), checked bitwise again, with
+    the byte bound; also the largest leaf alone."""
+    import torch
+    from repro_torch.ckpt.tree import tree_leaves
+    from repro_torch.kernels import ops, quant_blockwise as qb
+    bw, _, f32_peak = peaks
+    xs = []
+    for x in tree_leaves(run["state"]):
+        if x.dtype == torch.float32 and x.numel() >= 4096:
+            pad, D = ops._pad_of(x.numel())
+            flat = x.reshape(-1)
+            if pad:
+                flat = torch.cat([flat, flat.new_zeros(pad)])
+            xs.append(flat.reshape(-1, D))
+    qs = [qb.quantize(x) for x in xs]
+    for x, (q, s) in zip(xs, qs):
+        pq, ps = qb.quantize_plain(x)
+        if not (_bits_equal(q, pq) and _bits_equal(s, ps)
+                and _bits_equal(qb.dequantize(q, s),
+                                qb.dequantize_plain(q, s))):
+            fail("quant kernels != plain versions at the path's shapes")
+    big = max(range(len(xs)), key=lambda i: xs[i].numel())
+    out = {}
+    for name, ker, plain in (
+            ("quantize", lambda sel: [qb.quantize(xs[i]) for i in sel],
+             lambda sel: [qb.quantize_plain(xs[i]) for i in sel]),
+            ("dequantize", lambda sel: [qb.dequantize(*qs[i]) for i in sel],
+             lambda sel: [qb.dequantize_plain(*qs[i]) for i in sel])):
+        res = {}
+        for label, sel in (("checkpoint", range(len(xs))), ("largest",
+                                                            [big])):
+            n = sum(xs[i].numel() for i in sel)
+            nbytes = 5 * n + 4 * (n // 128)       # f32 <-> int8 + scales
+            bytes_ms = nbytes / bw * 1e3
+            ops_ms = _QUANT_OPS[name] * n / f32_peak * 1e3
+            res[label] = {
+                "leaves": len(sel), "elements": n, "bytes": nbytes,
+                "kernel_ms": _events_ms(lambda: ker(sel)),
+                "plain_ms": _events_ms(lambda: plain(sel)),
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            r = res[label]
+            log(f"time {name} [{label}: {r['leaves']} leaves, {n} "
+                f"elements]: kernel {r['kernel_ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), {r['bound_ms'] / r['kernel_ms']:.3f} "
+                f"of the bound's rate")
+        out[name] = res
+    del xs, qs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _counts() -> dict:
+    from repro_torch.kernels import event_sweep as es
+    from repro_torch.kernels import quant_blockwise as qb
+    return {"event_sweep": es.event_sweep.launches,
+            "quantize": qb.quantize.launches,
+            "dequantize": qb.dequantize.launches,
+            "plain": (es.event_sweep_plain.calls + qb.quantize_plain.calls
+                      + qb.dequantize_plain.calls)}
+
+
+def _reset_counts() -> None:
+    from repro_torch.kernels import event_sweep as es
+    from repro_torch.kernels import quant_blockwise as qb
+    es.event_sweep.launches = 0
+    qb.quantize.launches = qb.dequantize.launches = 0
+    es.event_sweep_plain.calls = 0
+    qb.quantize_plain.calls = qb.dequantize_plain.calls = 0
+
+
 def main() -> None:
     card, peaks = phase_device()
+    import shutil
     import torch
     dev = torch.device("cuda:0")
     build_s = phase_build()
     parity_err = phase_parity(dev)
+    quant_err, dequant_err = phase_quant_parity(dev)
 
-    from repro_torch.kernels.event_sweep import event_sweep, event_sweep_plain
-    event_sweep.launches = 0
-    event_sweep_plain.calls = 0
+    # the Monte-Carlo main path (sweep, then MC), its counts read around it
+    _reset_counts()
     big, sweeps, mc_grid, model, runs = run_main_path(dev)
     torch.cuda.synchronize()
-    launches, plain_calls = event_sweep.launches, event_sweep_plain.calls
-    log(f"main path: event_sweep launches {launches}, plain-version calls "
-        f"{plain_calls}")
-    if launches <= 0:
+    mc_counts = _counts()
+    log(f"main path (sweep + MC): event_sweep launches "
+        f"{mc_counts['event_sweep']}, plain-version calls "
+        f"{mc_counts['plain']}")
+    if mc_counts["event_sweep"] <= 0:
         fail("the main path never launched the event kernel")
-    if plain_calls != 0:
-        fail("the main path called the plain version")
-
+    if mc_counts["plain"] != 0:
+        fail("the main path called a plain version")
     gate_sweep(big, sweeps)
     report = gate_mc(mc_grid, model, runs, dev)
+    report["dispatch"] = phase_dispatch_invariance(mc_grid, model, dev)
+
+    # the checkpoint runtime path, its counts read around it
+    root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        _reset_counts()
+        ck = run_ckpt_path(dev, root)
+        torch.cuda.synchronize()
+        ck_counts = _counts()
+        log(f"checkpoint path: quantize launches {ck_counts['quantize']}, "
+            f"dequantize launches {ck_counts['dequantize']}, plain-version "
+            f"calls {ck_counts['plain']}")
+        n_comp = _ckpt_sizes()[0]
+        if (ck_counts["quantize"], ck_counts["dequantize"],
+                ck_counts["plain"]) != (n_comp, n_comp, 0):
+            fail(f"the checkpoint path did not go through the quant kernels "
+                 f"{n_comp} + {n_comp} times")
+        report["ckpt"] = gate_ckpt(ck, dev)
+        report["ckpt_times"] = report_ckpt(ck)
+        qtimes = phase_quant_times(ck, peaks, dev)
+        del ck
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
     variants = phase_times(big, mc_grid, model, runs, peaks, dev)
 
     kernels = [{
         "name": "event_sweep", "route": "cuda",
         "source": "src/repro_torch/csrc/event_sweep.cu",
         "replaces": "src/repro/kernels/event_sweep.py:65",
-        "launches": launches,
+        "launches": mc_counts["event_sweep"],
         "max_abs_err": max([parity_err] + [v["max_abs_err"]
                                            for v in variants]),
         "parity": "bitwise",
@@ -558,9 +1089,23 @@ def main() -> None:
         "bound_by": ("bytes" if all(v["bound_by"] == "bytes"
                                     for v in variants) else "operations"),
         "library_ms": None,
-        "build_s": build_s,
+        "build_s": build_s["event_sweep.cu"],
         "variants": variants,
     }]
+    for name, line, err in (("quantize", 23, quant_err),
+                            ("dequantize", 34, dequant_err)):
+        t = qtimes[name]["checkpoint"]
+        kernels.append({
+            "name": f"{name}_blockwise", "route": "cuda",
+            "source": "src/repro_torch/csrc/quant_blockwise.cu",
+            "replaces": f"src/repro/kernels/quant_blockwise.py:{line}",
+            "launches": ck_counts[name], "max_abs_err": err,
+            "parity": "bitwise", "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "build_s": build_s["quant_blockwise.cu"],
+            "variants": [qtimes[name]["checkpoint"],
+                         qtimes[name]["largest"]]})
     print(json.dumps({"gates": report}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

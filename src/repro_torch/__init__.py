@@ -1,11 +1,13 @@
 """PyTorch/CUDA port of the checkpoint time-vs-energy system.
 
 Laid out like the JAX reference package: ``core`` (parameters, failure
-processes, closed forms, solvers, scalar simulator), ``sim`` (scenarios,
-grid sweeps, the event-level Monte-Carlo engine, dispatch and precision),
-``kernels`` (hand-written CUDA kernels for Hopper, each beside its plain
-PyTorch version, built at first use from ``csrc/``) and ``interop``
-(carries the reference's state across).  Entry points take ``device=``
-and default to ``"cuda"``.
+processes, closed forms, single- and multilevel solvers, the runtime
+policy, scalar simulator), ``sim`` (scenarios, grid sweeps, the
+event-level Monte-Carlo engine, dispatch and precision), ``energy``
+(phase-based energy accounting), ``ckpt`` (the compressed sharded store
+and the checkpoint manager), ``kernels`` (hand-written CUDA kernels for
+Hopper, each beside its plain PyTorch version, built at first use from
+``csrc/``) and ``interop`` (carries the reference's state across).  Entry
+points take ``device=`` and default to ``"cuda"``.
 """
-from . import core, sim  # noqa: F401
+from . import ckpt, core, energy, sim  # noqa: F401

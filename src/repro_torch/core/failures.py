@@ -20,8 +20,10 @@ Two samplers share the distributions:
 
   * :meth:`FailureProcess.sample` — host numpy, from the caller's
     ``np.random.Generator`` (the replayable schedules of the parity tests).
-  * :meth:`FailureProcess.sample_gaps` — on the device, from the caller's
-    :class:`torch.Generator`, by the same inverse-CDF transforms.  Same
+  * :meth:`FailureProcess.sample_gaps` — on the device, by inverse-CDF
+    transforms of counter-based uniforms (:class:`~repro_torch.core.philox
+    .CounterKey`): gap ``j`` of grid point ``i`` and trial ``t`` is a
+    function of the seed, ``i``, ``t``, ``j`` and the process alone.  Same
     distribution, not the same stream as numpy (or as JAX's threefry).
 """
 from __future__ import annotations
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from .._device import F64, resolve_device
+from .philox import CounterKey
 
 ArrayLike = Union[float, np.ndarray]
 
@@ -95,12 +98,12 @@ class FailureProcess:
         """Draw gaps on the host from the caller's numpy generator."""
         raise NotImplementedError
 
-    def sample_gaps(self, generator: torch.Generator, size: tuple,
-                    mean=None, device="cuda",
-                    dtype: torch.dtype = F64) -> torch.Tensor:
-        """Draw ``size`` gaps on ``device`` from ``generator`` (f64 draws,
-        returned in ``dtype``).  ``mean`` broadcasts against ``size`` after
-        leading-axis alignment (one mean per grid point)."""
+    def sample_gaps(self, key: CounterKey, size: tuple, mean=None,
+                    device="cuda", dtype: torch.dtype = F64) -> torch.Tensor:
+        """Draw ``size = (points, trials, F)`` gaps on ``device`` from the
+        counter-based stream ``key`` (f64 draws, returned in ``dtype``).
+        ``mean`` broadcasts against ``size`` after leading-axis alignment
+        (one mean per grid point)."""
         raise NotImplementedError(f"{self.name}: no device sampler")
 
     def hazard(self, t, mean=None, device="cuda") -> torch.Tensor:
@@ -135,10 +138,17 @@ class FailureProcess:
         return _lead_t(m, size, device)
 
 
-def _std_exponential(generator, size, device) -> torch.Tensor:
-    """Standard Exp(1) draws, f64, on ``device``."""
-    return torch.empty(size, dtype=F64, device=device).exponential_(
-        1.0, generator=generator)
+def _uniforms(key: CounterKey, size: tuple) -> torch.Tensor:
+    """``size`` f64 uniforms in (0, 1) of ``key``'s lanes, on its device."""
+    if tuple(size[:-1]) != key.shape:
+        raise ValueError(f"sample size {size} does not match the key's "
+                         f"(points, trials) {key.shape}")
+    return key.uniforms(int(size[-1]))
+
+
+def _std_exponential(key, size) -> torch.Tensor:
+    """Standard Exp(1) draws by inverse CDF, f64, on the key's device."""
+    return -torch.log(_uniforms(key, size))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,12 +163,11 @@ class Exponential(FailureProcess):
         return rng.exponential(scale=_lead(self.resolve_mean(mean), size),
                                size=size)
 
-    def sample_gaps(self, generator, size, mean=None, device="cuda",
-                    dtype=F64):
+    def sample_gaps(self, key, size, mean=None, device="cuda", dtype=F64):
         dev = resolve_device(device)
         size = tuple(size)
         m = self._device_mean(mean, size, dev)
-        return (m * _std_exponential(generator, size, dev)).to(dtype)
+        return (m * _std_exponential(key, size)).to(dtype)
 
     def ravel(self) -> "Exponential":
         return dataclasses.replace(
@@ -201,17 +210,19 @@ class Weibull(FailureProcess):
         lam, k = self._scale(mean, size)
         return lam * rng.weibull(k, size=size)
 
-    def sample_gaps(self, generator, size, mean=None, device="cuda",
-                    dtype=F64):
-        # Inverse CDF through the standard exponential: X = lam * E^(1/k).
+    def sample_gaps(self, key, size, mean=None, device="cuda", dtype=F64):
+        # Inverse CDF through the standard exponential: X = lam * E^(1/k),
+        # with the power as exp(log(E)/k): PyTorch's CPU pow rounds a few
+        # elements differently depending on where they fall in the tensor,
+        # which would let the blocking change the draws.
         dev = resolve_device(device)
         size = tuple(size)
         k = _lead_t(self.shape, size, dev)
         g1 = _lead_t(_gamma1p(1.0 / np.asarray(self.shape, dtype=np.float64)),
                      size, dev)
         lam = self._device_mean(mean, size, dev) / g1
-        e = _std_exponential(generator, size, dev)
-        return (lam * e ** (1.0 / k)).to(dtype)
+        e = _std_exponential(key, size)
+        return (lam * torch.exp(torch.log(e) / k)).to(dtype)
 
     def gap_cv(self):
         k = np.asarray(self.shape, dtype=np.float64)
@@ -255,13 +266,12 @@ class LogNormal(FailureProcess):
         m = np.log(_lead(self.resolve_mean(mean), size)) - 0.5 * s * s
         return rng.lognormal(mean=m, sigma=s, size=size)
 
-    def sample_gaps(self, generator, size, mean=None, device="cuda",
-                    dtype=F64):
+    def sample_gaps(self, key, size, mean=None, device="cuda", dtype=F64):
         dev = resolve_device(device)
         size = tuple(size)
         s = _lead_t(self.sigma, size, dev)
         m = torch.log(self._device_mean(mean, size, dev)) - 0.5 * s * s
-        z = torch.randn(size, generator=generator, dtype=F64, device=dev)
+        z = torch.special.ndtri(_uniforms(key, size))
         return torch.exp(m + s * z).to(dtype)
 
     def gap_cv(self):
@@ -334,15 +344,15 @@ class TraceReplay(FailureProcess):
         out = trace[idx] * (_lead(self.resolve_mean(mean), size) / self.mu)
         return np.broadcast_to(out, size).copy()
 
-    def sample_gaps(self, generator, size, mean=None, device="cuda",
-                    dtype=F64):
-        """One uniform starting offset per trajectory, then a cyclic gather."""
+    def sample_gaps(self, key, size, mean=None, device="cuda", dtype=F64):
+        """One uniform starting offset per trajectory (the lane's uniform
+        0, as ``floor(u n)``), then a cyclic gather."""
         dev = resolve_device(device)
         size = tuple(size)
         trace = torch.as_tensor(self.gaps, dtype=F64, device=dev)
         n = len(self.gaps)
-        start = torch.randint(0, n, size[:-1] + (1,), generator=generator,
-                              device=dev)
+        u = _uniforms(key, size[:-1] + (1,))
+        start = torch.clamp(torch.floor(u * n).to(torch.int64), max=n - 1)
         idx = (start + torch.arange(size[-1], device=dev)) % n
         if mean is not None and self.rescale:
             out = trace[idx] * (_lead_t(mean, size, dev) / self.mu)

@@ -20,13 +20,14 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 
 from .._device import as_f64
 from . import model
-from .params import CheckpointParams, PowerParams
+from .params import (CheckpointParams, MultilevelCheckpointParams,
+                     MultilevelPowerParams, PowerParams)
 
 _GOLDEN = (math.sqrt(5.0) - 1.0) / 2.0
 
@@ -208,6 +209,118 @@ def t_opt_energy_numeric(ckpt: CheckpointParams, power: PowerParams,
     return golden_section(
         lambda t: _scalar(model.energy_final(t, ckpt, power, T_base,
                                              device)), lo, hi)
+
+
+# --------------------------------------------------------------------------
+# Multilevel (buddy + PFS) joint (T, m) solvers
+# --------------------------------------------------------------------------
+
+DEFAULT_M_MAX = 12
+
+
+def _ml_bracket(ck: MultilevelCheckpointParams,
+                m: int) -> Optional[Tuple[float, float]]:
+    """Shrunk valid (lo, hi) for period T at a given m; None if degenerate."""
+    lo, hi = ck.valid_period_range(m)
+    if hi <= lo * (1.0 + 1e-9):
+        return None
+    span = hi - lo
+    return lo + 1e-9 * span + 1e-12, hi - 1e-9 * span
+
+
+def t_opt_time_multilevel(ck: MultilevelCheckpointParams,
+                          m_max: int = DEFAULT_M_MAX,
+                          device="cuda") -> Tuple[float, int]:
+    """Jointly time-optimal (T, m): per-m closed form
+    T*(m) = sqrt(2 a_m b_m mu_m), argmin of T_final over m."""
+    best = None
+    for m in range(1, m_max + 1):
+        br = _ml_bracket(ck, m)
+        if br is None:
+            continue
+        lo, hi = br
+        val = 2.0 * ck.a(m) * ck.b(m) * ck.mu_eff(m)
+        if val > 0:
+            t = float(min(max(math.sqrt(val), lo), hi))
+        else:  # omega == 1 degenerates the closed form: numeric fallback
+            t = golden_section(
+                lambda x: _scalar(model.ml_time_final(x, m, ck,
+                                                      device=device)),
+                lo, hi)
+        tf = _scalar(model.ml_time_final(t, m, ck, device=device))
+        if best is None or tf < best[0]:
+            best = (tf, t, m)
+    if best is None:
+        raise ValueError(
+            f"No valid (T, m): deep checkpoint C2={ck.C2} too large for "
+            f"platform MTBF mu={ck.mu} at every m <= {m_max}.")
+    return best[1], best[2]
+
+
+def ml_energy_quadratic_coefficients(
+        ck: MultilevelCheckpointParams, power: MultilevelPowerParams,
+        m: int, device="cuda") -> Tuple[float, float, float]:
+    """Coefficients of the exact quadratic Q_m(T) = K_m(T) * E'(T),
+    interpolated at 3 points and verified at a 4th."""
+    br = _ml_bracket(ck, m)
+    if br is None:
+        raise ValueError(f"no valid period at m={m}")
+    lo, hi = br
+    ts = np.array([lo + 0.2 * (hi - lo), lo + 0.45 * (hi - lo),
+                   lo + 0.7 * (hi - lo)])
+    qs = np.array(model.ml_K_dE_dT(ts, m, ck, power,
+                                   device=device).tolist())
+    V = np.vander(ts, 3)
+    c2, c1, c0 = np.linalg.solve(V, qs)
+
+    t4 = lo + 0.9 * (hi - lo)
+    q4 = _scalar(model.ml_K_dE_dT(t4, m, ck, power, device=device))
+    q4_poly = c2 * t4**2 + c1 * t4 + c0
+    scale = max(abs(q4), abs(q4_poly), abs(c0), 1e-300)
+    if not abs(q4 - q4_poly) <= 1e-6 * scale:
+        raise AssertionError(
+            f"K_m*E' deviates from a quadratic at m={m}: {q4} vs {q4_poly} "
+            f"(multilevel §3.2 cancellation violated — formula bug?)")
+    return float(c2), float(c1), float(c0)
+
+
+def _t_opt_energy_ml_at(ck: MultilevelCheckpointParams,
+                        power: MultilevelPowerParams, m: int,
+                        device="cuda") -> float:
+    """Energy-optimal T at fixed m (quadratic root + shared guard)."""
+    lo, hi = _ml_bracket(ck, m)
+    energy = lambda t: _scalar(model.ml_energy_final(t, m, ck, power,
+                                                     device=device))
+
+    def numeric() -> float:
+        return golden_section(energy, lo, hi)
+
+    try:
+        c2, c1, c0 = ml_energy_quadratic_coefficients(ck, power, m, device)
+    except AssertionError:
+        return numeric()
+    return _pick_energy_root(c2, c1, c0, lo, hi, energy=energy,
+                             numeric=numeric)
+
+
+def t_opt_energy_multilevel(ck: MultilevelCheckpointParams,
+                            power: MultilevelPowerParams,
+                            m_max: int = DEFAULT_M_MAX,
+                            device="cuda") -> Tuple[float, int]:
+    """Jointly energy-optimal (T, m): per-m quadratic root, argmin over m."""
+    best = None
+    for m in range(1, m_max + 1):
+        if _ml_bracket(ck, m) is None:
+            continue
+        t = _t_opt_energy_ml_at(ck, power, m, device)
+        e = _scalar(model.ml_energy_final(t, m, ck, power, device=device))
+        if best is None or e < best[0]:
+            best = (e, t, m)
+    if best is None:
+        raise ValueError(
+            f"No valid (T, m): deep checkpoint C2={ck.C2} too large for "
+            f"platform MTBF mu={ck.mu} at every m <= {m_max}.")
+    return best[1], best[2]
 
 
 # --------------------------------------------------------------------------

@@ -1,20 +1,22 @@
 """Carry the reference package's state into the port.
 
 This system's counterpart of carrying a model's weights across: the
-reference's parameter grids, parameter dataclasses and failure schedules
-become the port's tensors and dataclasses.  Everything here works by duck
-typing on plain mappings and arrays, so the port never imports the
-reference package.
+reference's parameter grids, parameter dataclasses (single-level and
+multilevel), failure schedules and state trees become the port's tensors
+and dataclasses.  Everything here works by duck typing on plain mappings,
+arrays and containers, so the port never imports the reference package.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping
 
 import numpy as np
 import torch
 
 from ._device import F64, resolve_device
-from .core.params import CheckpointParams, PowerParams
+from .ckpt.tree import tree_map
+from .core.params import (CheckpointParams, MultilevelCheckpointParams,
+                          MultilevelPowerParams, PowerParams)
 from .sim.scenarios import ParamGrid
 
 
@@ -50,3 +52,32 @@ def schedule_to_device(gaps, device="cuda",
     of ``dtype`` on ``device``."""
     return torch.as_tensor(np.ascontiguousarray(gaps, dtype=np.float64),
                            device=resolve_device(device)).to(dtype)
+
+
+def ml_ckpt_from_fields(fields: Mapping[str, Any]
+                        ) -> MultilevelCheckpointParams:
+    """:class:`MultilevelCheckpointParams` from ``dataclasses.asdict`` of
+    the reference's multilevel checkpoint parameters."""
+    opt = lambda v: None if v is None else float(v)
+    return MultilevelCheckpointParams(
+        **{k: float(fields[k]) for k in ("C1", "R1", "C2", "R2", "D1", "D2",
+                                         "mu", "q", "omega")},
+        omega1=opt(fields.get("omega1")), omega2=opt(fields.get("omega2")))
+
+
+def ml_power_from_fields(fields: Mapping[str, float]
+                         ) -> MultilevelPowerParams:
+    """:class:`MultilevelPowerParams` from ``dataclasses.asdict`` of the
+    reference's multilevel power parameters."""
+    return MultilevelPowerParams(
+        **{k: float(fields[k]) for k in ("P_static", "P_cal", "P_io1",
+                                         "P_io2", "P_down")})
+
+
+def state_from_numpy(tree: Any, device="cuda") -> Any:
+    """A state tree with numpy leaves (what the reference's
+    ``jax.device_get`` returns: dicts, tuples, namedtuples, None) as the
+    same structure of fresh tensors on ``device``.  Its leaves flatten in
+    the reference's order (:mod:`repro_torch.ckpt.tree`)."""
+    dev = resolve_device(device)
+    return tree_map(lambda x: torch.tensor(np.asarray(x), device=dev), tree)

@@ -5,9 +5,9 @@ The model sweep (``sim.sweep``) and the Monte-Carlo engine
 chunks sized from a device-memory budget, so a 10^6-point grid or a
 multi-gigabyte failure schedule streams through a bounded working set.
 Every per-point computation is independent, so the chunk size never
-changes a model sweep's results; the engine's auto-sampled schedules are
-drawn chunk by chunk from one seeded generator, so a fixed seed with a
-fixed :class:`DispatchConfig` gives the same results every time.
+changes a model sweep's results; the engine's auto-sampled gaps are
+counter-based per (point, trial, gap index), so chunk size and budget
+never change its results either.
 
 Configuration resolves from :class:`DispatchConfig` (explicit argument) or
 the environment, as in the reference::

@@ -11,14 +11,16 @@ Schedules come from one of two places:
 
 * ``gaps=`` — a caller-supplied ``(B, N, F)`` schedule (numpy or tensor),
   shared by the scalar oracle in the parity checks;
-* auto-sampled on the device from one :class:`torch.Generator` seeded with
-  ``seed``, block by block (:func:`sampled_schedules`).  Grid points are
-  grouped into power-of-two capacity buckets (:func:`fail_capacity_points`)
-  so cheap points do not pay the worst point's schedule; the trials and
-  grid axes are cut into blocks under the device-memory budget.  A fixed
-  seed with a fixed :class:`~repro_torch.sim.dispatch.DispatchConfig`
-  gives the same results every time (the draws do not match JAX's
-  threefry streams; they are held statistically).
+* auto-sampled on the device, block by block (:func:`sampled_schedules`),
+  from counter-based uniforms: gap ``j`` of grid point ``i`` and trial
+  ``t`` is a function of (``seed``, ``i``, ``t``, ``j``, the process)
+  alone (:mod:`repro_torch.core.philox`).  Grid points are grouped into
+  power-of-two capacity buckets (:func:`fail_capacity_points`) so cheap
+  points do not pay the worst point's schedule; the trials and grid axes
+  are cut into blocks under the device-memory budget.  Buckets, chunk
+  size and memory budget are therefore bit-exact no-ops on a given device,
+  as in the reference (the draws do not match JAX's threefry streams; they
+  are held statistically).
 
 Precision follows :func:`~repro_torch.sim.dispatch.resolve_precision`:
 the schedule is drawn in f64 and cast to the policy's compute dtype before
@@ -35,6 +37,7 @@ import torch
 
 from .._device import F64, resolve_device
 from ..core.failures import as_process
+from ..core.philox import CounterKey
 from ..kernels.event_sweep import event_sweep
 from . import dispatch as _dispatch
 from .scenarios import ParamGrid
@@ -217,8 +220,9 @@ def sampled_schedules(T, grid: ParamGrid, T_base: float = 1.0,
     """The auto-sampled schedules of :func:`simulate_trajectories`, in the
     order it consumes them: one pow2 capacity bucket at a time, each cut
     into (trial, point) blocks under the memory budget, every block drawn
-    on ``device`` from one generator seeded with ``seed``.  Iterating
-    again with the same arguments yields the same schedules."""
+    on ``device`` from the counter-based stream of its lanes.  A lane's
+    gaps depend on (``seed``, point, trial, gap index, process) only, so
+    another ``dispatch`` yields the same gaps in other blocks."""
     dev = resolve_device(device)
     flat, T_arr, Tb_arr = _flat_inputs(T, grid, T_base, dev)
     caps = fail_capacity_points(T_arr, flat, Tb_arr, process=process)
@@ -227,16 +231,17 @@ def sampled_schedules(T, grid: ParamGrid, T_base: float = 1.0,
     proc = as_process(process).ravel()
     mean = torch.as_tensor(proc.resolve_mean(_host(flat.mu)), dtype=F64,
                            device=dev).broadcast_to((flat.size,))
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
     for cap in np.unique(caps):
         in_bucket = caps == cap
         for b in np.unique(budgets[in_bucket]):
             idx = np.nonzero(in_bucket & (budgets == b))[0]
             for pts, trials in _blocks(idx, n_trials, int(cap), dispatch):
                 pts_t = torch.as_tensor(pts, dtype=torch.int64, device=dev)
+                key = CounterKey(int(seed), pts_t, torch.arange(
+                    trials.start, trials.stop, dtype=torch.int64,
+                    device=dev))
                 gaps = proc.subset(pts).sample_gaps(
-                    gen, (len(pts), len(trials), int(cap)),
+                    key, (len(pts), len(trials), int(cap)),
                     mean=mean[pts_t], device=dev)
                 yield ScheduleBlock(points=pts_t, trials=trials, gaps=gaps,
                                     n_steps=int(b))

@@ -218,8 +218,8 @@ class TestFailureProcesses:
     def test_device_sampler_mean_within_4_se(self, ref, port):
         lead = np.size(getattr(ref, "shape", 0.0))
         mean = 250.0
-        gen = torch.Generator(device=CPU).manual_seed(11)
-        g = port.sample_gaps(gen, (lead, 64, 512),
+        key = P.CounterKey(11, torch.arange(lead), torch.arange(64))
+        g = port.sample_gaps(key, (lead, 64, 512),
                              mean=torch.full((lead,), mean,
                                              dtype=torch.float64),
                              device=CPU).numpy()
@@ -228,11 +228,35 @@ class TestFailureProcesses:
             se = row.std(ddof=1) / math.sqrt(row.size)
             assert abs(row.mean() - mean) <= 4.0 * se, (row.mean(), se)
 
+    def test_philox_known_answers_and_counter_streams(self):
+        """Philox-4x32-10 against the Random123 known-answer vectors; a
+        lane's uniforms depend on (seed, point, trial, index) alone."""
+        t = lambda v: torch.tensor(v, dtype=torch.int64)
+        kat = [((0, 0, 0, 0), (0, 0),
+                (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+               ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+                (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+               ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+                (0xA4093822, 0x299F31D0),
+                (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1))]
+        for ctr, key, want in kat:
+            got = P.philox.philox4x32(*[t(c) for c in ctr], *key)
+            assert [int(w) for w in got] == list(want)
+        u = P.CounterKey(3, torch.arange(4), torch.arange(5)).uniforms(33)
+        assert u.shape == (4, 5, 33) and u.dtype == torch.float64
+        assert float(u.min()) > 0.0 and float(u.max()) < 1.0
+        sub = P.CounterKey(3, torch.tensor([2, 0]),
+                           torch.tensor([4, 1])).uniforms(7)
+        assert torch.equal(sub[0, 0], u[2, 4, :7])
+        assert torch.equal(sub[1, 1], u[0, 1, :7])
+        other = P.CounterKey(4, torch.arange(4), torch.arange(5)).uniforms(33)
+        assert not torch.equal(u, other)
+
     def test_trace_replay_device_rows_are_cyclic_shifts(self):
         trace = (40.0, 500.0, 120.0, 90.0, 800.0, 33.0)
         port = P.TraceReplay(gaps=trace)
-        gen = torch.Generator(device=CPU).manual_seed(5)
-        g = port.sample_gaps(gen, (2, 8, 15), mean=torch.tensor([
+        key = P.CounterKey(5, torch.arange(2), torch.arange(8))
+        g = port.sample_gaps(key, (2, 8, 15), mean=torch.tensor([
             port.mu, 2.0 * port.mu], dtype=torch.float64), device=CPU)
         tr = np.asarray(trace)
         for b, scale in ((0, 1.0), (1, 2.0)):

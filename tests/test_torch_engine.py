@@ -242,6 +242,55 @@ class TestBudgetsAndSampling:
                             32, TS.F64)
         assert torch.equal(out["wall_time"].reshape(3, 2, 32), c.wall_time)
 
+    @staticmethod
+    def _lane_rows(blocks):
+        """{(point, trial): gap row} over a schedule's blocks."""
+        rows = {}
+        for blk in blocks:
+            for a, p in enumerate(blk.points.tolist()):
+                for b, t in enumerate(blk.trials):
+                    rows[(p, t)] = blk.gaps[a, b]
+        return rows
+
+    @pytest.mark.parametrize("i", range(len(PORT_PROCESSES)), ids=PIDS)
+    def test_auto_sampled_draws_do_not_depend_on_dispatch(self, i):
+        """A lane's gaps are a function of (seed, point, trial, gap index,
+        process) alone: chunk size and memory budget are bit-exact no-ops
+        for auto-sampled schedules, as in the reference."""
+        grid = TS.mu_rho_grid([120.0, 300.0, 900.0], [2.0, 7.0], device=CPU)
+        T = torch.tensor([[40.0, 45.0], [60.0, 70.0], [110.0, 130.0]],
+                         dtype=torch.float64)
+        kw = dict(T_base=2000.0, n_trials=700, seed=5,
+                  process=PORT_PROCESSES[i], device=CPU)
+        ref = TS.simulate_trajectories(T, grid, **kw)
+        ref_blocks = list(TS.sampled_schedules(T, grid, **kw))
+        ref_rows = self._lane_rows(ref_blocks)
+        assert len(ref_rows) == 6 * 700
+        n_blocks = {len(ref_blocks)}
+        for cfg in (TS.DispatchConfig(chunk=1), TS.DispatchConfig(chunk=7),
+                    TS.DispatchConfig(memory_mb=1)):
+            blocks = list(TS.sampled_schedules(T, grid, dispatch=cfg, **kw))
+            n_blocks.add(len(blocks))
+            rows = self._lane_rows(blocks)
+            assert rows.keys() == ref_rows.keys()
+            for lane, row in rows.items():
+                assert torch.equal(row, ref_rows[lane]), (cfg, lane)
+            _assert_bitwise(ref, TS.simulate_trajectories(
+                T, grid, dispatch=cfg, **kw), str(cfg))
+        assert len(n_blocks) > 1        # the configs did cut differently
+
+    def test_lane_gaps_do_not_depend_on_capacity(self):
+        """A longer run (larger pow2 capacity) extends each lane's schedule
+        and keeps its first gaps."""
+        grid = TS.mu_rho_grid([300.0], [5.5], device=CPU)
+        kw = dict(n_trials=16, seed=9, process=PC.Weibull(shape=0.7),
+                  device=CPU)
+        short = list(TS.sampled_schedules(60.0, grid, T_base=1000.0, **kw))
+        long = list(TS.sampled_schedules(60.0, grid, T_base=8000.0, **kw))
+        a, b = short[0].gaps, long[0].gaps
+        assert a.shape[-1] < b.shape[-1]
+        assert torch.equal(a, b[..., :a.shape[-1]])
+
     def test_explicit_schedule_blocking_is_bitwise_noop(self):
         grid = RS.mu_rho_grid([120.0, 300.0, 900.0], [2.0, 7.0])
         tg = interop.grid_from_fields(grid.fields(), device=CPU)

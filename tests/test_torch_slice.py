@@ -98,7 +98,9 @@ def test_interop_carries_params_and_schedules():
 def test_importing_the_port_loads_neither_jax_nor_reference():
     code = ("import sys, repro_torch, repro_torch.sim, repro_torch.core, "
             "repro_torch.interop, repro_torch.kernels.event_sweep, "
-            "repro_torch.kernels._build\n"
+            "repro_torch.kernels._build, repro_torch.kernels.ops, "
+            "repro_torch.ckpt, repro_torch.energy, "
+            "repro_torch.core.policy\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(','.join(bad))\n")
