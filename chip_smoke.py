@@ -7,7 +7,7 @@ Phases (any failure exits non-zero; no result line is printed then):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; requires ``torch.cuda.is_available()``.
-2. build: compiles every kernel source of ``src/repro_torch/csrc`` (one
+2. build: compiles the six kernel sources of ``src/repro_torch/csrc`` (one
    nvcc each, all started together) and prints the build times and the
    compiler's register reports.
 3. parity: the event kernel against its plain PyTorch version on the
@@ -15,7 +15,12 @@ Phases (any failure exits non-zero; no result line is printed then):
    ragged shape (B=37, N=333, F=200) and the exhaustion/truncation case;
    the int8 quantize and dequantize kernels against theirs, bitwise (int8
    payloads, scale bits, output bits; a NaN compares as NaN), on
-   ``quant_cases()``.
+   ``quant_cases()``; the four model-zoo kernels against theirs (and
+   against the oracles of ``kernels/ref.py``) at small ragged and edge
+   shapes: RG-LRU bitwise (B, W not multiples of 32; f32 and bf16), flash
+   attention in all four modes (Dh 128 and 256, f32 and bf16, S = 333),
+   decode (S = 768, length 0, 1, 333, 768), mLSTM (chunks 64/128/256 at
+   Dh 128/256/384, and bf16), within ``ZOO_TOL``.
 4. model sweep: ``evaluate_grid`` on the 1,000,000-point
    ``mu_rho_grid(linspace(30,600,1000), linspace(1,10,1000))`` under both
    policies; the compensated periods, re-evaluated in f64, must be within
@@ -50,6 +55,19 @@ Phases (any failure exits non-zero; no result line is printed then):
    plain version at the main-path shapes (compared again), the schedule
    sampling, and the end-to-end calls; each kernel's bound from the bytes
    it moves.
+8. the model-zoo kernel layer at full width, through ``kernels.ops``
+   (decode through its raw wrapper): RecurrentGemma-9B's RG-LRU scan
+   (2, 4096, 4096) f32 with zero and seeded h0, its local attention
+   (B 2, S 4096, 16 heads of 256 over one expanded KV head, window 2048,
+   bf16) and its decode (2,048 rows against a 2,048-slot cache, length
+   2048 and 1000, bf16); xLSTM-125M's mLSTM (8, 4, 4096, 384), chunk
+   256, f32.  Gates: every zoo kernel launched and no plain version
+   called during the run; the outputs against the plain versions on the
+   same inputs (RG-LRU bitwise, the others within ``ZOO_TOL``).  Then
+   ``repro_torch.benchmarks.bench_kernels.main`` on the card (five rows,
+   its five kernels launched, no plain call), and each zoo kernel's time
+   beside its plain version's, its bound, and for attention the time of
+   ``scaled_dot_product_attention`` with the same mask.
 
 Near the end it prints one JSON line ``{"gates": {...}}`` with every
 gate's numbers, then one ``{"kernels": [...]}`` line, then the card's name
@@ -69,10 +87,11 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 #: published peaks per H100 variant (NVIDIA data sheets): device-memory
-#: bytes/s, FP64 and FP32 FLOP/s outside the tensor cores.
-_PEAKS = {"PCIe": (2.0e12, 25.6e12, 51.2e12),
-          "NVL": (3.9e12, 30.0e12, 60.0e12),
-          "SXM": (3.35e12, 34.0e12, 67.0e12)}
+#: bytes/s, FP64 and FP32 FLOP/s outside the tensor cores, dense bf16
+#: FLOP/s of the tensor cores.
+_PEAKS = {"PCIe": (2.0e12, 25.6e12, 51.2e12, 756e12),
+          "NVL": (3.9e12, 30.0e12, 60.0e12, 835e12),
+          "SXM": (3.35e12, 34.0e12, 67.0e12, 989e12)}
 
 #: per-lane output bytes of the event kernel: 4 f64 + 2 int32 + 2 bool.
 _OUT_BYTES = 4 * 8 + 2 * 4 + 2 * 1
@@ -87,7 +106,8 @@ _OPS_PER_GAP = {"f64": 40, "compensated_f32": 72}
 #: grid (512 trials): AlgoT time/energy, AlgoE time/energy.
 _REF_GAPS = {"algo_t": (0.047, 0.033), "algo_e": (0.127, 0.111)}
 
-SOURCES = ("event_sweep.cu", "quant_blockwise.cu")
+SOURCES = ("event_sweep.cu", "quant_blockwise.cu", "rglru_scan.cu",
+           "flash_attention.cu", "decode_attention.cu", "mlstm_scan.cu")
 
 N_TRIALS = 4096
 T_BASE = 4000.0
@@ -232,8 +252,6 @@ def phase_build() -> dict:
     """Build every kernel source in parallel; returns seconds per source."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
-    from repro_torch.kernels import event_sweep as es
-    from repro_torch.kernels import quant_blockwise as qb
 
     def one(src):
         t0 = time.perf_counter()
@@ -241,8 +259,8 @@ def phase_build() -> dict:
         return time.perf_counter() - t0
     with ThreadPoolExecutor(len(SOURCES)) as ex:
         secs = dict(zip(SOURCES, ex.map(one, SOURCES)))
-    es.load_library()
-    qb.load_library()
+    for mod in _kernel_modules():
+        mod.load_library()
     for src in SOURCES:
         log(f"build: {src} in {secs[src]:.3f} s")
         for line in _build.build_log(src).splitlines():
@@ -878,7 +896,7 @@ def phase_times(big, mc_grid, model, runs, peaks, dev) -> list:
     from repro_torch.sim import (COMPENSATED_F32, F64, evaluate_grid,
                                  fail_capacity_points, sampled_schedules,
                                  simulate_trajectories)
-    bw, f64_peak, f32_peak = peaks
+    bw, f64_peak, f32_peak, _ = peaks
     for pol in (F64, COMPENSATED_F32):
         s = _host_s(lambda: evaluate_grid(big, precision=pol, device=dev))
         log(f"time evaluate_grid 1e6 [{pol.name}]: {s:.4f} s (median of 5)")
@@ -958,7 +976,7 @@ def phase_quant_times(run: dict, peaks, dev) -> dict:
     import torch
     from repro_torch.ckpt.tree import tree_leaves
     from repro_torch.kernels import ops, quant_blockwise as qb
-    bw, _, f32_peak = peaks
+    bw, _, f32_peak, _ = peaks
     xs = []
     for x in tree_leaves(run["state"]):
         if x.dtype == torch.float32 and x.numel() >= 4096:
@@ -1006,33 +1024,503 @@ def phase_quant_times(run: dict, peaks, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 8. the model-zoo kernel layer
+# ---------------------------------------------------------------------------
+
+#: (atol, rtol) of the tolerance-held kernels against their plain versions:
+#: the reference's kernel-vs-oracle tolerances in f32
+#: (tests/test_kernels.py:39, 142, 156, 226).  In bf16 (compared in f32)
+#: 4e-3 + 1e-2 |y|: a bf16 output one rounding apart differs by at most
+#: 2**-7 |y|, and the smallest typical outputs (attention averaging ~2048
+#: values, about 0.04) leave no room for a missing key tile.  The RG-LRU
+#: kernel is held bitwise.
+ZOO_TOL = {"flash_attention": (2e-5, 2e-5), "decode_attention": (1e-4, 0.0),
+           "mlstm_scan": (1e-4, 1e-3), "bf16": (4e-3, 1e-2)}
+#: bf16 outputs are also held to ||x - y|| / ||y|| <= 4e-3 (Frobenius):
+#: one rounding to bf16 moves each value by at most 2**-8 of it.
+ZOO_BF16_FROB = 4e-3
+#: seeds of the zoo's inputs (torch.Generator on the card).
+ZOO_PARITY_SEED = 13
+ZOO_SEED = 2027
+#: the full-width shapes.  RecurrentGemma-9B (src/repro/configs/
+#: recurrentgemma_9b.py): lru_width 4096, 16 heads of 256 with one KV head,
+#: local window 2048, 2 rows per device, the train_4k sequence of 4096;
+#: its decode: 128 sequences x 16 heads against the 2048-slot local cache.
+#: xLSTM-125M (src/repro/configs/xlstm_125m.py): mLSTM inner width 1536 in
+#: 4 heads of 384, chunk 256, microbatch 8, f32.
+RG_SHAPE = (2, 4096, 4096)
+LOCAL_ATTN = dict(B=2, S=4096, H=16, Dh=256, window=2048)
+DECODE = dict(BH=128 * 16, S=2048, Dh=256, lengths=(2048, 1000))
+MLSTM = dict(B=8, H=4, S=4096, Dh=384, chunk=256)
+
+
+def _close(x, y, tol) -> tuple:
+    """(ok, max |x - y|, ||x - y|| / ||y||), in f64: ok when x is finite,
+    |x - y| <= atol + rtol |y| everywhere and, for a bf16 ``x``, the
+    relative Frobenius error is at most ``ZOO_BF16_FROB``."""
+    import torch
+    atol, rtol = tol
+    bf16 = x.dtype == torch.bfloat16
+    x, y = x.double(), y.double()
+    d = (x - y).abs()
+    ok = bool(torch.isfinite(x).all()) and bool((d <= atol + rtol * y.abs())
+                                                .all())
+    dn, yn = float(torch.linalg.vector_norm(d)), float(
+        torch.linalg.vector_norm(y))
+    frob = dn / yn if yn else (0.0 if dn == 0 else float("inf"))
+    ok = ok and not (bf16 and frob > ZOO_BF16_FROB)
+    return ok, float(d.max()) if d.numel() else 0.0, frob
+
+
+def _tol(name: str, dtype):
+    import torch
+    return ZOO_TOL["bf16"] if dtype == torch.bfloat16 else ZOO_TOL[name]
+
+
+def _bits(x):
+    """``x`` as integers of its width (bitwise comparison)."""
+    import torch
+    return x.view({2: torch.int16, 4: torch.int32}[x.element_size()])
+
+
+def _randn(gen, dev):
+    import torch
+    return lambda *shape: torch.randn(shape, generator=gen, device=dev)
+
+
+def phase_zoo_parity(dev) -> dict:
+    """The four zoo kernels against their plain versions (and the oracles of
+    ``kernels/ref.py``) at small ragged and edge shapes; returns the largest
+    absolute difference per kernel."""
+    import torch
+    import torch.nn.functional as Fn
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mlstm_scan as ml
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(ZOO_PARITY_SEED)
+    randn = _randn(gen, dev)
+    errs = dict.fromkeys(("rglru_scan", "flash_attention", "decode_attention",
+                          "mlstm_scan"), 0.0)
+    before = _counts()
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    for (B, S, W) in ((3, 300, 200), (5, 77, 333)):
+        for dt in (f32, bf16):
+            a = torch.sigmoid(randn(B, S, W) - 1.0).to(dt)
+            b = randn(B, S, W).to(dt)
+            h0 = randn(B, W)
+            out = rg.rglru_scan(a, b, h0)
+            plain = rg.rglru_scan_plain(a, b, h0)
+            oracle = ref.rglru_ref(a, b, h0)
+            torch.cuda.synchronize()
+            same = torch.equal(_bits(out), _bits(plain))
+            err = _max_abs(out, plain)
+            ok_ref, err_ref, frob_ref = _close(
+                out, oracle, (1e-5, 1e-5) if dt == f32 else ZOO_TOL["bf16"])
+            errs["rglru_scan"] = max(errs["rglru_scan"], err)
+            log(f"zoo parity rglru_scan {(B, S, W)} {dt}: bitwise={same} "
+                f"max_abs_err={err}; vs rglru_ref {err_ref:.3e} (rel "
+                f"Frobenius {frob_ref:.3e})")
+            if not (same and ok_ref):
+                fail(f"rglru_scan off its plain version or oracle at "
+                     f"{(B, S, W)} {dt}")
+
+    BH, S = 3, 333
+    for Dh in fa.HEAD_DIMS:
+        for dt in (f32, bf16):
+            q, k, v = (randn(BH, S, Dh).to(dt) for _ in range(3))
+            for mode, w, c in (("causal", 0, 0), ("sliding", 100, 0),
+                               ("chunked", 0, 64), ("bidir", 0, 0)):
+                out = fa.flash_attention(q, k, v, mode=mode, window=w,
+                                         chunk=c)
+                plain = fa.flash_attention_plain(q, k, v, mode=mode,
+                                                 window=w, chunk=c)
+                oracle = ref.attention_ref(
+                    q[None], k[None], v[None], causal=mode != "bidir",
+                    window=w, chunk=c)[0]
+                torch.cuda.synchronize()
+                tol = _tol("flash_attention", dt)
+                ok, err, frob = _close(out, plain, tol)
+                ok_ref, err_ref, frob_ref = _close(out, oracle, tol)
+                errs["flash_attention"] = max(errs["flash_attention"], err)
+                log(f"zoo parity flash_attention {mode:8s} Dh {Dh} {dt} "
+                    f"{(BH, S, Dh)}: max_abs_err={err} (rel Frobenius "
+                    f"{frob:.3e}); vs attention_ref {err_ref:.3e} "
+                    f"({frob_ref:.3e})")
+                if not (ok and ok_ref):
+                    fail(f"flash_attention off at {mode} Dh {Dh} {dt}")
+
+    BH, S = 4, 768
+    for Dh in da.HEAD_DIMS:
+        for dt in (f32, bf16):
+            q1 = randn(BH, 1, Dh).to(dt)
+            k, v = (randn(BH, S, Dh).to(dt) for _ in range(2))
+            for length in (0, 1, 333, S):
+                out = da.decode_attention(q1, k, v, length)
+                plain = da.decode_attention_plain(q1, k, v, length)
+                torch.cuda.synchronize()
+                tol = _tol("decode_attention", dt)
+                ok, err, frob = _close(out, plain, tol)
+                ok_ref, err_ref, frob_ref = True, 0.0, 0.0
+                if length:
+                    oracle = ref.decode_ref(q1[:, 0][None], k[None],
+                                            v[None], length=length)[0]
+                    ok_ref, err_ref, frob_ref = _close(out[:, 0], oracle, tol)
+                else:
+                    ok_ref = bool((out == 0).all())
+                errs["decode_attention"] = max(errs["decode_attention"], err)
+                log(f"zoo parity decode_attention Dh {Dh} {dt} S {S} length "
+                    f"{length}: max_abs_err={err} (rel Frobenius "
+                    f"{frob:.3e}); vs decode_ref {err_ref:.3e} "
+                    f"({frob_ref:.3e})")
+                if not (ok and ok_ref):
+                    fail(f"decode_attention off at Dh {Dh} {dt} length "
+                         f"{length}")
+
+    BH, S = 4, 512
+    for Dh, chunk, dt in ((128, 64, f32), (256, 128, f32), (384, 256, f32),
+                          (128, 64, bf16)):
+        q = (randn(BH, S, Dh) * Dh ** -0.5).to(dt)
+        k = (randn(BH, S, Dh) * Dh ** -0.5).to(dt)
+        v = randn(BH, S, Dh).to(dt)
+        li = (randn(BH, S) * 0.5).to(dt)
+        lf = Fn.logsigmoid(randn(BH, S) + 2.0).to(dt)
+        out = ml.mlstm_scan(q, k, v, li, lf, chunk=chunk)
+        plain = ml.mlstm_scan_plain(q, k, v, li, lf, chunk=chunk)
+        oracle = ref.mlstm_ref(*(x[None] for x in (q, k, v, li, lf)))[0]
+        torch.cuda.synchronize()
+        ok, err, frob = _close(out, plain, _tol("mlstm_scan", dt))
+        ok_ref, err_ref, frob_ref = _close(out, oracle, _tol("mlstm_scan",
+                                                             dt))
+        errs["mlstm_scan"] = max(errs["mlstm_scan"], err)
+        log(f"zoo parity mlstm_scan Dh {Dh} chunk {chunk} {dt} "
+            f"{(BH, S, Dh)}: max_abs_err={err} (rel Frobenius {frob:.3e}); "
+            f"vs mlstm_ref {err_ref:.3e} ({frob_ref:.3e})")
+        if not (ok and ok_ref):
+            fail(f"mlstm_scan off at Dh {Dh} chunk {chunk} {dt}")
+
+    after = _counts()
+    for name in errs:
+        if after[name] <= before[name]:
+            fail(f"the {name} launch counter did not increase")
+    return errs
+
+
+def zoo_inputs(dev) -> dict:
+    """The full-width inputs, drawn on the card from ``ZOO_SEED``."""
+    import torch
+    import torch.nn.functional as Fn
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(ZOO_SEED)
+    randn = _randn(gen, dev)
+    bf16 = torch.bfloat16
+    B, S, W = RG_SHAPE
+    inp = {"rg_a": torch.sigmoid(randn(B, S, W) - 1.0), "rg_b": randn(B, S, W),
+           "rg_h0": randn(B, W)}
+    la = LOCAL_ATTN
+    inp["fa_q"] = randn(la["B"], la["S"], la["H"], la["Dh"]).to(bf16)
+    for name in ("fa_k", "fa_v"):   # one KV head, expanded as the model does
+        inp[name] = randn(la["B"], la["S"], 1, la["Dh"]).to(bf16).expand(
+            -1, -1, la["H"], -1)
+    d = DECODE
+    inp["dec_q"] = randn(d["BH"], 1, d["Dh"]).to(bf16)
+    inp["dec_k"] = randn(d["BH"], d["S"], d["Dh"]).to(bf16)
+    inp["dec_v"] = randn(d["BH"], d["S"], d["Dh"]).to(bf16)
+    m = MLSTM
+    shape = (m["B"], m["H"], m["S"], m["Dh"])
+    inp["ml_q"] = randn(*shape) * m["Dh"] ** -0.5
+    inp["ml_k"] = randn(*shape) * m["Dh"] ** -0.5
+    inp["ml_v"] = randn(*shape)
+    inp["ml_li"] = randn(*shape[:3]) * 0.5
+    inp["ml_lf"] = Fn.logsigmoid(randn(*shape[:3]) + 2.0)
+    torch.cuda.synchronize()
+    return inp
+
+
+def run_zoo_path(inp: dict) -> dict:
+    """Drive the zoo layer once at full width through its public wrappers
+    (``kernels.ops``; decode through its raw wrapper).  Counters are read
+    by the caller around it."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention
+    out = {
+        "rglru_zero_h0": ops.rglru_scan(inp["rg_a"], inp["rg_b"],
+                                        torch.zeros_like(inp["rg_h0"])),
+        "rglru_seeded_h0": ops.rglru_scan(inp["rg_a"], inp["rg_b"],
+                                          inp["rg_h0"]),
+        "local_attention": ops.flash_attention(
+            inp["fa_q"], inp["fa_k"], inp["fa_v"], mode="sliding",
+            window=LOCAL_ATTN["window"]),
+        "mlstm": ops.mlstm_scan(inp["ml_q"], inp["ml_k"], inp["ml_v"],
+                                inp["ml_li"], inp["ml_lf"],
+                                chunk=MLSTM["chunk"])}
+    for length in DECODE["lengths"]:
+        out[f"decode_{length}"] = decode_attention(
+            inp["dec_q"], inp["dec_k"], inp["dec_v"], length)
+    return out
+
+
+def _fold(t):
+    """(B, S, H, Dh) -> contiguous (B*H, S, Dh)."""
+    B, S, H, Dh = t.shape
+    return t.transpose(1, 2).reshape(B * H, S, Dh)
+
+
+def gate_zoo(inp: dict, out: dict) -> dict:
+    """Hold every full-width output against the plain version on the same
+    inputs: RG-LRU bitwise, the others within ``ZOO_TOL``; all finite and
+    of the expected shape."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mlstm_scan as ml
+    from repro_torch.kernels import rglru_scan as rg
+    report = {}
+    for key, h0 in (("rglru_zero_h0", torch.zeros_like(inp["rg_h0"])),
+                    ("rglru_seeded_h0", inp["rg_h0"])):
+        plain = rg.rglru_scan_plain(inp["rg_a"], inp["rg_b"], h0)
+        same = torch.equal(_bits(out[key]), _bits(plain))
+        report[key] = {"bitwise": same, "max_abs_err": _max_abs(out[key],
+                                                                plain)}
+        if not (same and out[key].shape == RG_SHAPE):
+            fail(f"full width: {key} not bitwise equal to its plain version")
+    la = LOCAL_ATTN
+    got = _fold(out["local_attention"])
+    plain = fa.flash_attention_plain(_fold(inp["fa_q"]), _fold(inp["fa_k"]),
+                                     _fold(inp["fa_v"]), mode="sliding",
+                                     window=la["window"])
+    ok, err, frob = _close(got, plain, _tol("flash_attention", got.dtype))
+    report["local_attention"] = {"max_abs_err": err, "rel_frobenius": frob}
+    if not ok or out["local_attention"].shape != inp["fa_q"].shape:
+        fail(f"full width: local attention off its plain version ({err})")
+    del plain
+    for length in DECODE["lengths"]:
+        key = f"decode_{length}"
+        plain = da.decode_attention_plain(inp["dec_q"], inp["dec_k"],
+                                          inp["dec_v"], length)
+        ok, err, frob = _close(out[key], plain, _tol("decode_attention",
+                                                     plain.dtype))
+        report[key] = {"max_abs_err": err, "rel_frobenius": frob}
+        if not ok or out[key].shape != inp["dec_q"].shape:
+            fail(f"full width: {key} off its plain version ({err})")
+    m = MLSTM
+    BH = m["B"] * m["H"]
+    fold = lambda t: t.reshape(BH, *t.shape[2:])
+    plain = ml.mlstm_scan_plain(*(fold(inp[k]) for k in (
+        "ml_q", "ml_k", "ml_v", "ml_li", "ml_lf")), chunk=m["chunk"])
+    ok, err, frob = _close(fold(out["mlstm"]), plain, _tol("mlstm_scan",
+                                                           plain.dtype))
+    report["mlstm"] = {"max_abs_err": err, "rel_frobenius": frob}
+    if not ok or out["mlstm"].shape != inp["ml_q"].shape:
+        fail(f"full width: mLSTM off its plain version ({err})")
+    torch.cuda.empty_cache()
+    log("zoo full width vs plain versions: " + json.dumps(report))
+    return report
+
+
+def phase_bench_kernels(dev) -> list:
+    """``repro_torch.benchmarks.bench_kernels.main`` on the card; its five
+    kernels must launch, and no plain version may run."""
+    from repro_torch.benchmarks import bench_kernels
+    _reset_counts()
+    rows = bench_kernels.main(device=dev)
+    import torch
+    torch.cuda.synchronize()
+    counts = _counts()
+    names = ("flash_attention", "rglru_scan", "mlstm_scan", "quantize",
+             "event_sweep")
+    log(f"bench_kernels: {len(rows)} rows; launches "
+        f"{ {n: counts[n] for n in names} }, plain calls {counts['plain']}")
+    if len(rows) != 5 or any(counts[n] <= 0 for n in names) \
+            or counts["plain"]:
+        fail("bench_kernels did not run its five kernels on the card")
+    return rows
+
+
+def _flash_pairs(S: int, window: int) -> int:
+    """(query, key) pairs inside a causal window of ``window``."""
+    return sum(min(i + 1, window) for i in range(S))
+
+
+def _mlstm_flops(BH: int, S: int, Dh: int, L: int) -> int:
+    """The products the chunkwise mLSTM needs: q k^T and S v over each
+    chunk's causal pairs, q C0 into every chunk but the first (C0 = 0) and
+    the state update out of every chunk but the last."""
+    nc = S // L
+    return (4 * Dh * BH * nc * L * (L + 1) // 2
+            + 4 * BH * (nc - 1) * L * Dh * Dh)
+
+
+def _sdpa_ms(name: str, call, want) -> tuple:
+    """(ms, backend) of ``call`` -- one ``scaled_dot_product_attention`` on
+    4-D tensors -- under the fastest backend that takes it.  Each backend
+    is tried alone; one that refuses the inputs raises and is skipped.
+    The times and each backend's max |out - want| are logged."""
+    import warnings
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    times = {}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        with sdpa_kernel([backend]), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                got = call()
+                torch.cuda.synchronize()
+            except RuntimeError:
+                log(f"sdpa {name}: {backend.name} does not take it")
+                continue
+            times[backend.name] = _events_ms(call)
+        log(f"sdpa {name}: {backend.name} {times[backend.name]:.4f} ms, "
+            f"max |out - plain| {_max_abs(got.reshape(want.shape), want)}")
+        del got
+    best = min(times, key=times.get)
+    return times[best], best
+
+
+def phase_zoo_times(inp: dict, peaks, dev) -> dict:
+    """CUDA-event medians of 5 warm runs of each zoo kernel, its plain
+    version and (for attention) the one PyTorch call that computes the same
+    function, at the full-width shapes, with each kernel's bound."""
+    import torch
+    import torch.nn.functional as Fn
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mlstm_scan as ml
+    from repro_torch.kernels import rglru_scan as rg
+    bw, _, f32_peak, bf16_peak = peaks
+
+    def bound(nbytes, flops, peak):
+        b_ms, o_ms = nbytes / bw * 1e3, flops / peak * 1e3
+        return {"bound_ms": max(b_ms, o_ms),
+                "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                "bytes": nbytes, "flops": flops}
+
+    def timed(name, ker, plain, library=None, **b):
+        r = {"kernel_ms": _events_ms(ker), "plain_ms": _events_ms(plain),
+             "library_ms": None, **b}
+        if library:
+            r["library_ms"], r["library"] = _sdpa_ms(name, library, plain())
+        lib = (f"{r['library_ms']:.4f} ms (SDPA {r['library']})" if library
+               else "none (no single PyTorch call)")
+        log(f"time {name}: kernel {r['kernel_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{r['bound_ms'] / r['kernel_ms']:.3f} of the bound's rate")
+        return r
+
+    res = {"rglru_scan": []}
+    a, b = inp["rg_a"], inp["rg_b"]
+    n = a.numel()
+    for label, h0 in (("zero", torch.zeros_like(inp["rg_h0"])),
+                      ("seeded", inp["rg_h0"])):
+        res["rglru_scan"].append(timed(
+            f"rglru_scan {tuple(a.shape)} f32 {label} h0",
+            lambda: rg.rglru_scan(a, b, h0),
+            lambda: rg.rglru_scan_plain(a, b, h0),
+            **bound(3 * 4 * n + 4 * h0.numel(), 2 * n, f32_peak)))
+
+    la = LOCAL_ATTN
+    q, k, v = (_fold(inp[x]) for x in ("fa_q", "fa_k", "fa_v"))
+    S, Dh, BH = la["S"], la["Dh"], q.shape[0]
+    mask = fa.allowed("sliding", S, S, la["window"], 0, dev)
+    res["flash_attention"] = timed(
+        f"flash_attention sliding {la['window']} {tuple(q.shape)} bf16",
+        lambda: fa.flash_attention(q, k, v, mode="sliding",
+                                   window=la["window"]),
+        lambda: fa.flash_attention_plain(q, k, v, mode="sliding",
+                                         window=la["window"]),
+        lambda: Fn.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                attn_mask=mask),
+        **bound(4 * q.numel() * 2,
+                4 * Dh * BH * _flash_pairs(S, la["window"]), bf16_peak))
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    d = DECODE
+    q1, kc, vc = inp["dec_q"], inp["dec_k"], inp["dec_v"]
+    parts = []
+    for length in d["lengths"]:   # slots past length take no part: no mask
+        parts.append(timed(
+            f"decode_attention {tuple(kc.shape)} bf16 length {length}",
+            lambda: da.decode_attention(q1, kc, vc, length),
+            lambda: da.decode_attention_plain(q1, kc, vc, length),
+            lambda: Fn.scaled_dot_product_attention(
+                q1[None], kc[None, :, :length], vc[None, :, :length]),
+            **bound(2 * (2 * d["BH"] * length * d["Dh"] + 2 * q1.numel()),
+                    4 * d["BH"] * length * d["Dh"], f32_peak)))
+    res["decode_attention"] = parts
+
+    m = MLSTM
+    BH, S, Dh, L = m["B"] * m["H"], m["S"], m["Dh"], m["chunk"]
+    fold = lambda t: t.reshape(BH, *t.shape[2:])
+    args = tuple(fold(inp[x]) for x in ("ml_q", "ml_k", "ml_v", "ml_li",
+                                        "ml_lf"))
+    flops = _mlstm_flops(BH, S, Dh, L)
+    res["mlstm_scan"] = timed(
+        f"mlstm_scan {(BH, S, Dh)} chunk {L} f32",
+        lambda: ml.mlstm_scan(*args, chunk=L),
+        lambda: ml.mlstm_scan_plain(*args, chunk=L),
+        **bound(4 * 4 * BH * S * Dh + 2 * 4 * BH * S, flops, f32_peak))
+    torch.cuda.empty_cache()
+    return res
+
+
+def _kernel_modules():
+    from repro_torch.kernels import (decode_attention, event_sweep,
+                                     flash_attention, mlstm_scan,
+                                     quant_blockwise, rglru_scan)
+    return (event_sweep, quant_blockwise, rglru_scan, flash_attention,
+            decode_attention, mlstm_scan)
+
+
+def _wrappers():
+    """{name: (kernel wrapper, its plain version)} of all seven kernels."""
+    es, qb, rg, fa, da, ml = _kernel_modules()
+    return {"event_sweep": (es.event_sweep, es.event_sweep_plain),
+            "quantize": (qb.quantize, qb.quantize_plain),
+            "dequantize": (qb.dequantize, qb.dequantize_plain),
+            "rglru_scan": (rg.rglru_scan, rg.rglru_scan_plain),
+            "flash_attention": (fa.flash_attention,
+                                fa.flash_attention_plain),
+            "decode_attention": (da.decode_attention,
+                                 da.decode_attention_plain),
+            "mlstm_scan": (ml.mlstm_scan, ml.mlstm_scan_plain)}
+
+
 def _counts() -> dict:
-    from repro_torch.kernels import event_sweep as es
-    from repro_torch.kernels import quant_blockwise as qb
-    return {"event_sweep": es.event_sweep.launches,
-            "quantize": qb.quantize.launches,
-            "dequantize": qb.dequantize.launches,
-            "plain": (es.event_sweep_plain.calls + qb.quantize_plain.calls
-                      + qb.dequantize_plain.calls)}
+    """Launches of every kernel, and the plain versions' calls in all."""
+    w = _wrappers()
+    out = {name: ker.launches for name, (ker, _) in w.items()}
+    out["plain"] = sum(plain.calls for _, plain in w.values())
+    return out
 
 
 def _reset_counts() -> None:
-    from repro_torch.kernels import event_sweep as es
-    from repro_torch.kernels import quant_blockwise as qb
-    es.event_sweep.launches = 0
-    qb.quantize.launches = qb.dequantize.launches = 0
-    es.event_sweep_plain.calls = 0
-    qb.quantize_plain.calls = qb.dequantize_plain.calls = 0
+    for ker, plain in _wrappers().values():
+        ker.launches = 0
+        plain.calls = 0
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     card, peaks = phase_device()
     import shutil
     import torch
+    # the plain versions' f32 products run in full f32, never TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
     build_s = phase_build()
     parity_err = phase_parity(dev)
     quant_err, dequant_err = phase_quant_parity(dev)
+    zoo_err = phase_zoo_parity(dev)
 
     # the Monte-Carlo main path (sweep, then MC), its counts read around it
     _reset_counts()
@@ -1073,7 +1561,30 @@ def main() -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
+
+    # the model-zoo kernel layer at full width, its counts read around it
+    inp = zoo_inputs(dev)
+    _reset_counts()
+    zoo_out = run_zoo_path(inp)
+    torch.cuda.synchronize()
+    zoo_counts = _counts()
+    zoo_names = ("rglru_scan", "flash_attention", "decode_attention",
+                 "mlstm_scan")
+    log("zoo path: launches " + ", ".join(
+        f"{n} {zoo_counts[n]}" for n in zoo_names)
+        + f", plain-version calls {zoo_counts['plain']}")
+    if any(zoo_counts[n] <= 0 for n in zoo_names):
+        fail("the zoo path did not launch all four kernels")
+    if zoo_counts["plain"] != 0:
+        fail("the zoo path called a plain version")
+    report["zoo"] = gate_zoo(inp, zoo_out)
+    del zoo_out
+    torch.cuda.empty_cache()
+    report["bench_kernels"] = phase_bench_kernels(dev)
+
     variants = phase_times(big, mc_grid, model, runs, peaks, dev)
+    ztimes = phase_zoo_times(inp, peaks, dev)
+    del inp
 
     kernels = [{
         "name": "event_sweep", "route": "cuda",
@@ -1106,8 +1617,38 @@ def main() -> None:
             "build_s": build_s["quant_blockwise.cu"],
             "variants": [qtimes[name]["checkpoint"],
                          qtimes[name]["largest"]]})
+    full_width_keys = {
+        "rglru_scan": ("rglru_zero_h0", "rglru_seeded_h0"),
+        "flash_attention": ("local_attention",),
+        "decode_attention": tuple(f"decode_{n}" for n in DECODE["lengths"]),
+        "mlstm_scan": ("mlstm",)}
+    for name, line, parity in (("rglru_scan", 21, "bitwise"),
+                               ("flash_attention", 39, "tolerance"),
+                               ("decode_attention", 25, "tolerance"),
+                               ("mlstm_scan", 22, "tolerance")):
+        t = ztimes[name]
+        parts = t if isinstance(t, list) else [t]
+        full = [report["zoo"][k]["max_abs_err"]
+                for k in full_width_keys[name]]
+        lib = [v["library_ms"] for v in parts]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{name}.py:{line}",
+            "launches": zoo_counts[name],
+            "max_abs_err": max([zoo_err[name]] + full),
+            "parity": parity,
+            "ms": sum(v["kernel_ms"] for v in parts),
+            "plain_ms": sum(v["plain_ms"] for v in parts),
+            "bound_ms": sum(v["bound_ms"] for v in parts),
+            "bound_by": ("bytes" if all(v["bound_by"] == "bytes"
+                                        for v in parts) else "operations"),
+            "library_ms": None if None in lib else sum(lib),
+            "build_s": build_s[f"{name}.cu"],
+            "variants": parts})
     print(json.dumps({"gates": report}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

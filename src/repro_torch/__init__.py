@@ -7,7 +7,8 @@ event-level Monte-Carlo engine, dispatch and precision), ``energy``
 (phase-based energy accounting), ``ckpt`` (the compressed sharded store
 and the checkpoint manager), ``kernels`` (hand-written CUDA kernels for
 Hopper, each beside its plain PyTorch version, built at first use from
-``csrc/``) and ``interop`` (carries the reference's state across).  Entry
-points take ``device=`` and default to ``"cuda"``.
+``csrc/``, with the oracles and the models' layouts), ``benchmarks``
+(``bench_kernels``) and ``interop`` (carries the reference's state
+across).  Entry points take ``device=`` and default to ``"cuda"``.
 """
 from . import ckpt, core, energy, sim  # noqa: F401

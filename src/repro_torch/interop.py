@@ -74,6 +74,37 @@ def ml_power_from_fields(fields: Mapping[str, float]
                                          "P_io2", "P_down")})
 
 
+def tensor_from_array(a, device="cuda", dtype=None) -> torch.Tensor:
+    """A fresh tensor on ``device`` holding the array ``a`` (numpy, or
+    anything ``np.asarray`` takes).  A bfloat16 array (``ml_dtypes``'
+    type, which JAX hands over and ``torch.from_numpy`` refuses; known by
+    its dtype's name) is carried bit for bit through a 16-bit view.
+    ``dtype``, if given, converts after the transfer."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    t = t.to(resolve_device(device))
+    return t if dtype is None else t.to(dtype)
+
+
+def array_from_tensor(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a numpy array on the host.  A bfloat16 tensor comes back
+    bit for bit as numpy's ``bfloat16`` dtype, which exists once
+    ``ml_dtypes`` (or JAX) has registered it; without it this raises."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    try:
+        bf16 = np.dtype("bfloat16")
+    except TypeError:
+        raise TypeError("numpy has no bfloat16 dtype registered (import "
+                        "ml_dtypes or jax first)") from None
+    return t.contiguous().view(torch.int16).numpy().view(bf16)
+
+
 def state_from_numpy(tree: Any, device="cuda") -> Any:
     """A state tree with numpy leaves (what the reference's
     ``jax.device_get`` returns: dicts, tuples, namedtuples, None) as the

@@ -101,15 +101,11 @@ def event_sweep(T, C, R, D, omega, T_base, gaps: torch.Tensor, *,
                for _ in _INT_KEYS]
             + [torch.empty((B, N), dtype=torch.bool, device=dev)
                for _ in _BOOL_KEYS])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.repro_event_sweep(
-            int(gaps.dtype == torch.float64), int(bool(compensated)),
-            *[x.data_ptr() for x in params], gaps.data_ptr(),
-            B, N, F, int(n_steps), *[o.data_ptr() for o in outs], stream)
-    if err != 0:
-        raise RuntimeError(f"event_sweep kernel launch failed: CUDA error "
-                           f"{err}")
+    _build.launch(lib.repro_event_sweep, int(gaps.dtype == torch.float64),
+                  int(bool(compensated)), *[x.data_ptr() for x in params],
+                  gaps.data_ptr(), B, N, F, int(n_steps),
+                  *[o.data_ptr() for o in outs], device=dev,
+                  name="event_sweep")
     event_sweep.launches += 1
     return dict(zip(OUTPUT_KEYS, outs))
 

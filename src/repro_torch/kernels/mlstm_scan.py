@@ -1,0 +1,179 @@
+"""Chunkwise-parallel mLSTM (xLSTM's matrix memory): CUDA wrapper and plain
+PyTorch version.
+
+Replaces the reference's Pallas kernel
+``repro/kernels/mlstm_scan.py::_mlstm_kernel`` (oracle: the stepwise
+``repro/kernels/ref.py::mlstm_ref``).  ``q``, ``k``, ``v``: ``(BH, S,
+Dh)`` (q and k pre-scaled), ``li``, ``lf``: ``(BH, S)`` log input and log
+forget gates, ``S % L == 0`` for the chunk length ``L = min(chunk, S)``.
+Inside a chunk, with ``b`` the cumulative sum of ``lf`` over the chunk
+and ``(C0, n0, m0)`` the carried state (zeros at the start, ``m0 = 0``):
+
+    m_t     = max(m0 + b_t, max_{j<=t} (b_t - b_j + li_j))
+    scores  = (q k^T)_{tj} * exp(b_t - b_j + li_j - m_t)      (j <= t)
+    h_t     = (exp(m0 + b_t - m_t) q_t C0 + sum_j scores_tj v_j)
+              / max(|exp(m0 + b_t - m_t) q_t.n0 + sum_j scores_tj|,
+                    exp(-m_t))
+
+and the state moves to the chunk's end with ``F = b_{L-1}``,
+``m' = max(m0 + F, max_j (F - b_j + li_j))``, weights
+``w_j = exp(F - b_j + li_j - m')``, ``C' = exp(m0 + F - m') C0 +
+sum_j w_j k_j^T v_j`` and ``n'`` alike.  All math in f32; the output has
+``q``'s dtype.
+
+* :func:`mlstm_scan` is the wrapper.  For CUDA tensors it launches the
+  kernels of ``repro_torch/csrc/mlstm_scan.cu`` on the current stream (a
+  gate pass, a state pass that writes every chunk's starting state into
+  scratch the wrapper allocates, and an output pass), or raises; for CPU
+  tensors it runs :func:`mlstm_scan_plain`.  ``mlstm_scan.launches``
+  counts calls that launched the kernels.
+* :func:`mlstm_scan_plain` is the chunkwise algorithm above in PyTorch,
+  batched over ``BH``.  The kernels are held to it within 1e-4 absolute
+  plus 1e-3 relative (the reference's kernel-vs-oracle tolerance).
+  ``.calls`` counts its calls.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+NEG_INF = -1.0e30
+DTYPES = (torch.float32, torch.bfloat16)
+#: head widths the kernels are compiled for, and the longest chunk.
+HEAD_DIMS = (128, 256, 384)
+MAX_CHUNK = 256
+
+_SOURCE = "mlstm_scan.cu"
+
+
+@functools.lru_cache(maxsize=1)
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel library."""
+    lib = ctypes.CDLL(str(_build.build(_SOURCE)))
+    fn = lib.repro_mlstm_scan
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(q, k, v, li, lf, chunk: int) -> int:
+    """Validate; returns the chunk length L."""
+    if q.ndim != 3 or not (q.shape == k.shape == v.shape):
+        raise ValueError(f"q, k, v must all be (BH, S, Dh), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if li.shape != q.shape[:2] or lf.shape != q.shape[:2]:
+        raise ValueError(f"li and lf must be {tuple(q.shape[:2])}, got "
+                         f"{tuple(li.shape)} and {tuple(lf.shape)}")
+    if q.dtype not in DTYPES or not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q, k, v must share a dtype among {DTYPES}")
+    if li.dtype not in DTYPES or lf.dtype != li.dtype:
+        raise TypeError(f"li and lf must share a dtype among {DTYPES}")
+    if len({x.device for x in (q, k, v, li, lf)}) != 1:
+        raise ValueError("q, k, v, li and lf must lie on one device")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"mlstm_scan runs on cuda or cpu tensors, not "
+                         f"{q.device}")
+    S = q.shape[1]
+    L = min(int(chunk), S)
+    if L <= 0 or S % L:
+        raise ValueError(f"S = {S} must be a multiple of the chunk {L}")
+    return L
+
+
+def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               li: torch.Tensor, lf: torch.Tensor, *,
+               chunk: int = 256) -> torch.Tensor:
+    """Returns ``h`` of shape ``(BH, S, Dh)`` in ``q``'s dtype."""
+    L = _check(q, k, v, li, lf, chunk)
+    if q.device.type == "cpu":
+        return mlstm_scan_plain(q, k, v, li, lf, chunk=chunk)
+    return _kernel(q, k, v, li, lf, L)
+
+
+def _kernel(q, k, v, li, lf, L: int) -> torch.Tensor:
+    """Allocate the output and scratch and launch the three passes on the
+    inputs' device."""
+    BH, S, Dh = q.shape
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"the kernels take Dh in {HEAD_DIMS}, got {Dh}")
+    if L > MAX_CHUNK:
+        raise ValueError(f"the kernels take chunks of at most {MAX_CHUNK}, "
+                         f"got {L}")
+    q, k, v = (_build.aligned(x) for x in (q, k, v))
+    li, lf = li.contiguous(), lf.contiguous()
+    nc = S // L
+    f32 = dict(dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    # scratch: every chunk's starting C, n and m; the chunk's decay; the
+    # cumulative forget gates b, the state-update weights w, li in f32.
+    C = torch.empty((BH, nc, Dh, Dh), **f32)
+    n = torch.empty((BH, nc, Dh), **f32)
+    m = torch.empty((BH, nc), **f32)
+    decay = torch.empty((BH, nc), **f32)
+    b, w, li32 = (torch.empty((BH, S), **f32) for _ in range(3))
+    _build.launch(load_library().repro_mlstm_scan,
+                  int(q.dtype == torch.bfloat16),
+                  int(li.dtype == torch.bfloat16),
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), li.data_ptr(),
+                  lf.data_ptr(), out.data_ptr(), C.data_ptr(), n.data_ptr(),
+                  m.data_ptr(), decay.data_ptr(), b.data_ptr(), w.data_ptr(),
+                  li32.data_ptr(), BH, S, Dh, L, device=q.device,
+                  name="mlstm_scan")
+    mlstm_scan.launches += 1
+    return out
+
+
+mlstm_scan.launches = 0
+
+
+def mlstm_scan_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     li: torch.Tensor, lf: torch.Tensor, *,
+                     chunk: int = 256) -> torch.Tensor:
+    """The chunkwise algorithm in PyTorch (any device)."""
+    mlstm_scan_plain.calls += 1
+    L = _check(q, k, v, li, lf, chunk)
+    BH, S, Dh = q.shape
+    f32, dtype = torch.float32, q.dtype
+    q, k, v, li, lf = (x.to(f32) for x in (q, k, v, li, lf))
+    C = q.new_zeros((BH, Dh, Dh))
+    n = q.new_zeros((BH, Dh))
+    m = q.new_zeros((BH,))
+    causal = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
+    out = torch.empty((BH, S, Dh), dtype=f32, device=q.device)
+    for c0 in range(0, S, L):
+        sl = slice(c0, c0 + L)
+        qc, kc, vc, lic = q[:, sl], k[:, sl], v[:, sl], li[:, sl]
+        b = torch.cumsum(lf[:, sl], dim=1)                  # (BH, L)
+        F = b[:, -1]
+        intra = b[:, :, None] - b[:, None, :] + lic[:, None, :]
+        intra = torch.where(causal, intra, NEG_INF)
+        m_inter = m[:, None] + b
+        m_t = torch.clamp_min(torch.maximum(m_inter, intra.amax(-1)),
+                              NEG_INF)
+        g = torch.exp(m_inter - m_t)                        # (BH, L)
+        w_intra = torch.where(causal, torch.exp(intra - m_t[..., None]), 0.0)
+        scores = torch.matmul(qc, kc.transpose(1, 2)) * w_intra
+        h_num = (g[..., None] * torch.matmul(qc, C)
+                 + torch.matmul(scores, vc))
+        n_t = g * torch.matmul(qc, n[:, :, None])[..., 0] + scores.sum(-1)
+        denom = torch.maximum(n_t.abs(), torch.exp(-m_t))
+        out[:, sl] = h_num / denom[..., None]
+
+        s_exp = F[:, None] - b + lic
+        m_next = torch.maximum(m + F, s_exp.amax(-1))
+        decay = torch.exp(m + F - m_next)
+        kw = kc * torch.exp(s_exp - m_next[:, None])[..., None]
+        C = decay[:, None, None] * C + torch.matmul(kw.transpose(1, 2), vc)
+        n = decay[:, None] * n + kw.sum(1)
+        m = m_next
+    return out.to(dtype)
+
+
+mlstm_scan_plain.calls = 0

@@ -1,19 +1,53 @@
-"""Public wrappers around the kernels: layout and padding.
+"""Public wrappers around the kernels: model layouts and padding.
 
-Counterpart of the reference's ``repro/kernels/ops.py`` for the kernels
-ported so far.  :func:`quantize_array` and :func:`dequantize_array` take
-arrays of any shape to the quantize kernel's ``(rows, D)`` layout and
-back, with the reference's padding (``D`` = 512 lanes for arrays of at
-least 512 elements, else 128, zero-padded to a whole number of rows), so
-the payloads they produce are the reference's, shape for shape.  They run
-on the device of their input: the kernel on CUDA, its plain version on
-the CPU.
+Counterpart of the reference's ``repro/kernels/ops.py``.  Each runs on the
+device of its input: the kernel on CUDA, its plain version on the CPU.
+
+* :func:`flash_attention` takes the model layout ``(B, S, H, Dh)`` to the
+  kernel's flat-head ``(B*H, S, Dh)`` and back; :func:`mlstm_scan` folds
+  ``(B, H, S, Dh)`` and ``(B, H, S)`` gates to ``B*H`` rows;
+  :func:`rglru_scan` is the kernel's own wrapper, whose layout
+  ``(B, S, W)`` is the model's.  The TPU tiling arguments of the
+  reference (``qb``, ``kb``, ``bb``, ``sb``, ``wb``) have no counterpart.
+* :func:`quantize_array` and :func:`dequantize_array` take arrays of any
+  shape to the quantize kernel's ``(rows, D)`` layout and back, with the
+  reference's padding (``D`` = 512 lanes for arrays of at least 512
+  elements, else 128, zero-padded to a whole number of rows), so the
+  payloads they produce are the reference's, shape for shape.
 """
 from __future__ import annotations
 
 import torch
 
+from . import flash_attention as _fa
+from . import mlstm_scan as _ml
 from .quant_blockwise import dequantize, quantize
+from .rglru_scan import rglru_scan  # noqa: F401
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    mode: str = "causal", window: int = 0,
+                    chunk: int = 0) -> torch.Tensor:
+    """Attention in the model layout: q (B, S, H, Dh), k/v (B, Skv, H, Dh);
+    returns (B, S, H, Dh)."""
+    B, S, H, Dh = q.shape
+    fold = lambda t: t.transpose(1, 2).reshape(B * H, t.shape[1], Dh)
+    out = _fa.flash_attention(fold(q), fold(k), fold(v), mode=mode,
+                              window=window, chunk=chunk)
+    return out.reshape(B, H, S, Dh).transpose(1, 2)
+
+
+def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               li: torch.Tensor, lf: torch.Tensor, *,
+               chunk: int = 256) -> torch.Tensor:
+    """The mLSTM in the model layout: q/k/v (B, H, S, Dh), li/lf
+    (B, H, S); returns (B, H, S, Dh)."""
+    B, H, S, Dh = q.shape
+    fold = lambda t: t.reshape(B * H, S, Dh)
+    fold2 = lambda t: t.reshape(B * H, S)
+    out = _ml.mlstm_scan(fold(q), fold(k), fold(v), fold2(li), fold2(lf),
+                         chunk=chunk)
+    return out.reshape(B, H, S, Dh)
 
 
 def _pad_of(size: int) -> tuple:

@@ -75,16 +75,6 @@ def _check_kernel_input(x: torch.Tensor, name: str, align: int) -> None:
                          f"kernel's vector loads")
 
 
-def _launch(fn_name: str, *ptrs, n_groups: int, device) -> None:
-    lib = load_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn_name)(*ptrs, n_groups, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error "
-                           f"{err}")
-
-
 def quantize(x: torch.Tensor):
     """``x`` f32 ``(N, D)`` -> (int8 ``(N, D)``, f32 scales ``(N, D/128)``)
     on the device of ``x``."""
@@ -96,8 +86,9 @@ def quantize(x: torch.Tensor):
     q = torch.empty((N, D), dtype=torch.int8, device=x.device)
     s = torch.empty((N, D // LANE_GROUP), dtype=torch.float32,
                     device=x.device)
-    _launch("repro_quantize_blockwise", x.data_ptr(), q.data_ptr(),
-            s.data_ptr(), n_groups=s.numel(), device=x.device)
+    _build.launch(load_library().repro_quantize_blockwise, x.data_ptr(),
+                  q.data_ptr(), s.data_ptr(), s.numel(), device=x.device,
+                  name="quantize")
     _bump(quantize, "launches")
     return q, s
 
@@ -120,8 +111,9 @@ def dequantize(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     _check_kernel_input(q, "q", 4)
     _check_kernel_input(s, "scales", 4)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    _launch("repro_dequantize_blockwise", q.data_ptr(), s.data_ptr(),
-            out.data_ptr(), n_groups=s.numel(), device=q.device)
+    _build.launch(load_library().repro_dequantize_blockwise, q.data_ptr(),
+                  s.data_ptr(), out.data_ptr(), s.numel(), device=q.device,
+                  name="dequantize")
     _bump(dequantize, "launches")
     return out
 

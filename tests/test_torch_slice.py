@@ -100,7 +100,12 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
             "repro_torch.interop, repro_torch.kernels.event_sweep, "
             "repro_torch.kernels._build, repro_torch.kernels.ops, "
             "repro_torch.ckpt, repro_torch.energy, "
-            "repro_torch.core.policy\n"
+            "repro_torch.core.policy, repro_torch.kernels.ref, "
+            "repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.decode_attention, "
+            "repro_torch.kernels.rglru_scan, "
+            "repro_torch.kernels.mlstm_scan, "
+            "repro_torch.benchmarks.bench_kernels\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(','.join(bad))\n")
