@@ -9,7 +9,10 @@ Phases (any failure exits non-zero; no result line is printed then):
    versions; requires ``torch.cuda.is_available()``.
 2. build: compiles the six kernel sources of ``src/repro_torch/csrc`` (one
    nvcc each, all started together) and prints the build times and the
-   compiler's register reports.
+   compiler's register reports; then checks the design in the SASS
+   (``cuobjdump -sass``): the flash library must hold HGMMA (wgmma) and
+   UTMALDG (TMA loads), the decode library UBLKCP (bulk copies), and the
+   wgmma kernel must not spill.
 3. parity: the event kernel against its plain PyTorch version on the
    card, bitwise, under both precision policies, on a dyadic schedule, a
    ragged shape (B=37, N=333, F=200) and the exhaustion/truncation case;
@@ -18,8 +21,11 @@ Phases (any failure exits non-zero; no result line is printed then):
    ``quant_cases()``; the four model-zoo kernels against theirs (and
    against the oracles of ``kernels/ref.py``) at small ragged and edge
    shapes: RG-LRU bitwise (B, W not multiples of 32; f32 and bf16), flash
-   attention in all four modes (Dh 128 and 256, f32 and bf16, S = 333),
-   decode (S = 768, length 0, 1, 333, 768), mLSTM (chunks 64/128/256 at
+   attention in all four modes (Dh 128 and 256, f32 and bf16, S = 333;
+   bf16 also at S = 1000 with windows 100 and 700 and chunks of 64, and
+   at S = 77),
+   decode (Dh 128 and 256, f32 and bf16: S = 768, length 0, 1, 333, 768;
+   S = 1000, length 999 and 1000; BH = 1), mLSTM (chunks 64/128/256 at
    Dh 128/256/384, and bf16), within ``ZOO_TOL``.
 4. model sweep: ``evaluate_grid`` on the 1,000,000-point
    ``mu_rho_grid(linspace(30,600,1000), linspace(1,10,1000))`` under both
@@ -51,8 +57,9 @@ Phases (any failure exits non-zero; no result line is printed then):
    no plain-version call; every deep flush recorded "ok"; the policy's
    (T, m) solved on the card within 1e-8 of the CPU's on the same
    observations.  Prints the save and restore splits.
-7. times: CUDA-event medians of 5 warm runs of each kernel and of its
-   plain version at the main-path shapes (compared again), the schedule
+7. times: CUDA-event medians of 5 samples of each kernel and of its
+   plain version (a sample: calls back to back over 20 ms or more, see
+   ``_events_ms``) at the main-path shapes (compared again), the schedule
    sampling, and the end-to-end calls; each kernel's bound from the bytes
    it moves.
 8. the model-zoo kernel layer at full width, through ``kernels.ops``
@@ -63,7 +70,8 @@ Phases (any failure exits non-zero; no result line is printed then):
    2048 and 1000, bf16); xLSTM-125M's mLSTM (8, 4, 4096, 384), chunk
    256, f32.  Gates: every zoo kernel launched and no plain version
    called during the run; the outputs against the plain versions on the
-   same inputs (RG-LRU bitwise, the others within ``ZOO_TOL``).  Then
+   same inputs (RG-LRU bitwise, the others within ``ZOO_TOL``; the
+   attention readings logged beside their gates).  Then
    ``repro_torch.benchmarks.bench_kernels.main`` on the card (five rows,
    its five kernels launched, no plain call), and each zoo kernel's time
    beside its plain version's, its bound, and for attention the time of
@@ -75,6 +83,7 @@ and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import statistics
@@ -108,6 +117,9 @@ _REF_GAPS = {"algo_t": (0.047, 0.033), "algo_e": (0.127, 0.111)}
 
 SOURCES = ("event_sweep.cu", "quant_blockwise.cu", "rglru_scan.cu",
            "flash_attention.cu", "decode_attention.cu", "mlstm_scan.cu")
+#: the files a kernel is built from, where its source includes a header.
+KERNEL_FILES = {"flash_attention": ("flash_attention.cu", "hopper.cuh"),
+                "decode_attention": ("decode_attention.cu", "hopper.cuh")}
 
 N_TRIALS = 4096
 T_BASE = 4000.0
@@ -266,7 +278,60 @@ def phase_build() -> dict:
         for line in _build.build_log(src).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
+    check_design()
     return secs
+
+
+#: SASS instructions that show a kernel's design: HGMMA (wgmma), UTMALDG
+#: (TMA tile loads), UBLKCP (1-D bulk copies); each source must hold the
+#: ones listed.
+DESIGN_SASS = {"flash_attention.cu": ("HGMMA", "UTMALDG"),
+               "decode_attention.cu": ("UBLKCP",)}
+#: kernels that must compile without spilling registers.
+NO_SPILL = ("flash_wgmma_kernel",)
+
+
+def _spills(log_text: str) -> dict:
+    """{kernel symbol: spill-store bytes} from a ptxas -v report."""
+    import re
+    out, fn = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn:
+            out[fn] = int(m.group(1))
+    return out
+
+
+def check_design() -> None:
+    """Count the design's instructions in the SASS of the flash and decode
+    libraries (cuobjdump) and the wgmma kernel's spills; fail when one is
+    missing or it spills."""
+    import os
+    from repro_torch.kernels import _build
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    for src, wanted in DESIGN_SASS.items():
+        proc = subprocess.run([cuobjdump, "-sass",
+                               str(_build.library_path(src))],
+                              capture_output=True, text=True, timeout=300,
+                              check=False)
+        if proc.returncode != 0:
+            fail(f"cuobjdump -sass failed on {src}: {proc.stderr[-500:]}")
+        counts = {op: sum(1 for line in proc.stdout.splitlines()
+                          if op in line)
+                  for op in ("HGMMA", "UTMALDG", "UBLKCP")}
+        log(f"sass {src}: {counts}")
+        missing = [op for op in wanted if counts[op] == 0]
+        if missing:
+            fail(f"{src} has no {missing} in its SASS")
+        spills = {fn: n for fn, n in _spills(_build.build_log(src)).items()
+                  if any(k in fn for k in NO_SPILL)}
+        if spills:
+            log(f"spill stores {src}: {spills}")
+        if any(spills.values()):
+            fail(f"{src}: the wgmma kernel spills registers {spills}")
 
 
 # ---------------------------------------------------------------------------
@@ -860,20 +925,29 @@ def report_ckpt(run: dict) -> dict:
 # 7. times
 # ---------------------------------------------------------------------------
 
+#: the least span of one timing sample, ms.
+SAMPLE_MS = 20.0
+
+
 def _events_ms(fn, reps: int = 5) -> float:
-    """Median over ``reps`` warm runs of ``fn`` timed by CUDA events."""
+    """Median over ``reps`` samples of ``fn``'s time on the device, by CUDA
+    events.  A sample times ``n`` calls back to back and divides by ``n``,
+    with ``n`` sized by a warm call so that a sample spans ``SAMPLE_MS`` or
+    more: the host's cost of each call then overlaps the device's work
+    instead of opening an idle gap inside the timed span."""
     import torch
-    fn()
-    times = []
-    for _ in range(reps):
+
+    def sample(n: int) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(n):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        return a.elapsed_time(b) / n
+    n = max(1, math.ceil(SAMPLE_MS / sample(1)))
+    return statistics.median(sample(n) for _ in range(reps))
 
 
 def _host_s(fn, reps: int = 5) -> float:
@@ -1129,12 +1203,20 @@ def phase_zoo_parity(dev) -> dict:
                 fail(f"rglru_scan off its plain version or oracle at "
                      f"{(B, S, W)} {dt}")
 
-    BH, S = 3, 333
+    # S = 333 in both dtypes; in bf16, the wgmma kernel's dtype, S = 1000 (a
+    # multiple of neither 64 nor 128, band edges off the tiles, chunks of 64
+    # under 128-row q tiles) and S = 77 (shorter than a q tile)
+    flash_cases = [(3, 333, dt, (("causal", 0, 0), ("sliding", 100, 0),
+                                 ("chunked", 0, 64), ("bidir", 0, 0)))
+                   for dt in (f32, bf16)]
+    flash_cases.append((2, 1000, bf16, (
+        ("causal", 0, 0), ("sliding", 100, 0), ("sliding", 700, 0),
+        ("chunked", 0, 64), ("bidir", 0, 0))))
+    flash_cases.append((2, 77, bf16, (("causal", 0, 0), ("bidir", 0, 0))))
     for Dh in fa.HEAD_DIMS:
-        for dt in (f32, bf16):
+        for BH, S, dt, modes in flash_cases:
             q, k, v = (randn(BH, S, Dh).to(dt) for _ in range(3))
-            for mode, w, c in (("causal", 0, 0), ("sliding", 100, 0),
-                               ("chunked", 0, 64), ("bidir", 0, 0)):
+            for mode, w, c in modes:
                 out = fa.flash_attention(q, k, v, mode=mode, window=w,
                                          chunk=c)
                 plain = fa.flash_attention_plain(q, k, v, mode=mode,
@@ -1147,39 +1229,43 @@ def phase_zoo_parity(dev) -> dict:
                 ok, err, frob = _close(out, plain, tol)
                 ok_ref, err_ref, frob_ref = _close(out, oracle, tol)
                 errs["flash_attention"] = max(errs["flash_attention"], err)
-                log(f"zoo parity flash_attention {mode:8s} Dh {Dh} {dt} "
-                    f"{(BH, S, Dh)}: max_abs_err={err} (rel Frobenius "
-                    f"{frob:.3e}); vs attention_ref {err_ref:.3e} "
-                    f"({frob_ref:.3e})")
+                log(f"zoo parity flash_attention {mode:8s} {w or c:4d} Dh "
+                    f"{Dh} {dt} {(BH, S, Dh)}: max_abs_err={err} (rel "
+                    f"Frobenius {frob:.3e}); vs attention_ref "
+                    f"{err_ref:.3e} ({frob_ref:.3e})")
                 if not (ok and ok_ref):
-                    fail(f"flash_attention off at {mode} Dh {Dh} {dt}")
+                    fail(f"flash_attention off at {mode} {w or c} Dh {Dh} "
+                         f"{dt} S {S}")
 
-    BH, S = 4, 768
-    for Dh in da.HEAD_DIMS:
-        for dt in (f32, bf16):
-            q1 = randn(BH, 1, Dh).to(dt)
-            k, v = (randn(BH, S, Dh).to(dt) for _ in range(2))
-            for length in (0, 1, 333, S):
-                out = da.decode_attention(q1, k, v, length)
-                plain = da.decode_attention_plain(q1, k, v, length)
-                torch.cuda.synchronize()
-                tol = _tol("decode_attention", dt)
-                ok, err, frob = _close(out, plain, tol)
-                ok_ref, err_ref, frob_ref = True, 0.0, 0.0
-                if length:
-                    oracle = ref.decode_ref(q1[:, 0][None], k[None],
-                                            v[None], length=length)[0]
-                    ok_ref, err_ref, frob_ref = _close(out[:, 0], oracle, tol)
-                else:
-                    ok_ref = bool((out == 0).all())
-                errs["decode_attention"] = max(errs["decode_attention"], err)
-                log(f"zoo parity decode_attention Dh {Dh} {dt} S {S} length "
-                    f"{length}: max_abs_err={err} (rel Frobenius "
-                    f"{frob:.3e}); vs decode_ref {err_ref:.3e} "
-                    f"({frob_ref:.3e})")
-                if not (ok and ok_ref):
-                    fail(f"decode_attention off at Dh {Dh} {dt} length "
-                         f"{length}")
+    # lengths 999 and 1000 of S = 1000 end on a ragged ring stage; BH = 1
+    # leaves all SMs but one idle
+    decode_cases = ((4, 768, (0, 1, 333, 768)), (4, 1000, (999, 1000)),
+                    (1, 1000, (0, 500, 1000)))
+    for Dh, dt, (BH, S, lengths) in itertools.product(
+            da.HEAD_DIMS, (f32, bf16), decode_cases):
+        q1 = randn(BH, 1, Dh).to(dt)
+        k, v = (randn(BH, S, Dh).to(dt) for _ in range(2))
+        for length in lengths:
+            out = da.decode_attention(q1, k, v, length)
+            plain = da.decode_attention_plain(q1, k, v, length)
+            torch.cuda.synchronize()
+            tol = _tol("decode_attention", dt)
+            ok, err, frob = _close(out, plain, tol)
+            ok_ref, err_ref, frob_ref = True, 0.0, 0.0
+            if length:
+                oracle = ref.decode_ref(q1[:, 0][None], k[None],
+                                        v[None], length=length)[0]
+                ok_ref, err_ref, frob_ref = _close(out[:, 0], oracle, tol)
+            else:
+                ok_ref = bool((out == 0).all())
+            errs["decode_attention"] = max(errs["decode_attention"], err)
+            log(f"zoo parity decode_attention Dh {Dh} {dt} BH {BH} S "
+                f"{S} length {length}: max_abs_err={err} (rel Frobenius "
+                f"{frob:.3e}); vs decode_ref {err_ref:.3e} "
+                f"({frob_ref:.3e})")
+            if not (ok and ok_ref):
+                fail(f"decode_attention off at Dh {Dh} {dt} BH {BH} S "
+                     f"{S} length {length}")
 
     BH, S = 4, 512
     for Dh, chunk, dt in ((128, 64, f32), (256, 128, f32), (384, 256, f32),
@@ -1296,6 +1382,8 @@ def gate_zoo(inp: dict, out: dict) -> dict:
                                      window=la["window"])
     ok, err, frob = _close(got, plain, _tol("flash_attention", got.dtype))
     report["local_attention"] = {"max_abs_err": err, "rel_frobenius": frob}
+    log(f"gate local_attention: max_abs_err {err} (<= 4e-3 + 1e-2 |y|), "
+        f"rel Frobenius {frob:.4e} (<= {ZOO_BF16_FROB})")
     if not ok or out["local_attention"].shape != inp["fa_q"].shape:
         fail(f"full width: local attention off its plain version ({err})")
     del plain
@@ -1306,6 +1394,8 @@ def gate_zoo(inp: dict, out: dict) -> dict:
         ok, err, frob = _close(out[key], plain, _tol("decode_attention",
                                                      plain.dtype))
         report[key] = {"max_abs_err": err, "rel_frobenius": frob}
+        log(f"gate {key}: max_abs_err {err} (<= 4e-3 + 1e-2 |y|), rel "
+            f"Frobenius {frob:.4e} (<= {ZOO_BF16_FROB})")
         if not ok or out[key].shape != inp["dec_q"].shape:
             fail(f"full width: {key} off its plain version ({err})")
     m = MLSTM
@@ -1385,9 +1475,10 @@ def _sdpa_ms(name: str, call, want) -> tuple:
 
 
 def phase_zoo_times(inp: dict, peaks, dev) -> dict:
-    """CUDA-event medians of 5 warm runs of each zoo kernel, its plain
-    version and (for attention) the one PyTorch call that computes the same
-    function, at the full-width shapes, with each kernel's bound."""
+    """CUDA-event medians of 5 samples (``_events_ms``) of each zoo kernel,
+    its plain version and (for attention) the one PyTorch call that
+    computes the same function, at the full-width shapes, with each
+    kernel's bound."""
     import torch
     import torch.nn.functional as Fn
     from repro_torch.kernels import decode_attention as da
@@ -1634,6 +1725,8 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
+            "sources": [f"src/repro_torch/csrc/{f}"
+                        for f in KERNEL_FILES.get(name, (f"{name}.cu",))],
             "replaces": f"src/repro/kernels/{name}.py:{line}",
             "launches": zoo_counts[name],
             "max_abs_err": max([zoo_err[name]] + full),

@@ -3,7 +3,8 @@
 Each kernel source under ``repro_torch/csrc/`` exposes a plain C
 interface.  At first use it is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/repro_torch_kernels/`` at the root of the checkout, under a name
-keyed by a hash of the source and the flags, and loaded with ``ctypes``.
+keyed by a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, and loaded with ``ctypes``.
 Nothing is built when a module is imported.  A missing ``nvcc`` raises.
 
 ``-fmad=false`` is the default: most kernels are held bitwise against
@@ -57,9 +58,12 @@ def flags(source: str) -> tuple:
 
 def library_path(source: str) -> Path:
     """Where the shared library of ``csrc/<source>`` lives once built,
-    keyed by the source and its flags."""
+    keyed by the source, every header of ``csrc/`` (a source may include
+    any of them) and its flags."""
     src = CSRC / source
-    key = src.read_bytes() + " ".join(flags(source)).encode()
+    headers = b"".join(h.name.encode() + h.read_bytes()
+                       for h in sorted(CSRC.glob("*.cuh")))
+    key = src.read_bytes() + headers + " ".join(flags(source)).encode()
     digest = hashlib.sha256(key).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}_{digest}.so"
 

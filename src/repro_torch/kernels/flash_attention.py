@@ -17,15 +17,19 @@ a masked score is ``-1e30`` and its weight exactly 0, and the sum of
 weights is floored at 1e-30 (a row with no allowed key gives zeros).
 
 * :func:`flash_attention` is the wrapper.  For CUDA tensors it launches
-  the kernel of ``repro_torch/csrc/flash_attention.cu`` on the current
+  a kernel of ``repro_torch/csrc/flash_attention.cu`` on the current
   stream, or raises; for CPU tensors it runs
-  :func:`flash_attention_plain`.  ``flash_attention.launches`` counts
-  kernel launches.
+  :func:`flash_attention_plain`.  The dtype picks the kernel: bf16 runs
+  both products on the tensor cores (wgmma fed by TMA; the scores are
+  scaled in f32 after an unscaled bf16 Q K^T, and P is rounded to bf16
+  for P V), f32 runs them on the CUDA cores in f32.
+  ``flash_attention.launches`` counts kernel launches.
 * :func:`flash_attention_plain` computes the same function with the
   scores materialized (one block of the online softmax).  The kernel is
   held to it within 2e-5 in f32 (the reference's kernel-vs-oracle
-  tolerance) and 4e-3 + 1e-2 relative in bf16 (one rounding of the
-  output apart): its sums run in another order.
+  tolerance; its sums run in another order) and, in bf16, within
+  4e-3 + 1e-2 relative and a relative Frobenius error of 4e-3: the bf16
+  weights of P V put it about 2e-3 (Frobenius) from the plain version.
   ``.calls`` counts its calls.
 """
 from __future__ import annotations
@@ -98,8 +102,9 @@ def _kernel(q, k, v, mode: str, window: int, chunk: int) -> torch.Tensor:
         raise ValueError(f"the kernel takes Dh in {HEAD_DIMS}, got {Dh}")
     q, k, v = (_build.aligned(x) for x in (q, k, v))
     out = torch.empty_like(q)
+    bf16 = int(q.dtype == torch.bfloat16)   # 1: the wgmma kernel
     _build.launch(load_library().repro_flash_attention,
-                  int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+                  bf16, q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), out.data_ptr(), BH, Sq, k.shape[1], Dh,
                   MODES.index(mode), int(window), int(chunk), Dh ** -0.5,
                   device=q.device, name="flash_attention")

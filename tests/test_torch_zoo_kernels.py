@@ -14,6 +14,10 @@ reference's own kernel-vs-oracle tolerances (flash 2e-5 in f32, decode
 1e-4, mLSTM 1e-4 absolute plus 1e-3 relative, RG-LRU 1e-5), and 2e-2 in
 bf16 (one bf16 rounding of the output apart), compared in f32.
 """
+import shutil
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -395,6 +399,39 @@ def test_build_flags_per_source():
     for src in ("rglru_scan.cu", "event_sweep.cu", "quant_blockwise.cu"):
         assert "-fmad=false" in _build.flags(src)
     assert _build.library_path("rglru_scan.cu").name.startswith("rglru_scan_")
+
+
+def test_library_key_covers_the_headers(tmp_path, monkeypatch):
+    """Editing a shared header of ``csrc/`` changes every source's library
+    key, so a stale library is never loaded."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    sources = ("flash_attention.cu", "decode_attention.cu", "rglru_scan.cu")
+    before = {src: _build.library_path(src) for src in sources}
+    assert before == {src: _build.library_path(src) for src in sources}
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {src: _build.library_path(src) for src in sources}
+    for src in sources:
+        assert after[src] != before[src]
+        assert after[src].name.startswith(src[:-3] + "_")
+
+
+def test_spill_report_of_ptxas():
+    """``chip_smoke.py`` reads each kernel's spill stores from the ptxas
+    report kept beside a built library."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    report = (
+        "ptxas info    : Compiling entry function '_Z1aPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1aPf\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 210 registers, used 1 barriers\n"
+        "ptxas info    : Function properties for _Z1bPf\n"
+        "    8 bytes stack frame, 16 bytes spill stores, 16 bytes spill "
+        "loads\n")
+    assert chip_smoke._spills(report) == {"_Z1aPf": 0, "_Z1bPf": 16}
 
 
 @pytest.mark.gpu
