@@ -11,11 +11,21 @@ Phases (any failure exits non-zero; no result line is printed then):
    nvcc each, all started together) and prints the build times and the
    compiler's register reports; then checks the design in the SASS
    (``cuobjdump -sass``): the flash library must hold HGMMA (wgmma) and
-   UTMALDG (TMA loads), the decode library UBLKCP (bulk copies), and the
-   wgmma kernel must not spill.
+   UTMALDG (TMA loads), the decode library UBLKCP (bulk copies), and
+   neither the wgmma kernel nor any event kernel may spill; it counts the
+   integer and f64 instructions of the event library's draw code
+   (``event_draws_kernel``), which the sampled kernel's bound reads.
 3. parity: the event kernel against its plain PyTorch version on the
    card, bitwise, under both precision policies, on a dyadic schedule, a
-   ragged shape (B=37, N=333, F=200) and the exhaustion/truncation case;
+   ragged shape (B=37, N=333, F=200) and the exhaustion/truncation case,
+   on the (B, N, F) layout and its (B, F, N)-strided copy; the sampled
+   event kernel (gaps drawn inside it) for Exponential, Weibull(0.7),
+   LogNormal(1) and TraceReplay, both policies, at a ragged N, a capacity
+   that runs dry and a step budget that truncates: its draws (the
+   draw-only entry) against ``sample_gaps`` on the card (Exponential and
+   TraceReplay bitwise; Weibull and LogNormal bitwise or their largest ulp
+   difference printed, and within 1e-12 relative), and the sweep bitwise
+   against the explicit kernel and the plain version on those draws;
    the int8 quantize and dequantize kernels against theirs, bitwise (int8
    payloads, scale bits, output bits; a NaN compares as NaN), on
    ``quant_cases()``; the four model-zoo kernels against theirs (and
@@ -35,15 +45,21 @@ Phases (any failure exits non-zero; no result line is printed then):
 5. Monte-Carlo: ``simulate_trajectories`` on
    ``mu_rho_grid(geomspace(120,1200,32), linspace(2,10,32))`` at the AlgoT
    and AlgoE periods, T_base = 4000, 4096 trials, Exponential and
-   Weibull(0.7), both policies.  Gates: no truncated or exhausted lane;
-   kernel launched, plain version never called; at least 64 lanes per f64
+   Weibull(0.7), both policies, each drawing its gaps inside the sampled
+   kernel.  Gates: no truncated or exhausted lane; the sampled kernel
+   launched, the explicit kernel, the draw-only entry, every plain version
+   and ``draw_gaps`` (``sample_gaps``) never; at least 64 lanes per f64
    run replayed through the scalar oracle ``simulate_once(gaps=...)``
    (floats <= 1e-12 relative, equal failure counts, checkpoint counts
    within one); compensated per-point means within 1e-5 of f64.  The
    MC-to-model gaps are reported, not gated.  Then the dispatch check:
    on Weibull at the AlgoE periods, every lane's auto-sampled gaps and
    every ``simulate_trajectories`` output are bitwise equal under
-   ``DispatchConfig()``, ``chunk=7`` and ``memory_mb=64``.
+   ``DispatchConfig()``, ``chunk=7`` and ``memory_mb=64``.  Then an
+   explicit schedule (the caller's, drawn on the card from a seeded
+   generator, 512 trials) through ``simulate_trajectories(gaps=...)``:
+   the explicit kernel launched and nothing else; lanes against the
+   scalar oracle at 1e-12.
 6. checkpoint runtime at full width: xLSTM-125M's params and AdamW
    moments (519,271,056 f32, drawn on the card from a seeded generator)
    plus an int32 step, through ``CheckpointManager`` (buddy, the policy's
@@ -59,9 +75,13 @@ Phases (any failure exits non-zero; no result line is printed then):
    observations.  Prints the save and restore splits.
 7. times: CUDA-event medians of 5 samples of each kernel and of its
    plain version (a sample: calls back to back over 20 ms or more, see
-   ``_events_ms``) at the main-path shapes (compared again), the schedule
-   sampling, and the end-to-end calls; each kernel's bound from the bytes
-   it moves.
+   ``_events_ms``) at the main-path shapes (compared again): per MC call
+   the sampled kernel and its bound (operations), the explicit kernel on
+   the same lanes' drawn schedule in both layouts with its byte bound,
+   the transpose between them, the two-step path (the ``sample_gaps``
+   draws, then the explicit kernel on them), the warps' efficiency (lane
+   steps over 32 times the longest lane's), and ``simulate_trajectories``
+   end to end with its host parts.
 8. the model-zoo kernel layer at full width, through ``kernels.ops``
    (decode through its raw wrapper): RecurrentGemma-9B's RG-LRU scan
    (2, 4096, 4096) f32 with zero and seeded h0, its local attention
@@ -97,18 +117,24 @@ SRC = ROOT / "src"
 
 #: published peaks per H100 variant (NVIDIA data sheets): device-memory
 #: bytes/s, FP64 and FP32 FLOP/s outside the tensor cores, dense bf16
-#: FLOP/s of the tensor cores.
-_PEAKS = {"PCIe": (2.0e12, 25.6e12, 51.2e12, 756e12),
-          "NVL": (3.9e12, 30.0e12, 60.0e12, 835e12),
-          "SXM": (3.35e12, 34.0e12, 67.0e12, 989e12)}
+#: FLOP/s of the tensor cores, and INT32 instructions/s: an SM issues 64
+#: INT32 lanes a clock against 128 FP32 lanes (Hopper architecture white
+#: paper, the SM diagram: 16 INT32 and 32 FP32 units per quarter), and the
+#: FP32 peak counts a fused multiply-add as two, so INT32 = FP32 / 4.
+_PEAKS = {"PCIe": (2.0e12, 25.6e12, 51.2e12, 756e12, 12.8e12),
+          "NVL": (3.9e12, 30.0e12, 60.0e12, 835e12, 15.0e12),
+          "SXM": (3.35e12, 34.0e12, 67.0e12, 989e12, 16.75e12)}
 
 #: per-lane output bytes of the event kernel: 4 f64 + 2 int32 + 2 bool.
 _OUT_BYTES = 4 * 8 + 2 * 4 + 2 * 1
 
-#: floating-point operations per kernel iteration (one gap), counted from
-#: the source with a divide as one: 26 shared by both branches plus up to
-#: 14 in the taken branch; the compensated mode forms 5 increments (~16)
-#: and folds each in with a 6-operation Neumaier step.
+#: floating-point operations of the event loop's update per gap (one
+#: iteration), in the compute type, counted from the source with a divide
+#: as one: 26 shared by both branches plus up to 14 in the taken branch;
+#: the compensated mode forms 5 increments (~16) and folds each in with a
+#: 6-operation Neumaier step.  Both sources run the same update; the
+#: sampled kernel adds the draw (``_draw_ops``), which the bound counts
+#: apart, each on its own unit.
 _OPS_PER_GAP = {"f64": 40, "compensated_f32": 72}
 
 #: the reference's CPU figures for the largest MC-vs-model gaps on the MC
@@ -260,8 +286,9 @@ def phase_device():
 # 2. build
 # ---------------------------------------------------------------------------
 
-def phase_build() -> dict:
-    """Build every kernel source in parallel; returns seconds per source."""
+def phase_build() -> tuple:
+    """Build every kernel source in parallel; returns seconds per source
+    and the draw code's instructions per gap (``check_design``)."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
 
@@ -278,8 +305,110 @@ def phase_build() -> dict:
         for line in _build.build_log(src).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
-    check_design()
-    return secs
+    return secs, check_design()
+
+
+def _sass(src: str) -> str:
+    import os
+    from repro_torch.kernels import _build
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    proc = subprocess.run([cuobjdump, "-sass", str(_build.library_path(src))],
+                          capture_output=True, text=True, timeout=300,
+                          check=False)
+    if proc.returncode != 0:
+        fail(f"cuobjdump -sass failed on {src}: {proc.stderr[-500:]}")
+    return proc.stdout
+
+
+#: SASS opcodes (before the first dot) by the unit that runs them: the f64
+#: pipe, with its reciprocal seeds and the conversions that read or write
+#: an f64, and the INT32 pipe.  Uniform-datapath (U...), memory and
+#: control instructions count in neither.
+_F64_OPS = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX")
+_F64_CONVERSIONS = ("F2F", "I2F", "F2I", "FRND")
+_INT_OPS = ("IMAD", "IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR",
+            "ISETP", "LEA", "IABS", "IMNMX", "SEL", "PRMT", "IMUL", "POPC",
+            "FLO", "BREV", "SGXT", "BMSK", "I2I")
+
+
+def _unit(op: str) -> str:
+    """"f64", "int" or "" for a SASS opcode."""
+    base = op.split(".")[0]
+    if base in _F64_OPS or op.startswith(("MUFU.RCP64H", "MUFU.RSQ64H")) \
+            or (base in _F64_CONVERSIONS and "F64" in op):
+        return "f64"
+    return "int" if base in _INT_OPS else ""
+
+
+#: the processes the main path samples (``Kind`` in event_sweep.cu), whose
+#: draw code ``_draw_ops`` counts.
+MAIN_KINDS = {0: "exponential", 1: "weibull"}
+
+
+def _branch_target(text: str):
+    """The address a SASS branch (``@P0 BRA P1, 0x1440``) jumps to, or
+    None."""
+    import re
+    m = re.match(r"(?:@!?U?P\w+\s+)?BRA\b.*?(0x[0-9a-f]+)$", text)
+    return int(m.group(1), 16) if m else None
+
+
+def _draw_ops(sass: str) -> dict:
+    """{kind: (INT32, f64) instructions per gap} of the draw, executed on
+    the common path, counted in the SASS of ``event_draws_kernel<kind>``
+    for the ``MAIN_KINDS``.  Its inner loop (from the head to the
+    back-branch, the shortest backward branch) draws a pair of gaps per
+    trip, one Philox call and two transforms, so its count is halved.  Not
+    counted: the prologue and the first trip, which the compiler peels;
+    subroutines (the f64 divide's slow path); register moves (IMAD.MOV);
+    predicated instructions (the special-case fixups of log and of the
+    subnormal scaling); and every block that a forward branch inside the
+    loop skips when the block itself (its nested blocks apart) calls a
+    subroutine or has an unpredicated infinity or NaN operand: the
+    divide's slow-path call and exp's out-of-range fixup.  The stores'
+    addresses and the loop's test stay in, a few per pair.  Where a
+    process's draw has an if/else of two common arms (ndtri's central and
+    tail ranges), this rule would count both, so only the main path's
+    kinds are counted."""
+    import re
+    funcs, kind = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"event_draws_kernelILi(\d)E", m.group(1))
+            kind = int(k.group(1)) if k else None
+            if kind in MAIN_KINDS:
+                funcs[kind] = []
+            continue
+        a = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.*?)\s*;", line)
+        if kind in MAIN_KINDS and a:
+            funcs[kind].append((int(a.group(1), 16), a.group(2)))
+    out = {}
+    for kind, code in funcs.items():
+        back = [(a, t) for a, text in code
+                for t in [_branch_target(text)] if t is not None and t < a]
+        if not back:
+            continue
+        end, head = min(back, key=lambda x: x[0] - x[1])
+        body = [(a, text) for a, text in code if head <= a < end]
+        # blocks a forward branch skips: (first address, branch target)
+        arms = [(a + 16, t) for a, text in body
+                for t in [_branch_target(text)]
+                if text.startswith("@") and t is not None and a < t <= end]
+
+        def nested(arm, a):
+            return any(o != arm and arm[0] <= o[0] and o[1] <= arm[1]
+                       and o[0] <= a < o[1] for o in arms)
+        cold = [arm for arm in arms if any(
+            text.startswith("CALL") or (not text.startswith("@") and
+                                        re.search(r"INF|QNAN", text))
+            for a, text in body
+            if arm[0] <= a < arm[1] and not nested(arm, a))]
+        units = [_unit(text.split()[0]) for a, text in body
+                 if not text.startswith(("@", "IMAD.MOV"))
+                 and not any(s <= a < e for s, e in cold)]
+        out[kind] = (units.count("int") / 2.0, units.count("f64") / 2.0)
+    return out
 
 
 #: SASS instructions that show a kernel's design: HGMMA (wgmma), UTMALDG
@@ -288,7 +417,7 @@ def phase_build() -> dict:
 DESIGN_SASS = {"flash_attention.cu": ("HGMMA", "UTMALDG"),
                "decode_attention.cu": ("UBLKCP",)}
 #: kernels that must compile without spilling registers.
-NO_SPILL = ("flash_wgmma_kernel",)
+NO_SPILL = ("flash_wgmma_kernel", "event_sweep_kernel", "event_draws_kernel")
 
 
 def _spills(log_text: str) -> dict:
@@ -305,33 +434,35 @@ def _spills(log_text: str) -> dict:
     return out
 
 
-def check_design() -> None:
+def check_design() -> dict:
     """Count the design's instructions in the SASS of the flash and decode
-    libraries (cuobjdump) and the wgmma kernel's spills; fail when one is
-    missing or it spills."""
-    import os
+    libraries (cuobjdump), and the spills of the wgmma and event kernels;
+    fail when one is missing or one spills.  Returns the event library's
+    draw instructions per gap (``_draw_ops``)."""
     from repro_torch.kernels import _build
-    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     for src, wanted in DESIGN_SASS.items():
-        proc = subprocess.run([cuobjdump, "-sass",
-                               str(_build.library_path(src))],
-                              capture_output=True, text=True, timeout=300,
-                              check=False)
-        if proc.returncode != 0:
-            fail(f"cuobjdump -sass failed on {src}: {proc.stderr[-500:]}")
-        counts = {op: sum(1 for line in proc.stdout.splitlines()
-                          if op in line)
+        sass = _sass(src)
+        counts = {op: sum(1 for line in sass.splitlines() if op in line)
                   for op in ("HGMMA", "UTMALDG", "UBLKCP")}
         log(f"sass {src}: {counts}")
         missing = [op for op in wanted if counts[op] == 0]
         if missing:
             fail(f"{src} has no {missing} in its SASS")
+    for src in SOURCES:
         spills = {fn: n for fn, n in _spills(_build.build_log(src)).items()
                   if any(k in fn for k in NO_SPILL)}
         if spills:
             log(f"spill stores {src}: {spills}")
         if any(spills.values()):
-            fail(f"{src}: the wgmma kernel spills registers {spills}")
+            fail(f"{src}: a kernel that must not spill does {spills}")
+    draw = _draw_ops(_sass("event_sweep.cu"))
+    log("sass event_sweep.cu draw code, instructions per gap on its common "
+        "path (INT32, f64): " + ", ".join(
+            f"{MAIN_KINDS[k]} {v}" for k, v in sorted(draw.items())))
+    if sorted(draw) != sorted(MAIN_KINDS) or min(
+            min(v) for v in draw.values()) <= 0:
+        fail(f"event_draws_kernel's loop not found in the SASS: {draw}")
+    return draw
 
 
 # ---------------------------------------------------------------------------
@@ -401,15 +532,18 @@ def phase_parity(dev) -> float:
             kw = dict(n_steps=n_steps, compensated=pol.compensated)
             ker = event_sweep(*args, **kw)
             ref = event_sweep_plain(*args, **kw)
+            bfn = event_sweep(*args[:6], trial_major(gaps, pol.torch_dtype),
+                              **kw)
             torch.cuda.synchronize()
             equal, err = _compare(ker, ref)
+            layouts, _ = _compare(bfn, ker)
             max_err = max(max_err, err)
             flags = (f"exhausted={int(ker['gaps_exhausted'].sum())} "
                      f"truncated={int(ker['truncated'].sum())}")
             log(f"parity {name:10s} {pol.name:15s} shape "
                 f"{tuple(gaps.shape)}: bitwise={equal} max_abs_err={err} "
-                f"{flags}")
-            if not equal:
+                f"(B, F, N) layout bitwise={layouts} {flags}")
+            if not (equal and layouts):
                 fail(f"kernel != plain version on {name}/{pol.name}")
             if name == "exhaustion" and not bool(ker["gaps_exhausted"].all()):
                 fail("exhaustion case did not flag gaps_exhausted")
@@ -418,6 +552,123 @@ def phase_parity(dev) -> float:
     if event_sweep.launches <= before:
         fail("the launch counter did not increase")
     return max_err
+
+
+def _sampled_processes():
+    from repro_torch.core import Exponential, LogNormal, TraceReplay, Weibull
+    return (Exponential(), Weibull(shape=0.7), LogNormal(sigma=1.0),
+            TraceReplay(gaps=(40.0, 500.0, 120.0, 90.0, 800.0, 33.0)))
+
+
+def _ulps(a, b):
+    """(largest ulp difference, differing elements) of two f64 tensors of
+    positive finite values."""
+    import torch
+    d = (a.contiguous().view(torch.int64)
+         - b.contiguous().view(torch.int64)).abs()
+    return int(d.max()) if d.numel() else 0, int((d != 0).sum())
+
+
+def phase_sampled_parity(dev) -> dict:
+    """The sampled event kernel (gaps drawn inside it) on the small cases:
+    its draws against ``sample_gaps``, the sweep against the explicit
+    kernel and the plain version on those draws, both policies.  Returns
+    the draw differences per process and the largest float difference."""
+    import numpy as np
+    import torch
+    from repro_torch.core.philox import CounterKey
+    from repro_torch.kernels import event_sweep as es
+    from repro_torch.sim import COMPENSATED_F32, F64
+    _, grid, *_ = _parity_cases(dev)[0]
+    pick = torch.as_tensor(np.arange(37) % 4, device=dev)
+    rows = grid.take(pick)
+    one = grid.take(torch.as_tensor([2], device=dev))
+    t = lambda x: torch.as_tensor(np.asarray(x, dtype=np.float64), device=dev)
+    T37 = t(np.array([40.0, 60.0, 80.0, 14.0])[pick.cpu().numpy()]
+            * (1 + 0.01 * np.arange(37)))
+    # (name, rows, T, T_base, global points, trial0, N, capacity, n_steps,
+    # seed): points and trials past 2^16, a point past 2^32 (its high word
+    # is a counter word), a seed past 2^32
+    cases = [("ragged", rows, T37, 3000.0,
+              70_000 + 1_000 * torch.arange(37, device=dev), 65_530, 333,
+              256, 257, 7),
+             ("exhaustion", one, t([60.0]), 40000.0,
+              torch.tensor([2**32 + 5], device=dev), 0, 64, 2, 3,
+              2**33 + 5),
+             ("truncation", one, t([60.0]), 50000.0,
+              torch.tensor([2**31 - 3], device=dev), 9, 4, 64, 2, 11)]
+    report, max_err = {}, 0.0
+    before = (es.event_sweep_sampled.launches, es.event_draws.launches)
+    for proc in _sampled_processes():
+        worst, n_diff, n_all = 0, 0, 0
+        for (name, g, T, T_base, points, trial0, N, F, n_steps,
+             seed) in cases:
+            mean = torch.as_tensor(proc.resolve_mean(g.mu.cpu().numpy()),
+                                   dtype=torch.float64, device=dev)
+            spec = proc.gap_spec(mean, len(points), dev)
+            kw = dict(seed=seed, points=points, trial0=trial0, n_trials=N,
+                      spec=spec, capacity=F)
+            draws = es.event_draws(**kw)
+            key = CounterKey(seed, points, torch.arange(
+                trial0, trial0 + N, device=dev))
+            want = proc.sample_gaps(key, (len(points), N, F),
+                                    mean=mean, device=dev)
+            torch.cuda.synchronize()
+            ulps = _ulps(draws, want)
+            rel = float(((draws - want).abs() / want).max())
+            worst, n_diff, n_all = (max(worst, ulps[0]), n_diff + ulps[1],
+                                    n_all + want.numel())
+            log(f"parity draws {proc.name:11s} {name:10s} "
+                f"{(len(points), N, F)}: largest ulp difference {ulps[0]}, "
+                f"differing gaps {ulps[1]} of {want.numel()}, max rel {rel}")
+            exact = proc.name in ("exponential", "trace")
+            if (exact and ulps[1]) or not rel <= 1e-12:
+                fail(f"in-kernel draws off sample_gaps for {proc.name}")
+            for pol in (F64, COMPENSATED_F32):
+                c = pol.cast
+                args = (c(T), c(g.C), c(g.R), c(g.D), c(g.omega),
+                        c(torch.full_like(T, T_base)))
+                sk = dict(n_steps=n_steps, compensated=pol.compensated)
+                fused = es.event_sweep_sampled(*args, **kw, **sk)
+                gaps = draws.to(pol.torch_dtype)      # the (B, F, N) layout
+                expl = es.event_sweep(*args, gaps, **sk)
+                bnf = es.event_sweep(*args, gaps.contiguous(), **sk)
+                plain = es.event_sweep_plain(*args, gaps, **sk)
+                torch.cuda.synchronize()
+                eq = [_compare(fused, x)[0] for x in (expl, bnf, plain)]
+                err = max(_compare(fused, x)[1] for x in (expl, plain))
+                max_err = max(max_err, err)
+                flags = (f"exhausted={int(fused['gaps_exhausted'].sum())} "
+                         f"truncated={int(fused['truncated'].sum())}")
+                log(f"parity sampled {proc.name:11s} {name:10s} "
+                    f"{pol.name:15s}: bitwise vs explicit (B, F, N)="
+                    f"{eq[0]}, (B, N, F)={eq[1]}, plain={eq[2]} {flags}")
+                if not all(eq):
+                    fail(f"sampled kernel != explicit kernel / plain version "
+                         f"on {proc.name}/{name}/{pol.name}")
+                if name == "exhaustion" and not bool(
+                        fused["gaps_exhausted"].all()):
+                    fail("sampled exhaustion case did not run dry")
+                if name == "truncation" and not bool(
+                        fused["truncated"].any()):
+                    fail("sampled truncation case did not truncate")
+        report[proc.name] = {"max_ulps": worst, "gaps_differing": n_diff,
+                             "gaps": n_all}
+    if (es.event_sweep_sampled.launches, es.event_draws.launches) <= before:
+        fail("the sampled kernel's launch counters did not increase")
+    report["max_abs_err"] = max_err
+    return report
+
+
+def trial_major(gaps, dtype):
+    """A ``(B, N, F)`` schedule in ``dtype`` as a view of a ``(B, F,
+    N)``-contiguous copy (one copy, cast included): the layout in which a
+    warp's reads of the explicit kernel coalesce."""
+    import torch
+    B, N, F = gaps.shape
+    out = torch.empty((B, F, N), dtype=dtype, device=gaps.device)
+    out.copy_(gaps.transpose(1, 2))
+    return out.transpose(1, 2)
 
 
 def _bits_equal(a, b) -> bool:
@@ -539,7 +790,7 @@ def gate_sweep(big, sweeps) -> None:
             fail(f"compensated evaluate_grid outside its gates on {name}")
 
 
-def _oracle_lanes(mc_grid, T, n_lanes: int = 72):
+def _oracle_lanes(mc_grid, T, n_lanes: int = 72, n_trials: int = N_TRIALS):
     """(point, trial) lanes for the oracle: the smallest-mu and the
     largest-T points first, then a spread over the grid."""
     import numpy as np
@@ -550,14 +801,45 @@ def _oracle_lanes(mc_grid, T, n_lanes: int = 72):
     pts += [int(i) for i in np.linspace(0, mu.size - 1, 5).astype(int)]
     pts = list(dict.fromkeys(pts))
     per = -(-n_lanes // len(pts))
-    trials = np.linspace(0, N_TRIALS - 1, per).astype(int)
+    trials = np.linspace(0, n_trials - 1, per).astype(int)
     return [(p, int(t)) for p in pts for t in trials]
 
 
+def _oracle_check(mc_grid, T, tb, rows: dict, label) -> tuple:
+    """Replay each lane's gap row through the scalar oracle
+    ``simulate_once(gaps=...)`` and hold the batch's outputs to it: floats
+    within 1e-12 relative, equal failure counts, checkpoint counts within
+    one.  Returns (largest float difference, checkpoint-count ties)."""
+    from repro_torch.core import simulate_once
+    flat = mc_grid.ravel()
+    Tn = T.reshape(-1).cpu().numpy()
+    n = tb.wall_time.shape[-1]
+    out = {f: getattr(tb, f).reshape(flat.size, n)
+           for f in ("wall_time", "energy", "work_executed", "io_time",
+                     "down_time", "n_failures", "n_checkpoints")}
+    worst, ckpt_ties = 0.0, 0
+    for (p, t), row in rows.items():
+        ref = simulate_once(float(Tn[p]), flat.ckpt_at(p), flat.power_at(p),
+                            T_BASE, gaps=row)
+        for f in ("wall_time", "energy", "work_executed", "io_time",
+                  "down_time"):
+            got = float(out[f][p, t])
+            want_v = getattr(ref, f)
+            rel = abs(got - want_v) / max(abs(want_v), 1e-300)
+            worst = max(worst, rel)
+        if int(out["n_failures"][p, t]) != ref.n_failures:
+            fail(f"oracle: n_failures differ at {label + (p, t)}")
+        dc = abs(int(out["n_checkpoints"][p, t]) - ref.n_checkpoints)
+        if dc > 1:
+            fail(f"oracle: n_checkpoints differ by {dc} at "
+                 f"{label + (p, t)}")
+        ckpt_ties += dc
+    return worst, ckpt_ties
+
+
 def gate_mc(mc_grid, model, runs, dev) -> dict:
-    import numpy as np
     import torch
-    from repro_torch.core import Exponential, Weibull, simulate_once
+    from repro_torch.core import Exponential, Weibull
     from repro_torch.sim import sampled_schedules
     report = {}
     for key, tb in runs.items():
@@ -582,28 +864,8 @@ def gate_mc(mc_grid, model, runs, dev) -> dict:
                     if t in blk.trials:
                         rows[(int(p), t)] = blk.gaps[
                             i, t - blk.trials.start].cpu().numpy()
-        worst, ckpt_ties = 0.0, 0
-        flat = mc_grid.ravel()
-        Tn = T.reshape(-1).cpu().numpy()
-        out = {f: getattr(tb, f).reshape(flat.size, N_TRIALS)
-               for f in ("wall_time", "energy", "work_executed", "io_time",
-                         "down_time", "n_failures", "n_checkpoints")}
-        for (p, t), row in rows.items():
-            ref = simulate_once(float(Tn[p]), flat.ckpt_at(p),
-                                flat.power_at(p), T_BASE, gaps=row)
-            for f in ("wall_time", "energy", "work_executed", "io_time",
-                      "down_time"):
-                got = float(out[f][p, t])
-                want_v = getattr(ref, f)
-                rel = abs(got - want_v) / max(abs(want_v), 1e-300)
-                worst = max(worst, rel)
-            if int(out["n_failures"][p, t]) != ref.n_failures:
-                fail(f"oracle: n_failures differ at {(pname, algo, p, t)}")
-            dc = abs(int(out["n_checkpoints"][p, t]) - ref.n_checkpoints)
-            if dc > 1:
-                fail(f"oracle: n_checkpoints differ by {dc} at "
-                     f"{(pname, algo, p, t)}")
-            ckpt_ties += dc
+        worst, ckpt_ties = _oracle_check(mc_grid, T, tb, rows,
+                                         (pname, algo))
         log(f"oracle {pname}/{algo}: {len(rows)} lanes, max float rel "
             f"{worst:.3e} (<= 1e-12), n_checkpoints ties {ckpt_ties}")
         if len(rows) < 64 or worst > 1e-12:
@@ -726,6 +988,106 @@ def phase_dispatch_invariance(mc_grid, model, dev) -> dict:
         fail("auto-sampled MC depends on the DispatchConfig")
     return {"blocks": blocks, "gaps_equal": gaps_equal,
             "outputs_equal": outs_equal}
+
+
+#: the explicit-schedule MC call: its trials and the seed of the caller's
+#: schedule (a torch.Generator on the card).
+EXPLICIT_TRIALS = 512
+EXPLICIT_SEED = 2028
+
+
+def explicit_schedule(mc_grid, model, dev):
+    """(T, gaps): the AlgoE periods and a caller's (1024, 512, F) f64
+    Exponential schedule at the worst point's capacity F, drawn on the
+    card from ``EXPLICIT_SEED``."""
+    import torch
+    from repro_torch.sim import default_fail_capacity
+    T = model.T_energy
+    F = default_fail_capacity(T.reshape(-1), mc_grid.ravel(), T_BASE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(EXPLICIT_SEED)
+    gaps = torch.empty((mc_grid.size, EXPLICIT_TRIALS, F),
+                       dtype=torch.float64, device=dev)
+    gaps.exponential_(generator=gen)
+    gaps *= mc_grid.mu.reshape(-1, 1, 1)
+    return T, gaps
+
+
+def run_explicit_path(mc_grid, T, gaps, dev):
+    """The caller's schedule through ``simulate_trajectories(gaps=...)``
+    (f64): the explicit kernel on its (B, F, N) copies."""
+    from repro_torch.sim import F64, simulate_trajectories
+    tb, secs = _sync_time(lambda: simulate_trajectories(
+        T, mc_grid, T_base=T_BASE, gaps=gaps, precision=F64, device=dev))
+    log(f"simulate_trajectories explicit schedule {tuple(gaps.shape)}: "
+        f"{secs:.4f} s (cold)")
+    return tb
+
+
+def gate_explicit(mc_grid, T, gaps, tb) -> dict:
+    """No truncated or exhausted lane; the oracle lanes at 1e-12."""
+    bad = int(tb.truncated.sum()) + int(tb.gaps_exhausted.sum())
+    if bad:
+        fail(f"explicit schedule: {bad} truncated or exhausted lanes")
+    lanes = _oracle_lanes(mc_grid, T, n_trials=gaps.shape[1])
+    rows = {(p, t): gaps[p, t].cpu().numpy() for p, t in lanes}
+    worst, ties = _oracle_check(mc_grid, T, tb, rows, ("explicit",))
+    log(f"oracle explicit schedule: {len(rows)} lanes, max float rel "
+        f"{worst:.3e} (<= 1e-12), n_checkpoints ties {ties}")
+    if len(rows) < 64 or worst > 1e-12:
+        fail("oracle check failed for the explicit schedule")
+    return {"lanes": len(rows), "max_rel": worst, "ckpt_ties": ties}
+
+
+def explicit_launches(mc_grid, T, gaps, dev) -> list:
+    """The ``event_sweep`` calls that ``run_explicit_path`` makes, block
+    by block as the engine cuts them: ``(params, gaps, kwargs)``."""
+    from repro_torch.sim import F64
+    from repro_torch.sim import engine as te
+    flat, T_arr, Tb_arr = te._flat_inputs(T, mc_grid, T_BASE, dev)
+    g = te._normalize_gaps(gaps, flat.size, dev)
+    steps = te._scan_len(g.shape[-1]) + 1
+    return [(te._point_params(flat, T_arr, Tb_arr, b.points, F64),
+             F64.cast(b.gaps), dict(n_steps=b.n_steps, compensated=False))
+            for b in te._explicit_schedules(g, flat.size, steps, None)]
+
+
+def phase_explicit_times(mc_grid, T, gaps, tb, launches: int, peaks,
+                         dev) -> dict:
+    """The explicit kernel on the explicit path's own launches (their
+    count must be the path's): its time, its plain version's (both held
+    bitwise first) and its bound, from the gaps this run's lanes read."""
+    import torch
+    from repro_torch.kernels import event_sweep as es
+    bw, f64_peak = peaks[0], peaks[1]
+    calls = explicit_launches(mc_grid, T, gaps, dev)
+    if len(calls) != launches:
+        fail(f"the explicit path made {launches} launches, its blocks are "
+             f"{len(calls)}")
+    run_k = lambda: [es.event_sweep(*a, g, **k) for a, g, k in calls]
+    run_p = lambda: [es.event_sweep_plain(*a, g, **k) for a, g, k in calls]
+    equal, err = True, 0.0
+    for x, y in zip(run_k(), run_p()):
+        e, d = _compare(x, y)
+        equal, err = equal and e, max(err, d)
+    if not equal:
+        fail("explicit kernel != plain version on the explicit path")
+    F = gaps.shape[-1]
+    n_gaps = int(torch.clamp_max(tb.n_failures.to(torch.int64) + 1, F).sum())
+    lanes = tb.n_failures.numel()
+    nbytes = n_gaps * 8 + lanes * _OUT_BYTES + 6 * mc_grid.size * 8
+    bytes_ms = nbytes / bw * 1e3
+    ops_ms = n_gaps * _OPS_PER_GAP["f64"] / f64_peak * 1e3
+    out = {"launches": len(calls), "lanes": lanes, "gaps": n_gaps,
+           "ms": _events_ms(run_k), "plain_ms": _events_ms(run_p),
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bitwise": equal, "max_abs_err": err}
+    log(f"time explicit path {tuple(gaps.shape)} f64: explicit kernel "
+        f"{out['ms']:.4f} ms over {len(calls)} launches, plain "
+        f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}); gaps {n_gaps}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -963,76 +1325,207 @@ def _host_s(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def phase_times(big, mc_grid, model, runs, peaks, dev) -> list:
+def _fused_bound(n_gaps: int, lanes: int, points: int, pol, kind: int,
+                 draw_ops: dict, peaks) -> dict:
+    """The sampled kernel's bound: outputs and parameters over the memory
+    rate; the draw's INT32 and f64 instructions per gap (``_draw_ops``,
+    from the SASS) and the update's operations (``_OPS_PER_GAP``), each
+    over its unit's rate.  An f64 instruction takes one slot of the FP64
+    units, whose rate is their FLOP peak over 2 (the peak counts a fused
+    multiply-add as two); the update's operations are FLOPs.  The units
+    run side by side, so the least time is the largest of the four."""
+    bw, f64_peak, f32_peak, _, int_peak = peaks
+    item = 4 if pol.compensated else 8
+    nbytes = lanes * _OUT_BYTES + points * (6 * item + 2 * 8 + 8)
+    int_ops = n_gaps * draw_ops[kind][0]
+    f64_ops = n_gaps * draw_ops[kind][1]
+    update_ops = n_gaps * _OPS_PER_GAP[pol.name]
+    f64_s = f64_ops / (f64_peak / 2)
+    f32_s = update_ops / f32_peak if pol.compensated else 0.0
+    if not pol.compensated:
+        f64_s += update_ops / f64_peak
+    ms = {"bytes": nbytes / bw * 1e3, "int32": int_ops / int_peak * 1e3,
+          "f64": f64_s * 1e3, "f32": f32_s * 1e3}
+    top = max(ms, key=ms.get)
+    return {"bound_ms": ms[top],
+            "bound_by": "bytes" if top == "bytes" else "operations",
+            "bound_unit": top, "bound_parts_ms": ms, "bytes": nbytes,
+            "int32_instructions": int_ops, "f64_instructions": f64_ops,
+            "update_ops": update_ops}
+
+
+def phase_times(big, mc_grid, model, runs, peaks, draw_ops, dev) -> list:
+    """Per MC call of the main path: the sampled kernel over the engine's
+    launches with its bound; the explicit kernel on the same lanes' drawn
+    schedule in the (B, F, N) and (B, N, F) layouts with its byte bound,
+    the transpose between them and the plain versions; the two-step
+    path's draws; ``simulate_trajectories`` end to end and its host parts.
+    The kernels are held bitwise against each other again at these
+    shapes, and the sampled kernel's draws and outputs against its plain
+    version's (``draw_gaps``, ``event_sweep_sampled_plain``) lane for
+    lane."""
     import torch
     from repro_torch.core import Exponential, Weibull
-    from repro_torch.kernels.event_sweep import event_sweep, event_sweep_plain
+    from repro_torch.core.failures import draw_gaps
+    from repro_torch.kernels import event_sweep as es
     from repro_torch.sim import (COMPENSATED_F32, F64, evaluate_grid,
                                  fail_capacity_points, sampled_schedules,
                                  simulate_trajectories)
-    bw, f64_peak, f32_peak, _ = peaks
+    from repro_torch.sim import engine as te
+    bw, f64_peak, f32_peak, _, _ = peaks
     for pol in (F64, COMPENSATED_F32):
         s = _host_s(lambda: evaluate_grid(big, precision=pol, device=dev))
         log(f"time evaluate_grid 1e6 [{pol.name}]: {s:.4f} s (median of 5)")
     procs = {"exponential": Exponential(), "weibull": Weibull(shape=0.7)}
+    kinds = {name: k for k, name in MAIN_KINDS.items()}
     flat = mc_grid.ravel()
     variants = []
     for (pname, polname, algo), tb in runs.items():
         pol = F64 if polname == "f64" else COMPENSATED_F32
+        dt = pol.torch_dtype
         T = (model.T_time if algo == "algo_t" else model.T_energy).reshape(-1)
-        kw = dict(T_base=T_BASE, n_trials=N_TRIALS, seed=7,
-                  process=procs[pname], device=dev)
+        Tb = torch.full_like(T, T_BASE)
+        proc = procs[pname]
+        kw = dict(T_base=T_BASE, n_trials=N_TRIALS, seed=7, process=proc,
+                  device=dev)
+        plan = lambda: list(te.sampled_launches(
+            flat, T, Tb, N_TRIALS, 7, proc, None, None, pol))
+        launches = plan()
+        sk = lambda k: dict(n_steps=k["n_steps"],
+                            compensated=k["compensated"])
+        draw = lambda k: {x: k[x] for x in ("spec", "seed", "points",
+                                            "trial0", "n_trials",
+                                            "capacity")}
+        # the lanes' drawn schedule: f64 (B, N, F), and in the compute
+        # dtype in both layouts
+        f64_bnf = [es.event_draws(**draw(k)).contiguous()
+                   for _, _, _, k in launches]
+        bfn = [trial_major(g, dt) for g in f64_bnf]
+        bnf = [g.to(dt) for g in f64_bnf]
+        run_f = lambda: [es.event_sweep_sampled(*a, **k)
+                         for _, _, a, k in launches]
+        run_e = lambda gs: [es.event_sweep(*a, g, **sk(k))
+                            for (_, _, a, k), g in zip(launches, gs)]
+        run_p = lambda: [es.event_sweep_plain(*a, g, **sk(k))
+                         for (_, _, a, k), g in zip(launches, bfn)]
+        run_2 = lambda: [es.event_sweep_sampled_plain(*a, **k)
+                         for _, _, a, k in launches]
+        fused, e_bfn, e_bnf, plain = run_f(), run_e(bfn), run_e(bnf), run_p()
+        two_step = run_2()
+        torch.cuda.synchronize()
+        equal, err = True, 0.0
+        for outs in zip(fused, e_bfn, e_bnf, plain):
+            for other in outs[1:]:
+                e, x = _compare(outs[0], other)
+                equal, err = equal and e, max(err, x)
+        if not equal:
+            fail(f"sampled kernel, explicit kernel (both layouts) and plain "
+                 f"version disagree at main-path shapes "
+                 f"{(pname, polname, algo)}")
+        # the in-kernel draws against the plain draws (sample_gaps's), and
+        # the sampled kernel against its plain version, lane for lane
+        draws = {"max_ulps": 0, "gaps_differing": 0, "lanes_differing": 0}
+        for (_, _, _, k), got, f_out, p_out in zip(launches, f64_bnf,
+                                                   fused, two_step):
+            want = draw_gaps(k["spec"], es._key(k["seed"], k["points"],
+                                                k["trial0"], k["n_trials"]),
+                             k["capacity"])
+            ulps, n_diff = _ulps(got, want)
+            rel = float(((got - want).abs() / want).max())
+            del want
+            same, _ = _compare(f_out, p_out)
+            draws["max_ulps"] = max(draws["max_ulps"], ulps)
+            draws["gaps_differing"] += n_diff
+            if not same:
+                diff = sum((f_out[x] != p_out[x]).int() for x in f_out)
+                draws["lanes_differing"] += int((diff > 0).sum())
+            if (pname == "exponential" and n_diff) or not rel <= 1e-12:
+                fail(f"in-kernel draws off sample_gaps at main-path shapes "
+                     f"{(pname, polname, algo)}: {ulps} ulps, {n_diff} gaps")
+            if n_diff == 0 and not same:
+                fail(f"sampled kernel != its plain version on equal draws "
+                     f"at main-path shapes {(pname, polname, algo)}")
+        log(f"parity {pname}/{polname}/{algo} at main-path shapes: sampled "
+            f"kernel = explicit kernel (both layouts) = plain version on "
+            f"its draws, bitwise; its draws vs sample_gaps's: largest ulp "
+            f"difference {draws['max_ulps']}, differing gaps "
+            f"{draws['gaps_differing']}; vs its plain version "
+            f"(event_sweep_sampled_plain): differing lanes "
+            f"{draws['lanes_differing']}")
+        del fused, e_bfn, e_bnf, plain, two_step
+        fused_ms = _events_ms(run_f)
+        fused_plain_ms = _events_ms(run_2)
+        bfn_ms = _events_ms(lambda: run_e(bfn))
+        bnf_ms = _events_ms(lambda: run_e(bnf))
+        transpose_ms = _events_ms(lambda: [trial_major(g, dt)
+                                           for g in f64_bnf])
+        plain_ms = _events_ms(run_p)
         sample_ms = _events_ms(lambda: [b.gaps for b in sampled_schedules(
             T, flat, **kw)])
+        del f64_bnf, bfn, bnf
+        torch.cuda.empty_cache()
         e2e = _host_s(lambda: simulate_trajectories(
             T, flat, precision=pol, **kw))
-        c = pol.cast
-        Tb = torch.full_like(T, T_BASE)
-        calls = []
-        for blk in sampled_schedules(T, flat, **kw):
-            p = blk.points
-            calls.append(((c(T[p]), c(flat.C[p]), c(flat.R[p]), c(flat.D[p]),
-                           c(flat.omega[p]), c(Tb[p]),
-                           c(blk.gaps).contiguous()),
-                          dict(n_steps=blk.n_steps,
-                               compensated=pol.compensated)))
-        run_k = lambda: [event_sweep(*a, **k) for a, k in calls]
-        run_p = lambda: [event_sweep_plain(*a, **k) for a, k in calls]
-        ker_ms = _events_ms(run_k)
-        plain_ms = _events_ms(run_p)
-        equal, err = True, 0.0
-        for ko, po in zip(run_k(), run_p()):
-            e, x = _compare(ko, po)
-            equal, err = equal and e, max(err, x)
-        if not equal:
-            fail(f"kernel != plain version at main-path shapes "
-                 f"{(pname, polname, algo)}")
+        plan_s = _host_s(plan)
+        run_s = _host_s(lambda: te._run_sampled(
+            flat, T, Tb, N_TRIALS, 7, proc, None, None, pol))
+        acc = te._run_sampled(flat, T, Tb, N_TRIALS, 7, proc, None, None,
+                              pol)
+        assemble_s = _host_s(lambda: te._assemble_batch(acc, flat, N_TRIALS))
+        del acc
+        host = {"simulate_trajectories_s": e2e, "plan_s": plan_s,
+                "kernels_s": fused_ms / 1e3,
+                "scatter_and_launch_s": run_s - plan_s - fused_ms / 1e3,
+                "energy_integral_s": assemble_s,
+                "other_s": e2e - run_s - assemble_s}
+
         item = 4 if pol.compensated else 8
         lanes = tb.n_failures.numel()
         F_of = torch.as_tensor(fail_capacity_points(
-            T, flat, T_BASE, process=procs[pname]), device=dev)
+            T, flat, T_BASE, process=proc), device=dev)
         reads = torch.minimum(
             tb.n_failures.reshape(flat.size, -1).to(torch.int64) + 1,
             F_of[:, None])
         n_gaps = int(reads.sum())
+        # a warp (32 trials of one point) runs as long as its longest lane
+        steps = tb.n_failures.reshape(flat.size, -1, 32).to(torch.int64) + 1
+        warp_eff = float(steps.sum()) / float(32 * steps.amax(-1).sum())
         nbytes = n_gaps * item + lanes * _OUT_BYTES + 6 * flat.size * item
         bytes_ms = nbytes / bw * 1e3
         ops_ms = n_gaps * _OPS_PER_GAP[pol.name] / (
             f32_peak if pol.compensated else f64_peak) * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
+        fb = _fused_bound(n_gaps, lanes, flat.size, pol, kinds[pname],
+                          draw_ops, peaks)
         v = {"process": pname, "policy": polname, "period": algo,
-             "blocks": len(calls), "lanes": lanes, "gaps_read": n_gaps,
-             "kernel_ms": ker_ms, "plain_ms": plain_ms,
-             "bound_ms": bound_ms,
-             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-             "sampling_ms": sample_ms, "simulate_trajectories_s": e2e,
-             "bitwise_vs_plain": equal, "max_abs_err": err}
-        log(f"time {pname}/{polname}/{algo}: kernel {ker_ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({v['bound_by']}), "
-            f"sampling {sample_ms:.4f} ms, simulate_trajectories "
-            f"{e2e:.4f} s, gaps read {n_gaps}")
+             "launches": len(launches), "lanes": lanes, "gaps": n_gaps,
+             "fused_ms": fused_ms, "fused_plain_ms": fused_plain_ms,
+             "fused": fb,
+             "explicit_bfn_ms": bfn_ms, "explicit_bnf_ms": bnf_ms,
+             "transpose_ms": transpose_ms, "plain_ms": plain_ms,
+             "explicit_bound_ms": max(bytes_ms, ops_ms),
+             "explicit_bound_by": ("bytes" if bytes_ms >= ops_ms
+                                   else "operations"),
+             "sampling_ms": sample_ms,
+             "two_step_ms": sample_ms + bnf_ms,
+             "host": host, "warp_efficiency": warp_eff, "bitwise": equal,
+             "draws_vs_plain": draws, "max_abs_err": err}
+        log(f"time {pname}/{polname}/{algo}: sampled kernel {fused_ms:.4f} "
+            f"ms over {len(launches)} launches, bound {fb['bound_ms']:.4f} "
+            f"ms ({fb['bound_unit']}; "
+            + ", ".join(f"{k} {x:.4f}" for k, x in
+                        fb["bound_parts_ms"].items())
+            + f"), its plain version {fused_plain_ms:.4f} ms; explicit "
+            f"kernel (B, F, N) {bfn_ms:.4f} ms, (B, N, F) {bnf_ms:.4f} ms, "
+            f"bound {v['explicit_bound_ms']:.4f} ms "
+            f"({v['explicit_bound_by']}), transpose {transpose_ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms; two-step path {v['two_step_ms']:.4f} "
+            f"ms (sampling {sample_ms:.4f} ms); simulate_trajectories "
+            f"{e2e:.4f} s (plan {plan_s:.4f}, kernels "
+            f"{host['kernels_s']:.4f}, scatter and launch "
+            f"{host['scatter_and_launch_s']:.4f}, energy integral "
+            f"{assemble_s:.4f}, other {host['other_s']:.4f}); gaps {n_gaps}, "
+            f"warp efficiency {warp_eff:.4f}")
         variants.append(v)
-        del calls
         torch.cuda.empty_cache()
     return variants
 
@@ -1050,7 +1543,7 @@ def phase_quant_times(run: dict, peaks, dev) -> dict:
     import torch
     from repro_torch.ckpt.tree import tree_leaves
     from repro_torch.kernels import ops, quant_blockwise as qb
-    bw, _, f32_peak, _ = peaks
+    bw, _, f32_peak, _, _ = peaks
     xs = []
     for x in tree_leaves(run["state"]):
         if x.dtype == torch.float32 and x.numel() >= 4096:
@@ -1485,7 +1978,7 @@ def phase_zoo_times(inp: dict, peaks, dev) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mlstm_scan as ml
     from repro_torch.kernels import rglru_scan as rg
-    bw, _, f32_peak, bf16_peak = peaks
+    bw, _, f32_peak, bf16_peak, _ = peaks
 
     def bound(nbytes, flops, peak):
         b_ms, o_ms = nbytes / bw * 1e3, flops / peak * 1e3
@@ -1572,9 +2065,15 @@ def _kernel_modules():
 
 
 def _wrappers():
-    """{name: (kernel wrapper, its plain version)} of all seven kernels."""
+    """{name: (kernel wrapper, its plain version)} of all eight kernels
+    and the draw-only entry (whose plain version, ``draw_gaps``, is what
+    ``sample_gaps`` calls)."""
+    from repro_torch.core.failures import draw_gaps
     es, qb, rg, fa, da, ml = _kernel_modules()
     return {"event_sweep": (es.event_sweep, es.event_sweep_plain),
+            "event_sweep_sampled": (es.event_sweep_sampled,
+                                    es.event_sweep_sampled_plain),
+            "event_draws": (es.event_draws, draw_gaps),
             "quantize": (qb.quantize, qb.quantize_plain),
             "dequantize": (qb.dequantize, qb.dequantize_plain),
             "rglru_scan": (rg.rglru_scan, rg.rglru_scan_plain),
@@ -1608,26 +2107,56 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
-    build_s = phase_build()
+    build_s, draw_ops = phase_build()
     parity_err = phase_parity(dev)
+    sampled_parity = phase_sampled_parity(dev)
     quant_err, dequant_err = phase_quant_parity(dev)
     zoo_err = phase_zoo_parity(dev)
 
     # the Monte-Carlo main path (sweep, then MC), its counts read around it
+    from repro_torch.core.failures import draw_gaps
     _reset_counts()
     big, sweeps, mc_grid, model, runs = run_main_path(dev)
     torch.cuda.synchronize()
     mc_counts = _counts()
-    log(f"main path (sweep + MC): event_sweep launches "
-        f"{mc_counts['event_sweep']}, plain-version calls "
-        f"{mc_counts['plain']}")
-    if mc_counts["event_sweep"] <= 0:
-        fail("the main path never launched the event kernel")
+    log(f"main path (sweep + MC): event_sweep_sampled launches "
+        f"{mc_counts['event_sweep_sampled']}, event_sweep launches "
+        f"{mc_counts['event_sweep']}, event_draws launches "
+        f"{mc_counts['event_draws']}, plain-version calls "
+        f"{mc_counts['plain']} (draw_gaps, which sample_gaps calls: "
+        f"{draw_gaps.calls})")
+    if mc_counts["event_sweep_sampled"] <= 0:
+        fail("the main path never launched the sampled event kernel")
+    if mc_counts["event_sweep"] or mc_counts["event_draws"]:
+        fail("the main path launched the explicit kernel or the draw-only "
+             "entry")
     if mc_counts["plain"] != 0:
-        fail("the main path called a plain version")
+        fail("the main path called a plain version or drew a schedule")
     gate_sweep(big, sweeps)
     report = gate_mc(mc_grid, model, runs, dev)
     report["dispatch"] = phase_dispatch_invariance(mc_grid, model, dev)
+
+    # a caller's schedule through the explicit kernel, its counts read
+    # around it
+    T_ex, gaps_ex = explicit_schedule(mc_grid, model, dev)
+    _reset_counts()
+    tb_ex = run_explicit_path(mc_grid, T_ex, gaps_ex, dev)
+    torch.cuda.synchronize()
+    ex_counts = _counts()
+    log(f"explicit-schedule path: event_sweep launches "
+        f"{ex_counts['event_sweep']}, event_sweep_sampled launches "
+        f"{ex_counts['event_sweep_sampled']}, plain-version calls "
+        f"{ex_counts['plain']}")
+    if (ex_counts["event_sweep"] <= 0 or ex_counts["event_sweep_sampled"]
+            or ex_counts["plain"]):
+        fail("the explicit-schedule path did not run through the explicit "
+             "kernel alone")
+    report["explicit"] = gate_explicit(mc_grid, T_ex, gaps_ex, tb_ex)
+    report["sampled_parity"] = sampled_parity
+    ex_times = phase_explicit_times(mc_grid, T_ex, gaps_ex, tb_ex,
+                                    ex_counts["event_sweep"], peaks, dev)
+    del gaps_ex, tb_ex
+    torch.cuda.empty_cache()
 
     # the checkpoint runtime path, its counts read around it
     root = ROOT / "build" / "chip_smoke_ckpt"
@@ -1673,25 +2202,48 @@ def main() -> None:
     torch.cuda.empty_cache()
     report["bench_kernels"] = phase_bench_kernels(dev)
 
-    variants = phase_times(big, mc_grid, model, runs, peaks, dev)
+    variants = phase_times(big, mc_grid, model, runs, peaks, draw_ops, dev)
     ztimes = phase_zoo_times(inp, peaks, dev)
     del inp
 
+    # the explicit kernel: launches, times and bound of the explicit path;
+    # beside them, on the 8 MC calls' drawn schedules, both layouts
+    max_err = max([parity_err, sampled_parity["max_abs_err"],
+                   ex_times["max_abs_err"]]
+                  + [v["max_abs_err"] for v in variants])
+    on_mc = lambda key: sum(v[key] for v in variants)
     kernels = [{
         "name": "event_sweep", "route": "cuda",
         "source": "src/repro_torch/csrc/event_sweep.cu",
         "replaces": "src/repro/kernels/event_sweep.py:65",
-        "launches": mc_counts["event_sweep"],
-        "max_abs_err": max([parity_err] + [v["max_abs_err"]
-                                           for v in variants]),
-        "parity": "bitwise",
-        "ms": sum(v["kernel_ms"] for v in variants),
-        "plain_ms": sum(v["plain_ms"] for v in variants),
-        "bound_ms": sum(v["bound_ms"] for v in variants),
-        "bound_by": ("bytes" if all(v["bound_by"] == "bytes"
+        "launches": ex_counts["event_sweep"],
+        "max_abs_err": max_err, "parity": "bitwise",
+        "ms": ex_times["ms"], "plain_ms": ex_times["plain_ms"],
+        "bound_ms": ex_times["bound_ms"], "bound_by": ex_times["bound_by"],
+        "library_ms": None,
+        "build_s": build_s["event_sweep.cu"],
+        "on_mc_schedules": {
+            "bnf_ms": on_mc("explicit_bnf_ms"),
+            "bfn_ms": on_mc("explicit_bfn_ms"),
+            "transpose_ms": on_mc("transpose_ms"),
+            "plain_ms": on_mc("plain_ms"),
+            "bound_ms": on_mc("explicit_bound_ms"),
+            "launches": on_mc("launches")},
+    }, {
+        "name": "event_sweep_sampled", "route": "cuda",
+        "source": "src/repro_torch/csrc/event_sweep.cu",
+        "replaces": "src/repro/kernels/event_sweep.py:65",
+        "launches": mc_counts["event_sweep_sampled"],
+        "max_abs_err": max_err, "parity": "bitwise",
+        "ms": sum(v["fused_ms"] for v in variants),
+        "plain_ms": sum(v["fused_plain_ms"] for v in variants),
+        "two_step_ms": sum(v["two_step_ms"] for v in variants),
+        "bound_ms": sum(v["fused"]["bound_ms"] for v in variants),
+        "bound_by": ("bytes" if all(v["fused"]["bound_by"] == "bytes"
                                     for v in variants) else "operations"),
         "library_ms": None,
         "build_s": build_s["event_sweep.cu"],
+        "draw_instructions_per_gap": {str(k): v for k, v in draw_ops.items()},
         "variants": variants,
     }]
     for name, line, err in (("quantize", 23, quant_err),

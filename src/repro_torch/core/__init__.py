@@ -6,7 +6,8 @@ from .params import (CheckpointParams, PowerParams,
                      fig12_checkpoint, fig3_checkpoint)
 from .philox import CounterKey
 from .failures import (FailureProcess, Exponential, Weibull, LogNormal,
-                       TraceReplay, get_process, as_process)
+                       TraceReplay, get_process, as_process, GapSpec,
+                       draw_gaps)
 from .model import (time_final, time_final_prime, time_fault_free,
                     time_lost_per_failure, expected_failures, phase_times,
                     energy_final, energy_final_prime, K_factor, K_dE_dT,

@@ -25,6 +25,13 @@ Two samplers share the distributions:
     .CounterKey`): gap ``j`` of grid point ``i`` and trial ``t`` is a
     function of the seed, ``i``, ``t``, ``j`` and the process alone.  Same
     distribution, not the same stream as numpy (or as JAX's threefry).
+
+The device transform of each process is held in one place: its
+:class:`GapSpec` (:meth:`FailureProcess.gap_spec`), the per-point values
+the transform needs.  :func:`draw_gaps` applies a spec to a block's
+uniforms; ``sample_gaps`` is that call, and the event kernel that draws
+its gaps itself (``kernels/event_sweep.py::event_sweep_sampled``) reads
+the same spec.
 """
 from __future__ import annotations
 
@@ -52,18 +59,6 @@ def _lead(x: ArrayLike, size: tuple) -> np.ndarray:
         raise ValueError(f"parameter of shape {x.shape} cannot broadcast "
                          f"against sample size {size}")
     return x.reshape(x.shape + (1,) * extra)
-
-
-def _lead_t(x, size: tuple, device) -> torch.Tensor:
-    """:func:`_lead` for the device samplers: an f64 tensor on ``device``."""
-    x = torch.as_tensor(x, dtype=F64, device=device)
-    if x.ndim == 0:
-        return x
-    extra = len(size) - x.ndim
-    if extra < 0:
-        raise ValueError(f"parameter of shape {tuple(x.shape)} cannot "
-                         f"broadcast against sample size {size}")
-    return x.reshape(tuple(x.shape) + (1,) * extra)
 
 
 def _take(x, idx):
@@ -102,8 +97,18 @@ class FailureProcess:
                     device="cuda", dtype: torch.dtype = F64) -> torch.Tensor:
         """Draw ``size = (points, trials, F)`` gaps on ``device`` from the
         counter-based stream ``key`` (f64 draws, returned in ``dtype``).
-        ``mean`` broadcasts against ``size`` after leading-axis alignment
-        (one mean per grid point)."""
+        ``mean`` is one mean per grid point (or one for all)."""
+        dev = resolve_device(device)
+        size = tuple(size)
+        if tuple(size[:-1]) != key.shape:
+            raise ValueError(f"sample size {size} does not match the key's "
+                             f"(points, trials) {key.shape}")
+        spec = self.gap_spec(mean, int(size[0]), dev)
+        return draw_gaps(spec, key, int(size[-1])).to(dtype)
+
+    def gap_spec(self, mean, n_points: int, device="cuda") -> "GapSpec":
+        """The per-point values of this process's device transform for
+        ``n_points`` grid points with means ``mean`` (see :class:`GapSpec`)."""
         raise NotImplementedError(f"{self.name}: no device sampler")
 
     def hazard(self, t, mean=None, device="cuda") -> torch.Tensor:
@@ -130,25 +135,95 @@ class FailureProcess:
     def is_exponential(self) -> bool:
         return False
 
-    def _device_mean(self, mean, size, device) -> torch.Tensor:
+    def _device_mean(self, mean, n_points: int, device) -> torch.Tensor:
         m = self.mu if self.mu is not None else mean
         if m is None:
             raise ValueError(f"{self.name}: no mean gap — construct with "
                              f"mu=... or pass mean= when sampling")
-        return _lead_t(m, size, device)
+        return _per_point(m, n_points, device)
 
 
-def _uniforms(key: CounterKey, size: tuple) -> torch.Tensor:
-    """``size`` f64 uniforms in (0, 1) of ``key``'s lanes, on its device."""
-    if tuple(size[:-1]) != key.shape:
-        raise ValueError(f"sample size {size} does not match the key's "
-                         f"(points, trials) {key.shape}")
-    return key.uniforms(int(size[-1]))
+def _per_point(x, n_points: int, device) -> torch.Tensor:
+    """A per-point parameter (one value, or one per point) as an f64 ``(n,)``
+    tensor on ``device``."""
+    x = torch.as_tensor(x, dtype=F64, device=device)
+    if x.numel() == 1:
+        return x.reshape(()).expand(n_points)
+    if x.numel() != n_points:
+        raise ValueError(f"parameter of shape {tuple(x.shape)} does not give "
+                         f"one value per point ({n_points})")
+    return x.reshape(n_points)
 
 
-def _std_exponential(key, size) -> torch.Tensor:
-    """Standard Exp(1) draws by inverse CDF, f64, on the key's device."""
-    return -torch.log(_uniforms(key, size))
+@dataclasses.dataclass(frozen=True)
+class GapSpec:
+    """A process's inverse-CDF transform, as per-point f64 values.
+
+    Gap ``j`` of a lane whose uniform ``j`` is ``u`` (its uniform 0 is
+    ``u0``), at a point with values ``a`` and ``b``:
+
+    * ``exponential``: ``a * (-log(u))``, ``a`` the mean;
+    * ``weibull``: ``a * exp(log(-log(u)) / b)``, ``a`` the scale
+      ``mean / Gamma(1 + 1/k)`` and ``b`` the shape ``k``;
+    * ``lognormal``: ``exp(a + b * ndtri(u))``, ``a = log(mean) - s*s/2``
+      and ``b`` the sigma ``s``;
+    * ``trace``: ``trace[(start + j) % n] * a`` with ``start = min(floor(u0
+      * n), n - 1)``, ``a`` the rescale ``mean / trace_mean`` (1 for none).
+
+    ``a`` and ``b`` come from the torch expressions of :meth:`gap_spec`, so
+    the kernel that reads a spec starts from the bits the samplers use.
+    """
+
+    kind: str
+    a: torch.Tensor
+    b: torch.Tensor
+    trace: Optional[torch.Tensor] = None
+
+    #: the kernel's numbering of the kinds.
+    KINDS = ("exponential", "weibull", "lognormal", "trace")
+
+    @property
+    def kind_id(self) -> int:
+        return self.KINDS.index(self.kind)
+
+    @property
+    def n_points(self) -> int:
+        return int(self.a.numel())
+
+    def take(self, idx: torch.Tensor) -> "GapSpec":
+        """The spec of points ``idx`` (an index tensor on the spec's device)."""
+        return dataclasses.replace(self, a=self.a[idx], b=self.b[idx])
+
+
+def draw_gaps(spec: GapSpec, key: CounterKey, n: int) -> torch.Tensor:
+    """``(points, trials, n)`` f64 gaps of ``key``'s lanes under ``spec``,
+    in PyTorch on the key's device.  ``draw_gaps.calls`` counts its calls."""
+    draw_gaps.calls += 1
+    if spec.n_points != key.shape[0]:
+        raise ValueError(f"spec of {spec.n_points} points, key of "
+                         f"{key.shape[0]}")
+    col = lambda x: x.reshape(-1, 1, 1)
+    if spec.kind == "trace":
+        trace = spec.trace
+        m = int(trace.numel())
+        u = key.uniforms(1)
+        start = torch.clamp(torch.floor(u * m).to(torch.int64), max=m - 1)
+        idx = (start + torch.arange(n, device=key.device)) % m
+        return trace[idx] * col(spec.a)
+    u = key.uniforms(n)
+    if spec.kind == "exponential":
+        return col(spec.a) * (-torch.log(u))
+    if spec.kind == "weibull":
+        # the power as exp(log(E)/k): PyTorch's CPU pow rounds a few
+        # elements differently depending on where they fall in the tensor,
+        # which would let the blocking change the draws.
+        return col(spec.a) * torch.exp(torch.log(-torch.log(u)) / col(spec.b))
+    if spec.kind == "lognormal":
+        return torch.exp(col(spec.a) + col(spec.b) * torch.special.ndtri(u))
+    raise ValueError(f"unknown gap spec kind {spec.kind!r}")
+
+
+draw_gaps.calls = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,11 +238,9 @@ class Exponential(FailureProcess):
         return rng.exponential(scale=_lead(self.resolve_mean(mean), size),
                                size=size)
 
-    def sample_gaps(self, key, size, mean=None, device="cuda", dtype=F64):
-        dev = resolve_device(device)
-        size = tuple(size)
-        m = self._device_mean(mean, size, dev)
-        return (m * _std_exponential(key, size)).to(dtype)
+    def gap_spec(self, mean, n_points, device="cuda"):
+        m = self._device_mean(mean, n_points, device)
+        return GapSpec("exponential", m, torch.zeros_like(m))
 
     def ravel(self) -> "Exponential":
         return dataclasses.replace(
@@ -210,19 +283,14 @@ class Weibull(FailureProcess):
         lam, k = self._scale(mean, size)
         return lam * rng.weibull(k, size=size)
 
-    def sample_gaps(self, key, size, mean=None, device="cuda", dtype=F64):
-        # Inverse CDF through the standard exponential: X = lam * E^(1/k),
-        # with the power as exp(log(E)/k): PyTorch's CPU pow rounds a few
-        # elements differently depending on where they fall in the tensor,
-        # which would let the blocking change the draws.
-        dev = resolve_device(device)
-        size = tuple(size)
-        k = _lead_t(self.shape, size, dev)
-        g1 = _lead_t(_gamma1p(1.0 / np.asarray(self.shape, dtype=np.float64)),
-                     size, dev)
-        lam = self._device_mean(mean, size, dev) / g1
-        e = _std_exponential(key, size)
-        return (lam * torch.exp(torch.log(e) / k)).to(dtype)
+    def gap_spec(self, mean, n_points, device="cuda"):
+        # inverse CDF through the standard exponential: X = lam * E^(1/k)
+        k = _per_point(self.shape, n_points, device)
+        g1 = _per_point(_gamma1p(1.0 / np.asarray(self.shape,
+                                                  dtype=np.float64)),
+                        n_points, device)
+        lam = self._device_mean(mean, n_points, device) / g1
+        return GapSpec("weibull", lam, k)
 
     def gap_cv(self):
         k = np.asarray(self.shape, dtype=np.float64)
@@ -266,13 +334,10 @@ class LogNormal(FailureProcess):
         m = np.log(_lead(self.resolve_mean(mean), size)) - 0.5 * s * s
         return rng.lognormal(mean=m, sigma=s, size=size)
 
-    def sample_gaps(self, key, size, mean=None, device="cuda", dtype=F64):
-        dev = resolve_device(device)
-        size = tuple(size)
-        s = _lead_t(self.sigma, size, dev)
-        m = torch.log(self._device_mean(mean, size, dev)) - 0.5 * s * s
-        z = torch.special.ndtri(_uniforms(key, size))
-        return torch.exp(m + s * z).to(dtype)
+    def gap_spec(self, mean, n_points, device="cuda"):
+        s = _per_point(self.sigma, n_points, device)
+        m = torch.log(self._device_mean(mean, n_points, device)) - 0.5 * s * s
+        return GapSpec("lognormal", m, s)
 
     def gap_cv(self):
         s = np.asarray(self.sigma, dtype=np.float64)
@@ -344,21 +409,16 @@ class TraceReplay(FailureProcess):
         out = trace[idx] * (_lead(self.resolve_mean(mean), size) / self.mu)
         return np.broadcast_to(out, size).copy()
 
-    def sample_gaps(self, key, size, mean=None, device="cuda", dtype=F64):
+    def gap_spec(self, mean, n_points, device="cuda"):
         """One uniform starting offset per trajectory (the lane's uniform
-        0, as ``floor(u n)``), then a cyclic gather."""
-        dev = resolve_device(device)
-        size = tuple(size)
-        trace = torch.as_tensor(self.gaps, dtype=F64, device=dev)
-        n = len(self.gaps)
-        u = _uniforms(key, size[:-1] + (1,))
-        start = torch.clamp(torch.floor(u * n).to(torch.int64), max=n - 1)
-        idx = (start + torch.arange(size[-1], device=dev)) % n
+        0, as ``floor(u n)``), then a cyclic gather, rescaled by
+        ``mean / trace_mean`` when a mean is given (and ``rescale``)."""
+        trace = torch.as_tensor(self.gaps, dtype=F64, device=device)
         if mean is not None and self.rescale:
-            out = trace[idx] * (_lead_t(mean, size, dev) / self.mu)
+            scale = _per_point(mean, n_points, device) / self.mu
         else:
-            out = trace[idx]
-        return torch.broadcast_to(out, size).to(dtype)
+            scale = torch.ones(n_points, dtype=F64, device=device)
+        return GapSpec("trace", scale, torch.zeros_like(scale), trace)
 
     def iter_gaps(self, rng, mean=None):
         """Cyclic replay from one uniformly random starting offset."""

@@ -7,9 +7,10 @@ memory budget and capacity buckets then only decide which lanes are drawn
 together, never what they draw.
 
 One Philox call maps a 128-bit counter and a 64-bit key to four 32-bit
-words.  Here the counter is ``(j // 2, t, i, 0)`` and the key the seed's
-two 32-bit halves; words 0-1 make uniform ``2p`` and words 2-3 uniform
-``2p + 1``.  Each uniform keeps 52 bits: ``u = (x + 1/2) 2^-52`` lies in
+words.  Here the counter is ``(j // 2, t, i mod 2^32, i div 2^32)`` (the
+point's low and high words; ``(j // 2, t, i, 0)`` for any grid below 2^32
+points) and the key the seed's two 32-bit halves; words 0-1 make uniform
+``2p`` and words 2-3 uniform ``2p + 1``.  Each uniform keeps 52 bits: ``u = (x + 1/2) 2^-52`` lies in
 ``[2^-53, 1 - 2^-53]``, so it is never 0 or 1.
 
 The words live in int64 tensors.  Every value stays in ``[0, 2^32)``, so
@@ -83,9 +84,10 @@ class CounterKey:
         dev = self.device
         i64 = lambda x: torch.as_tensor(x, dtype=torch.int64, device=dev)
         pair = torch.arange((n + 1) // 2, dtype=torch.int64, device=dev)
+        pts = i64(self.points).reshape(-1, 1, 1)
         w0, w1, w2, w3 = philox4x32(
             pair.reshape(1, 1, -1), i64(self.trials).reshape(1, -1, 1),
-            i64(self.points).reshape(-1, 1, 1), i64(0),
+            pts & _MASK, (pts >> 32) & _MASK,
             self.seed & _MASK, (self.seed >> 32) & _MASK)
         u = torch.stack((_unit(w0, w1), _unit(w2, w3)), dim=-1)
         return u.reshape(u.shape[:-2] + (-1,))[..., :n]

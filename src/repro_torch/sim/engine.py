@@ -10,21 +10,29 @@ the only kind.
 Schedules come from one of two places:
 
 * ``gaps=`` — a caller-supplied ``(B, N, F)`` schedule (numpy or tensor),
-  shared by the scalar oracle in the parity checks;
-* auto-sampled on the device, block by block (:func:`sampled_schedules`),
-  from counter-based uniforms: gap ``j`` of grid point ``i`` and trial
-  ``t`` is a function of (``seed``, ``i``, ``t``, ``j``, the process)
-  alone (:mod:`repro_torch.core.philox`).  Grid points are grouped into
-  power-of-two capacity buckets (:func:`fail_capacity_points`) so cheap
-  points do not pay the worst point's schedule; the trials and grid axes
-  are cut into blocks under the device-memory budget.  Buckets, chunk
-  size and memory budget are therefore bit-exact no-ops on a given device,
-  as in the reference (the draws do not match JAX's threefry streams; they
-  are held statistically).
+  shared by the scalar oracle in the parity checks.  Each block reaches
+  the kernel in the caller's layout, cast to the compute dtype (the
+  kernel reads through the strides; a ``(B, F, N)`` copy, whose reads
+  coalesce, measured no faster on the H100 and costs a transpose).
+* auto-sampled, from counter-based uniforms: gap ``j`` of grid point
+  ``i`` and trial ``t`` is a function of (``seed``, ``i``, ``t``, ``j``,
+  the process) alone (:mod:`repro_torch.core.philox`).  On a CUDA device
+  the event kernel draws each gap itself when the lane needs it
+  (:func:`~repro_torch.kernels.event_sweep.event_sweep_sampled`, one
+  launch per block), so no schedule is stored and a block's memory is its
+  outputs.  On the CPU the schedule is drawn block by block
+  (:func:`sampled_schedules`, the plain version of those draws) and swept
+  by the kernel's plain version.  Grid points are grouped into
+  power-of-two capacity buckets (:func:`fail_capacity_points`): a lane's
+  capacity is the length of its schedule, past which it runs failure-free
+  and is flagged; the trials and grid axes are cut into blocks under the
+  device-memory budget.  Buckets, chunk size and memory budget are
+  therefore bit-exact no-ops on a given device, as in the reference (the
+  draws do not match JAX's threefry streams; they are held statistically).
 
 Precision follows :func:`~repro_torch.sim.dispatch.resolve_precision`:
-the schedule is drawn in f64 and cast to the policy's compute dtype before
-the kernel; outputs are f64.  Results stay on the device as tensors.
+gaps are drawn in f64 and cast to the policy's compute dtype before the
+sweep; outputs are f64.  Results stay on the device as tensors.
 """
 from __future__ import annotations
 
@@ -38,13 +46,16 @@ import torch
 from .._device import F64, resolve_device
 from ..core.failures import as_process
 from ..core.philox import CounterKey
-from ..kernels.event_sweep import event_sweep
+from ..kernels.event_sweep import event_sweep, event_sweep_sampled
 from . import dispatch as _dispatch
 from .scenarios import ParamGrid
 
 #: per-lane device bytes besides its schedule (outputs and temporaries),
 #: in units of 8 bytes — the reference's ``8 * (capacity + 32)`` estimate.
 _LANE_OVERHEAD = 32
+#: per-lane device bytes of a block whose gaps the kernel draws: its
+#: outputs (4 f64, 2 int32, 2 bool).
+_OUT_LANE_BYTES = 4 * 8 + 2 * 4 + 2
 
 
 class ScheduledRNG:
@@ -184,13 +195,18 @@ class ScheduleBlock:
     n_steps: int
 
 
-def _lane_bytes(capacity: int) -> int:
+def _lane_bytes(capacity: int, stored: bool = True) -> int:
+    """Device bytes of one lane of a block: its f64 schedule of
+    ``capacity`` gaps and the overhead, or, when the kernel draws the gaps
+    (``stored=False``), its outputs alone."""
+    if not stored:
+        return _OUT_LANE_BYTES
     return 8 * (int(capacity) + _LANE_OVERHEAD)
 
 
-def _blocks(idx: np.ndarray, n_trials: int, capacity: int, dispatch):
-    """(point slice of ``idx``, trial range) blocks under the budget."""
-    per_trial = _lane_bytes(capacity)
+def _blocks(idx: np.ndarray, n_trials: int, per_trial: int, dispatch):
+    """(point slice of ``idx``, trial range) blocks under the budget, for
+    lanes of ``per_trial`` bytes each."""
     tc = _dispatch.trial_chunk(n_trials, per_trial, dispatch)
     for t0 in range(0, n_trials, tc):
         trials = range(t0, min(t0 + tc, n_trials))
@@ -213,38 +229,52 @@ def _flat_inputs(T, grid: ParamGrid, T_base, device):
     return flat, T_arr, Tb_arr
 
 
+def _buckets(T_arr, flat: ParamGrid, Tb_arr, process,
+             n_steps: Optional[int]):
+    """(capacity, step budget, raveled point indices) of every pow2
+    capacity bucket, split by step budget, in the engine's order."""
+    caps = fail_capacity_points(T_arr, flat, Tb_arr, process=process)
+    budgets = (np.full(flat.size, _scan_len(n_steps), dtype=np.int64)
+               if n_steps is not None else caps + 1)
+    for cap in np.unique(caps):
+        in_bucket = caps == cap
+        for b in np.unique(budgets[in_bucket]):
+            yield int(cap), int(b), np.nonzero(in_bucket & (budgets == b))[0]
+
+
+def _process_mean(proc, flat: ParamGrid, dev) -> torch.Tensor:
+    """The (B,) f64 mean each point's gaps are drawn at."""
+    return torch.as_tensor(proc.resolve_mean(_host(flat.mu)), dtype=F64,
+                           device=dev).broadcast_to((flat.size,))
+
+
 def sampled_schedules(T, grid: ParamGrid, T_base: float = 1.0,
                       n_trials: int = 200, seed: int = 0, process=None,
                       n_steps: Optional[int] = None, dispatch=None,
                       device="cuda") -> Iterator[ScheduleBlock]:
-    """The auto-sampled schedules of :func:`simulate_trajectories`, in the
-    order it consumes them: one pow2 capacity bucket at a time, each cut
-    into (trial, point) blocks under the memory budget, every block drawn
-    on ``device`` from the counter-based stream of its lanes.  A lane's
-    gaps depend on (``seed``, point, trial, gap index, process) only, so
-    another ``dispatch`` yields the same gaps in other blocks."""
+    """The auto-sampled schedules of :func:`simulate_trajectories`, drawn
+    in PyTorch: one pow2 capacity bucket at a time, each cut into (trial,
+    point) blocks under the memory budget, every block drawn on ``device``
+    from the counter-based stream of its lanes.  A lane's gaps depend on
+    (``seed``, point, trial, gap index, process) only, so another
+    ``dispatch`` yields the same gaps in other blocks.  The engine sweeps
+    these on the CPU; on a CUDA device its kernel draws the same lanes
+    itself, and these are the plain version of those draws."""
     dev = resolve_device(device)
     flat, T_arr, Tb_arr = _flat_inputs(T, grid, T_base, dev)
-    caps = fail_capacity_points(T_arr, flat, Tb_arr, process=process)
-    budgets = (np.full(flat.size, _scan_len(n_steps), dtype=np.int64)
-               if n_steps is not None else caps + 1)
     proc = as_process(process).ravel()
-    mean = torch.as_tensor(proc.resolve_mean(_host(flat.mu)), dtype=F64,
-                           device=dev).broadcast_to((flat.size,))
-    for cap in np.unique(caps):
-        in_bucket = caps == cap
-        for b in np.unique(budgets[in_bucket]):
-            idx = np.nonzero(in_bucket & (budgets == b))[0]
-            for pts, trials in _blocks(idx, n_trials, int(cap), dispatch):
-                pts_t = torch.as_tensor(pts, dtype=torch.int64, device=dev)
-                key = CounterKey(int(seed), pts_t, torch.arange(
-                    trials.start, trials.stop, dtype=torch.int64,
-                    device=dev))
-                gaps = proc.subset(pts).sample_gaps(
-                    key, (len(pts), len(trials), int(cap)),
-                    mean=mean[pts_t], device=dev)
-                yield ScheduleBlock(points=pts_t, trials=trials, gaps=gaps,
-                                    n_steps=int(b))
+    mean = _process_mean(proc, flat, dev)
+    for cap, steps, idx in _buckets(T_arr, flat, Tb_arr, process, n_steps):
+        for pts, trials in _blocks(idx, n_trials, _lane_bytes(cap),
+                                   dispatch):
+            pts_t = torch.as_tensor(pts, dtype=torch.int64, device=dev)
+            key = CounterKey(int(seed), pts_t, torch.arange(
+                trials.start, trials.stop, dtype=torch.int64, device=dev))
+            gaps = proc.subset(pts).sample_gaps(
+                key, (len(pts), len(trials), cap), mean=mean[pts_t],
+                device=dev)
+            yield ScheduleBlock(points=pts_t, trials=trials, gaps=gaps,
+                                n_steps=steps)
 
 
 def _explicit_schedules(gaps: torch.Tensor, size: int, n_steps: int,
@@ -252,7 +282,7 @@ def _explicit_schedules(gaps: torch.Tensor, size: int, n_steps: int,
     """Blocks of a caller-supplied ``(B, N, F)`` schedule."""
     n_trials, cap = int(gaps.shape[1]), int(gaps.shape[2])
     idx = np.arange(size)
-    for pts, trials in _blocks(idx, n_trials, cap, dispatch):
+    for pts, trials in _blocks(idx, n_trials, _lane_bytes(cap), dispatch):
         sl = slice(int(pts[0]), int(pts[-1]) + 1)
         yield ScheduleBlock(
             points=torch.as_tensor(pts, dtype=torch.int64,
@@ -272,25 +302,68 @@ def _normalize_gaps(gaps, size: int, device) -> torch.Tensor:
     return torch.broadcast_to(g, (size, g.shape[-2], g.shape[-1]))
 
 
+def _point_params(flat: ParamGrid, T_arr, Tb_arr, p, policy) -> tuple:
+    """(T, C, R, D, omega, T_base) of points ``p`` in the compute dtype."""
+    cast = policy.cast
+    return (cast(T_arr[p]), cast(flat.C[p]), cast(flat.R[p]),
+            cast(flat.D[p]), cast(flat.omega[p]), cast(Tb_arr[p]))
+
+
+def _scatter(acc: dict, out: dict, p, trials: range, size: int,
+             n_trials: int) -> None:
+    """Write a block's ``(len(p), len(trials))`` outputs into ``acc``."""
+    t = slice(trials.start, trials.stop)
+    for k, v in out.items():
+        if k not in acc:
+            acc[k] = torch.empty((size, n_trials), dtype=v.dtype,
+                                 device=v.device)
+        acc[k][p, t] = v
+
+
 def _run_blocks(blocks, flat: ParamGrid, T_arr: torch.Tensor,
                 Tb_arr: torch.Tensor, n_trials: int, policy) -> dict:
-    """Run the event kernel over every block; returns flat ``(B,
-    n_trials)`` output tensors on the grid's device."""
+    """Run the event kernel over every block of a stored schedule; returns
+    flat ``(B, n_trials)`` output tensors on the grid's device."""
     acc: dict = {}
-    cast = policy.cast
     for blk in blocks:
         p = blk.points
-        out = event_sweep(cast(T_arr[p]), cast(flat.C[p]), cast(flat.R[p]),
-                          cast(flat.D[p]), cast(flat.omega[p]),
-                          cast(Tb_arr[p]), cast(blk.gaps).contiguous(),
-                          n_steps=blk.n_steps,
+        out = event_sweep(*_point_params(flat, T_arr, Tb_arr, p, policy),
+                          policy.cast(blk.gaps), n_steps=blk.n_steps,
                           compensated=policy.compensated)
-        t = slice(blk.trials.start, blk.trials.stop)
-        for k, v in out.items():
-            if k not in acc:
-                acc[k] = torch.empty((flat.size, n_trials), dtype=v.dtype,
-                                     device=v.device)
-            acc[k][p, t] = v
+        _scatter(acc, out, p, blk.trials, flat.size, n_trials)
+    return acc
+
+
+def sampled_launches(flat: ParamGrid, T_arr: torch.Tensor,
+                     Tb_arr: torch.Tensor, n_trials: int, seed: int,
+                     process, n_steps, dispatch, policy):
+    """The ``event_sweep_sampled`` calls of an auto-sampled run, one per
+    block of every (capacity, budget) bucket: ``(points, trials, args,
+    kwargs)``, in the engine's order."""
+    dev = T_arr.device
+    proc = as_process(process).ravel()
+    spec = proc.gap_spec(_process_mean(proc, flat, dev), flat.size, dev)
+    for cap, steps, idx in _buckets(T_arr, flat, Tb_arr, process, n_steps):
+        for pts, trials in _blocks(idx, n_trials,
+                                   _lane_bytes(cap, stored=False), dispatch):
+            p = torch.as_tensor(pts, dtype=torch.int64, device=dev)
+            yield p, trials, _point_params(flat, T_arr, Tb_arr, p, policy), \
+                dict(seed=seed, points=p, trial0=trials.start,
+                     n_trials=len(trials), spec=spec.take(p), capacity=cap,
+                     n_steps=steps, compensated=policy.compensated)
+
+
+def _run_sampled(flat: ParamGrid, T_arr: torch.Tensor, Tb_arr: torch.Tensor,
+                 n_trials: int, seed: int, process, n_steps, dispatch,
+                 policy) -> dict:
+    """Run the event kernel with in-kernel draws, one launch a block;
+    returns flat ``(B, n_trials)`` output tensors."""
+    acc: dict = {}
+    for p, trials, args, kw in sampled_launches(
+            flat, T_arr, Tb_arr, n_trials, seed, process, n_steps, dispatch,
+            policy):
+        _scatter(acc, event_sweep_sampled(*args, **kw), p, trials, flat.size,
+                 n_trials)
     return acc
 
 
@@ -332,7 +405,8 @@ def simulate_trajectories(T, grid: ParamGrid, T_base: float = 1.0,
     capacity + 1, which a complete trajectory never exceeds).
     ``dispatch`` bounds the device memory of each block; ``precision``
     selects the kernel's :class:`~repro_torch.sim.precision
-    .PrecisionPolicy` (None = config / env / device default).
+    .PrecisionPolicy` (None = config / env / device default).  On a CUDA
+    device an auto-sampled run draws its gaps inside the kernel.
     """
     dev = resolve_device(device)
     flat, T_arr, Tb_arr = _flat_inputs(T, grid, T_base, dev)
@@ -342,11 +416,15 @@ def simulate_trajectories(T, grid: ParamGrid, T_base: float = 1.0,
         n_trials = int(g.shape[1])
         steps = (_scan_len(g.shape[-1]) + 1 if n_steps is None
                  else _scan_len(n_steps))
-        blocks = _explicit_schedules(g, flat.size, steps, dispatch)
+        out = _run_blocks(_explicit_schedules(g, flat.size, steps, dispatch),
+                          flat, T_arr, Tb_arr, n_trials, pol)
+    elif dev.type == "cuda":
+        out = _run_sampled(flat, T_arr, Tb_arr, int(n_trials), seed,
+                           process, n_steps, dispatch, pol)
     else:
         blocks = sampled_schedules(T_arr, flat, Tb_arr, n_trials, seed,
                                    process, n_steps, dispatch, dev)
-    out = _run_blocks(blocks, flat, T_arr, Tb_arr, int(n_trials), pol)
+        out = _run_blocks(blocks, flat, T_arr, Tb_arr, int(n_trials), pol)
     return _assemble_batch(out, grid, int(n_trials))
 
 
