@@ -11,8 +11,9 @@ Phases (any failure exits non-zero; no result line is printed then):
    nvcc each, all started together) and prints the build times and the
    compiler's register reports; then checks the design in the SASS
    (``cuobjdump -sass``): the flash library must hold HGMMA (wgmma) and
-   UTMALDG (TMA loads), the decode library UBLKCP (bulk copies), and
-   neither the wgmma kernel nor any event kernel may spill; it counts the
+   UTMALDG (TMA loads), the decode library UBLKCP (bulk copies), the mLSTM
+   library HGMMA (its 3xTF32 products) and the RG-LRU library UTMALDG (its
+   copy ring), and no kernel of ``NO_SPILL`` may spill; it counts the
    integer and f64 instructions of the event library's draw code
    (``event_draws_kernel``), which the sampled kernel's bound reads.
 3. parity: the event kernel against its plain PyTorch version on the
@@ -30,7 +31,9 @@ Phases (any failure exits non-zero; no result line is printed then):
    payloads, scale bits, output bits; a NaN compares as NaN), on
    ``quant_cases()``; the four model-zoo kernels against theirs (and
    against the oracles of ``kernels/ref.py``) at small ragged and edge
-   shapes: RG-LRU bitwise (B, W not multiples of 32; f32 and bf16), flash
+   shapes: RG-LRU bitwise (f32 and bf16; the ring route with W not a
+   multiple of its 32 lanes and S not of its 64-step stages, (3, 300, 200)
+   and (2, 1000, 4104), and the direct route, W = 333), flash
    attention in all four modes (Dh 128 and 256, f32 and bf16, S = 333;
    bf16 also at S = 1000 with windows 100 and 700 and chunks of 64, and
    at S = 77),
@@ -90,12 +93,14 @@ Phases (any failure exits non-zero; no result line is printed then):
    2048 and 1000, bf16); xLSTM-125M's mLSTM (8, 4, 4096, 384), chunk
    256, f32.  Gates: every zoo kernel launched and no plain version
    called during the run; the outputs against the plain versions on the
-   same inputs (RG-LRU bitwise, the others within ``ZOO_TOL``; the
-   attention readings logged beside their gates).  Then
+   same inputs (RG-LRU bitwise, through its ring route, the others within
+   ``ZOO_TOL``; the attention readings logged beside their gates).  Then
    ``repro_torch.benchmarks.bench_kernels.main`` on the card (five rows,
    its five kernels launched, no plain call), and each zoo kernel's time
    beside its plain version's, its bound, and for attention the time of
-   ``scaled_dot_product_attention`` with the same mask.
+   ``scaled_dot_product_attention`` with the same mask; the mLSTM's bound
+   is 3xTF32 on the tensor cores (three products each), with the FP32-core
+   bound and each pass's time (gates, state, output) beside it.
 
 Near the end it prints one JSON line ``{"gates": {...}}`` with every
 gate's numbers, then one ``{"kernels": [...]}`` line, then the card's name
@@ -117,13 +122,14 @@ SRC = ROOT / "src"
 
 #: published peaks per H100 variant (NVIDIA data sheets): device-memory
 #: bytes/s, FP64 and FP32 FLOP/s outside the tensor cores, dense bf16
-#: FLOP/s of the tensor cores, and INT32 instructions/s: an SM issues 64
-#: INT32 lanes a clock against 128 FP32 lanes (Hopper architecture white
-#: paper, the SM diagram: 16 INT32 and 32 FP32 units per quarter), and the
-#: FP32 peak counts a fused multiply-add as two, so INT32 = FP32 / 4.
-_PEAKS = {"PCIe": (2.0e12, 25.6e12, 51.2e12, 756e12, 12.8e12),
-          "NVL": (3.9e12, 30.0e12, 60.0e12, 835e12, 15.0e12),
-          "SXM": (3.35e12, 34.0e12, 67.0e12, 989e12, 16.75e12)}
+#: FLOP/s of the tensor cores, INT32 instructions/s, and dense TF32 FLOP/s
+#: of the tensor cores (half the bf16 rate).  An SM issues 64 INT32 lanes a
+#: clock against 128 FP32 lanes (Hopper architecture white paper, the SM
+#: diagram: 16 INT32 and 32 FP32 units per quarter), and the FP32 peak
+#: counts a fused multiply-add as two, so INT32 = FP32 / 4.
+_PEAKS = {"PCIe": (2.0e12, 25.6e12, 51.2e12, 756e12, 12.8e12, 378e12),
+          "NVL": (3.9e12, 30.0e12, 60.0e12, 835e12, 15.0e12, 417.5e12),
+          "SXM": (3.35e12, 34.0e12, 67.0e12, 989e12, 16.75e12, 494.5e12)}
 
 #: per-lane output bytes of the event kernel: 4 f64 + 2 int32 + 2 bool.
 _OUT_BYTES = 4 * 8 + 2 * 4 + 2 * 1
@@ -145,7 +151,9 @@ SOURCES = ("event_sweep.cu", "quant_blockwise.cu", "rglru_scan.cu",
            "flash_attention.cu", "decode_attention.cu", "mlstm_scan.cu")
 #: the files a kernel is built from, where its source includes a header.
 KERNEL_FILES = {"flash_attention": ("flash_attention.cu", "hopper.cuh"),
-                "decode_attention": ("decode_attention.cu", "hopper.cuh")}
+                "decode_attention": ("decode_attention.cu", "hopper.cuh"),
+                "rglru_scan": ("rglru_scan.cu", "hopper.cuh"),
+                "mlstm_scan": ("mlstm_scan.cu", "hopper.cuh")}
 
 N_TRIALS = 4096
 T_BASE = 4000.0
@@ -415,9 +423,13 @@ def _draw_ops(sass: str) -> dict:
 #: (TMA tile loads), UBLKCP (1-D bulk copies); each source must hold the
 #: ones listed.
 DESIGN_SASS = {"flash_attention.cu": ("HGMMA", "UTMALDG"),
-               "decode_attention.cu": ("UBLKCP",)}
+               "decode_attention.cu": ("UBLKCP",),
+               "mlstm_scan.cu": ("HGMMA",),
+               "rglru_scan.cu": ("UTMALDG",)}
 #: kernels that must compile without spilling registers.
-NO_SPILL = ("flash_wgmma_kernel", "event_sweep_kernel", "event_draws_kernel")
+NO_SPILL = ("flash_wgmma_kernel", "event_sweep_kernel", "event_draws_kernel",
+            "rglru_ring_kernel", "gates_kernel", "state_kernel",
+            "scores_kernel", "output_kernel")
 
 
 def _spills(log_text: str) -> dict:
@@ -435,9 +447,9 @@ def _spills(log_text: str) -> dict:
 
 
 def check_design() -> dict:
-    """Count the design's instructions in the SASS of the flash and decode
-    libraries (cuobjdump), and the spills of the wgmma and event kernels;
-    fail when one is missing or one spills.  Returns the event library's
+    """Count the design's instructions in the SASS of the libraries in
+    ``DESIGN_SASS`` (cuobjdump), and the spills of the kernels in
+    ``NO_SPILL``; fail when one is missing or one spills.  Returns the event library's
     draw instructions per gap (``_draw_ops``)."""
     from repro_torch.kernels import _build
     for src, wanted in DESIGN_SASS.items():
@@ -451,8 +463,8 @@ def check_design() -> dict:
     for src in SOURCES:
         spills = {fn: n for fn, n in _spills(_build.build_log(src)).items()
                   if any(k in fn for k in NO_SPILL)}
-        if spills:
-            log(f"spill stores {src}: {spills}")
+        log(f"spill stores {src}: {len(spills)} kernels checked, "
+            f"{sum(1 for n in spills.values() if n)} spill")
         if any(spills.values()):
             fail(f"{src}: a kernel that must not spill does {spills}")
     draw = _draw_ops(_sass("event_sweep.cu"))
@@ -1334,7 +1346,7 @@ def _fused_bound(n_gaps: int, lanes: int, points: int, pol, kind: int,
     units, whose rate is their FLOP peak over 2 (the peak counts a fused
     multiply-add as two); the update's operations are FLOPs.  The units
     run side by side, so the least time is the largest of the four."""
-    bw, f64_peak, f32_peak, _, int_peak = peaks
+    bw, f64_peak, f32_peak, _, int_peak, _ = peaks
     item = 4 if pol.compensated else 8
     nbytes = lanes * _OUT_BYTES + points * (6 * item + 2 * 8 + 8)
     int_ops = n_gaps * draw_ops[kind][0]
@@ -1372,7 +1384,7 @@ def phase_times(big, mc_grid, model, runs, peaks, draw_ops, dev) -> list:
                                  fail_capacity_points, sampled_schedules,
                                  simulate_trajectories)
     from repro_torch.sim import engine as te
-    bw, f64_peak, f32_peak, _, _ = peaks
+    bw, f64_peak, f32_peak, _, _, _ = peaks
     for pol in (F64, COMPENSATED_F32):
         s = _host_s(lambda: evaluate_grid(big, precision=pol, device=dev))
         log(f"time evaluate_grid 1e6 [{pol.name}]: {s:.4f} s (median of 5)")
@@ -1543,7 +1555,7 @@ def phase_quant_times(run: dict, peaks, dev) -> dict:
     import torch
     from repro_torch.ckpt.tree import tree_leaves
     from repro_torch.kernels import ops, quant_blockwise as qb
-    bw, _, f32_peak, _, _ = peaks
+    bw, _, f32_peak, _, _, _ = peaks
     xs = []
     for x in tree_leaves(run["state"]):
         if x.dtype == torch.float32 and x.numel() >= 4096:
@@ -1675,7 +1687,9 @@ def phase_zoo_parity(dev) -> dict:
     before = _counts()
     bf16, f32 = torch.bfloat16, torch.float32
 
-    for (B, S, W) in ((3, 300, 200), (5, 77, 333)):
+    # W = 200 and 4104: the ring route with a ragged last lane tile; S = 300,
+    # 77 and 1000 end on a ragged stage; W = 333 takes the direct route
+    for (B, S, W) in ((3, 300, 200), (5, 77, 333), (2, 1000, 4104)):
         for dt in (f32, bf16):
             a = torch.sigmoid(randn(B, S, W) - 1.0).to(dt)
             b = randn(B, S, W).to(dt)
@@ -1689,8 +1703,10 @@ def phase_zoo_parity(dev) -> dict:
             ok_ref, err_ref, frob_ref = _close(
                 out, oracle, (1e-5, 1e-5) if dt == f32 else ZOO_TOL["bf16"])
             errs["rglru_scan"] = max(errs["rglru_scan"], err)
-            log(f"zoo parity rglru_scan {(B, S, W)} {dt}: bitwise={same} "
-                f"max_abs_err={err}; vs rglru_ref {err_ref:.3e} (rel "
+            route = rg.launch_plan(B, S, W, dt)["route"]
+            log(f"zoo parity rglru_scan {(B, S, W)} {dt} ({route}): "
+                f"bitwise={same} max_abs_err={err}; vs rglru_ref "
+                f"{err_ref:.3e} (rel "
                 f"Frobenius {frob_ref:.3e})")
             if not (same and ok_ref):
                 fail(f"rglru_scan off its plain version or oracle at "
@@ -1868,6 +1884,8 @@ def gate_zoo(inp: dict, out: dict) -> dict:
                                                                 plain)}
         if not (same and out[key].shape == RG_SHAPE):
             fail(f"full width: {key} not bitwise equal to its plain version")
+    if rg.launch_plan(*RG_SHAPE, inp["rg_a"].dtype)["route"] != "ring":
+        fail("full width: RG-LRU did not take the ring route")
     la = LOCAL_ATTN
     got = _fold(out["local_attention"])
     plain = fa.flash_attention_plain(_fold(inp["fa_q"]), _fold(inp["fa_k"]),
@@ -1978,7 +1996,7 @@ def phase_zoo_times(inp: dict, peaks, dev) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mlstm_scan as ml
     from repro_torch.kernels import rglru_scan as rg
-    bw, _, f32_peak, bf16_peak, _ = peaks
+    bw, _, f32_peak, bf16_peak, _, tf32_peak = peaks
 
     def bound(nbytes, flops, peak):
         b_ms, o_ms = nbytes / bw * 1e3, flops / peak * 1e3
@@ -2047,11 +2065,26 @@ def phase_zoo_times(inp: dict, peaks, dev) -> dict:
     args = tuple(fold(inp[x]) for x in ("ml_q", "ml_k", "ml_v", "ml_li",
                                         "ml_lf"))
     flops = _mlstm_flops(BH, S, Dh, L)
+    nbytes = 4 * 4 * BH * S * Dh + 2 * 4 * BH * S
+    # 3xTF32: three TF32 products on the tensor cores per f32 product
     res["mlstm_scan"] = timed(
         f"mlstm_scan {(BH, S, Dh)} chunk {L} f32",
         lambda: ml.mlstm_scan(*args, chunk=L),
         lambda: ml.mlstm_scan_plain(*args, chunk=L),
-        **bound(4 * 4 * BH * S * Dh + 2 * 4 * BH * S, flops, f32_peak))
+        **bound(nbytes, 3 * flops, tf32_peak))
+    fp32 = bound(nbytes, flops, f32_peak)
+    res["mlstm_scan"]["fp32_cores_bound_ms"] = fp32["bound_ms"]
+    _, scratch = ml.launch_passes(*args, L, ml.ALL_PASSES)
+    passes = {name: _events_ms(lambda: ml.launch_passes(
+                  *args, L, mask, scratch))
+              for name, mask in (("gates", ml.GATES), ("state", ml.STATE),
+                                 ("output", ml.OUTPUT))}
+    res["mlstm_scan"]["passes_ms"] = passes
+    log(f"time mlstm_scan bounds: 3xTF32 tensor cores "
+        f"{res['mlstm_scan']['bound_ms']:.4f} ms, FP32 cores "
+        f"{fp32['bound_ms']:.4f} ms; passes (ms): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in passes.items()))
+    del scratch
     torch.cuda.empty_cache()
     return res
 

@@ -24,9 +24,12 @@ sum_j w_j k_j^T v_j`` and ``n'`` alike.  All math in f32; the output has
 * :func:`mlstm_scan` is the wrapper.  For CUDA tensors it launches the
   kernels of ``repro_torch/csrc/mlstm_scan.cu`` on the current stream (a
   gate pass, a state pass that writes every chunk's starting state into
-  scratch the wrapper allocates, and an output pass), or raises; for CPU
-  tensors it runs :func:`mlstm_scan_plain`.  ``mlstm_scan.launches``
-  counts calls that launched the kernels.
+  scratch the wrapper allocates, and an output pass of two kernels, the
+  gated scores and then h; the last two passes run their products on the
+  tensor cores in 3xTF32), or raises; for CPU tensors it runs
+  :func:`mlstm_scan_plain`.  ``mlstm_scan.launches`` counts calls that
+  launched the kernels.  :func:`launch_plan` gives the kernels' grids,
+  which cover every row, column and chunk.
 * :func:`mlstm_scan_plain` is the chunkwise algorithm above in PyTorch,
   batched over ``BH``.  The kernels are held to it within 1e-4 absolute
   plus 1e-3 relative (the reference's kernel-vs-oracle tolerance).
@@ -46,6 +49,11 @@ DTYPES = (torch.float32, torch.bfloat16)
 #: head widths the kernels are compiled for, and the longest chunk.
 HEAD_DIMS = (128, 256, 384)
 MAX_CHUNK = 256
+#: a block's output rows (and rows d of C), keys per score tile, and
+#: columns (output or C's e).
+ROWS, KEYS, COLS = 64, 64, 128
+#: the largest grid y and z of a launch.
+MAX_GRID_YZ = 65535
 
 _SOURCE = "mlstm_scan.cu"
 
@@ -56,8 +64,8 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_build.build(_SOURCE)))
     fn = lib.repro_mlstm_scan
     fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
-                   + [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 4
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_void_p] * len(SCRATCH) + [ctypes.c_int64] * 4
+                   + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -87,6 +95,36 @@ def _check(q, k, v, li, lf, chunk: int) -> int:
     return L
 
 
+def gate_runs(L: int) -> list:
+    """The run ``[lo, hi)`` of a chunk's L rows that each of the 32 lanes
+    of a gates warp sums serially before the warp scan."""
+    per = -(-L // 32)
+    return [(min(lane * per, L), min(lane * per + per, L))
+            for lane in range(32)]
+
+
+def launch_plan(BH: int, S: int, Dh: int, L: int) -> dict:
+    """The grids (x, y, z) of the passes' kernels.  gates: a block per
+    bh, a warp per chunk.  state: a block per (``ROWS`` rows d, ``COLS``
+    columns e, bh).  The output pass: scores, a block per (row tile of
+    ``ROWS``, heaviest first), chunk, bh, walking the key tiles of ``KEYS``
+    up to its last row; output, a block per (row tile, ``COLS`` columns;
+    x), chunk, bh, walking the scores in slabs of 32 keys."""
+    nc = S // L
+    row_tiles = -(-L // ROWS)
+    return {"gates": (BH, 1, 1), "state": (Dh // ROWS, Dh // COLS, BH),
+            "scores": (row_tiles, nc, BH),
+            "output": (row_tiles * (Dh // COLS), nc, BH),
+            "row_tiles": row_tiles, "slices": Dh // COLS}
+
+
+def output_tile(plan: dict, x: int) -> tuple:
+    """(first row, first column) of the output block ``x`` of ``plan``."""
+    slices = plan["slices"]
+    return ((plan["row_tiles"] - 1 - x // slices) * ROWS,
+            (x % slices) * COLS)
+
+
 def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                li: torch.Tensor, lf: torch.Tensor, *,
                chunk: int = 256) -> torch.Tensor:
@@ -97,37 +135,61 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _kernel(q, k, v, li, lf, L)
 
 
+#: the scratch tensors of the C entry, in its order.
+SCRATCH = ("C", "n", "m", "decay", "b", "w", "li32", "Sg", "mt")
+#: the passes of the C entry, as its bit mask.
+GATES, STATE, OUTPUT = 1, 2, 4
+ALL_PASSES = GATES | STATE | OUTPUT
+
+
 def _kernel(q, k, v, li, lf, L: int) -> torch.Tensor:
     """Allocate the output and scratch and launch the three passes on the
     inputs' device."""
+    out, _ = launch_passes(q, k, v, li, lf, L, ALL_PASSES)
+    mlstm_scan.launches += 1
+    return out
+
+
+def launch_passes(q, k, v, li, lf, L: int, passes: int, scratch=None):
+    """Launch the passes in the bit mask ``passes`` (``GATES``, ``STATE``,
+    ``OUTPUT``) on CUDA tensors; returns ``(out, scratch)``.  A pass
+    alone reads what the passes before it left in ``scratch`` (a dict
+    from an earlier call): this is for timing one pass, and counts no
+    launch."""
     BH, S, Dh = q.shape
     if Dh not in HEAD_DIMS:
         raise ValueError(f"the kernels take Dh in {HEAD_DIMS}, got {Dh}")
     if L > MAX_CHUNK:
         raise ValueError(f"the kernels take chunks of at most {MAX_CHUNK}, "
                          f"got {L}")
+    plan = launch_plan(BH, S, Dh, L)
+    if max(max(plan[p][1:]) for p in ("state", "scores", "output")) \
+            > MAX_GRID_YZ:
+        raise ValueError(f"the kernels take BH and S / L of at most "
+                         f"{MAX_GRID_YZ}, got {BH} and {S // L}")
     q, k, v = (_build.aligned(x) for x in (q, k, v))
     li, lf = li.contiguous(), lf.contiguous()
     nc = S // L
     f32 = dict(dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
-    # scratch: every chunk's starting C, n and m; the chunk's decay; the
-    # cumulative forget gates b, the state-update weights w, li in f32.
-    C = torch.empty((BH, nc, Dh, Dh), **f32)
-    n = torch.empty((BH, nc, Dh), **f32)
-    m = torch.empty((BH, nc), **f32)
-    decay = torch.empty((BH, nc), **f32)
-    b, w, li32 = (torch.empty((BH, S), **f32) for _ in range(3))
+    if scratch is None:
+        # every chunk's starting C (as C^T), n and m (and the last chunk's
+        # m'); the chunk's decay; the cumulative forget gates b, the
+        # state-update weights w, li in f32; the gated scores of every
+        # chunk (rows of L rounded up to 4) and every row's m_t.
+        LP = -(-L // 4) * 4
+        shapes = {"C": (BH, nc, Dh, Dh), "n": (BH, nc, Dh), "m": (BH, nc + 1),
+                  "decay": (BH, nc), "b": (BH, S), "w": (BH, S),
+                  "li32": (BH, S), "Sg": (BH, nc, L, LP), "mt": (BH, S)}
+        scratch = {x: torch.empty(shapes[x], **f32) for x in SCRATCH}
     _build.launch(load_library().repro_mlstm_scan,
                   int(q.dtype == torch.bfloat16),
                   int(li.dtype == torch.bfloat16),
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), li.data_ptr(),
-                  lf.data_ptr(), out.data_ptr(), C.data_ptr(), n.data_ptr(),
-                  m.data_ptr(), decay.data_ptr(), b.data_ptr(), w.data_ptr(),
-                  li32.data_ptr(), BH, S, Dh, L, device=q.device,
-                  name="mlstm_scan")
-    mlstm_scan.launches += 1
-    return out
+                  lf.data_ptr(), out.data_ptr(),
+                  *(scratch[x].data_ptr() for x in SCRATCH),
+                  BH, S, Dh, L, passes, device=q.device, name="mlstm_scan")
+    return out, scratch
 
 
 mlstm_scan.launches = 0

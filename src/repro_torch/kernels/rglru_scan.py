@@ -12,7 +12,11 @@ dtype.
 * :func:`rglru_scan` is the wrapper.  For CUDA tensors it launches the
   kernel of ``repro_torch/csrc/rglru_scan.cu`` on the current stream, or
   raises; for CPU tensors it runs :func:`rglru_scan_plain`.
-  ``rglru_scan.launches`` counts kernel launches.
+  ``rglru_scan.launches`` counts kernel launches.  :func:`launch_plan`
+  picks the kernel's route and grid: the ring route (TMA into a
+  shared-memory ring, one warp per 32 lanes of a batch row) where each
+  row of ``W`` elements is a multiple of 16 bytes, else the direct route
+  (one thread per lane).
 * :func:`rglru_scan_plain` is the same arithmetic in PyTorch, one step at
   a time (a product, then a sum, each rounded to f32); the kernel, built
   with ``-fmad=false``, is held bitwise against it.  ``.calls`` counts
@@ -29,6 +33,10 @@ from . import _build
 
 _SOURCE = "rglru_scan.cu"
 DTYPES = (torch.float32, torch.bfloat16)
+#: the ring route's block: w lanes, time steps per stage of its ring.
+RING_LANES, RING_STEPS = 32, 64
+#: the direct route's threads per block.
+DIRECT_THREADS = 64
 
 
 @functools.lru_cache(maxsize=1)
@@ -36,7 +44,7 @@ def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
     lib = ctypes.CDLL(str(_build.build(_SOURCE)))
     fn = lib.repro_rglru_scan
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
                    + [ctypes.c_int64] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
@@ -61,6 +69,23 @@ def _check(a, b, h0) -> None:
                          f"{a.device}")
 
 
+def launch_plan(B: int, S: int, W: int, dtype: torch.dtype) -> dict:
+    """The kernel's route and grid for ``(B, S, W)`` inputs of ``dtype``.
+
+    ``ring``: a block per (tile of ``RING_LANES`` w lanes, batch row), each
+    walking ``tiles`` tiles of ``RING_STEPS`` time steps; TMA takes a row
+    stride of a multiple of 16 bytes only (and at most 65535 rows in the
+    grid's y).  ``direct``: one thread per (b, w) lane, blocks of
+    ``DIRECT_THREADS``."""
+    size = torch.empty((), dtype=dtype).element_size()
+    if (W * size) % 16 == 0 and B <= 65535 and S < 2 ** 31:
+        return {"route": "ring", "grid": (-(-W // RING_LANES), B),
+                "lanes": RING_LANES, "steps": RING_STEPS,
+                "tiles": -(-S // RING_STEPS)}
+    return {"route": "direct", "grid": (-(-(B * W) // DIRECT_THREADS), 1),
+            "lanes": DIRECT_THREADS, "steps": S, "tiles": 1}
+
+
 def rglru_scan(a: torch.Tensor, b: torch.Tensor,
                h0: torch.Tensor) -> torch.Tensor:
     """``h`` of shape ``(B, S, W)`` in ``b``'s dtype."""
@@ -73,12 +98,14 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
 def _kernel(a, b, h0) -> torch.Tensor:
     """Allocate the output and launch the kernel on the inputs' device."""
     B, S, W = a.shape
-    a, b = a.contiguous(), b.contiguous()
+    a, b = _build.aligned(a), _build.aligned(b)
     h0 = h0.to(torch.float32).contiguous()
     out = torch.empty((B, S, W), dtype=b.dtype, device=b.device)
+    ring = launch_plan(B, S, W, b.dtype)["route"] == "ring"
     _build.launch(load_library().repro_rglru_scan,
-                  int(b.dtype == torch.bfloat16), a.data_ptr(), b.data_ptr(),
-                  h0.data_ptr(), out.data_ptr(), B, S, W, device=a.device,
+                  int(b.dtype == torch.bfloat16), int(ring), a.data_ptr(),
+                  b.data_ptr(), h0.data_ptr(), out.data_ptr(), B, S, W,
+                  device=a.device,
                   name="rglru_scan")
     rglru_scan.launches += 1
     return out

@@ -166,6 +166,41 @@ class TestRGLRU:
         got = PR.rglru_scan(_t(a), _t(b), _t(h0))
         np.testing.assert_allclose(_np32(got), _np32(want), rtol=1e-5)
 
+    @pytest.mark.parametrize("B,S,W,dtype", [
+        (2, 4096, 4096, torch.float32), (3, 300, 200, torch.float32),
+        (2, 1000, 4104, torch.bfloat16), (5, 77, 333, torch.float32),
+        (1, 64, 8, torch.bfloat16), (1, 65, 1, torch.float32)])
+    def test_launch_plan_covers_every_lane_and_step(self, B, S, W, dtype):
+        """The ring route where a row of W elements is a multiple of 16
+        bytes (TMA's rule), else the direct route; either way every (b, w)
+        lane and every step is some block's."""
+        plan = PR.launch_plan(B, S, W, dtype)
+        size = torch.empty((), dtype=dtype).element_size()
+        assert plan["route"] == ("ring" if (W * size) % 16 == 0
+                                 else "direct")
+        gx, gy = plan["grid"]
+        if plan["route"] == "ring":
+            assert gy == B and gx * plan["lanes"] >= W > (gx - 1) * plan[
+                "lanes"]
+            assert plan["tiles"] * plan["steps"] >= S > (
+                plan["tiles"] - 1) * plan["steps"]
+        else:
+            assert gy == 1 and gx * plan["lanes"] >= B * W > (gx - 1) * plan[
+                "lanes"]
+            assert plan["steps"] == S
+
+    @pytest.mark.parametrize("B,S,W", [(3, 300, 200), (5, 77, 333)])
+    def test_ragged_shapes_against_the_reference_oracle(self, B, S, W):
+        """Shapes the reference's kernel does not tile (S, W off its
+        blocks) against its oracle, f32 and bf16."""
+        rng = np.random.default_rng(B + S + W)
+        for dtype in (np.float32, "bfloat16"):
+            a, b, h0 = _rglru_inputs(rng, B, S, W, dtype)
+            got = PR.rglru_scan(_t(a), _t(b), _t(h0))
+            want = RREF.rglru_ref(*(jnp.asarray(x) for x in (a, b, h0)))
+            _close(got, want, BF16_TOL if dtype == "bfloat16" else F32_TOL[
+                "rglru"])
+
     def test_bf16_carry_is_never_rounded(self):
         """Only the stored h is rounded to bf16: the carry stays f32."""
         rng = np.random.default_rng(3)
@@ -240,6 +275,66 @@ class TestMLSTM:
         g = torch.zeros((2, 100))
         with pytest.raises(ValueError):
             PM.mlstm_scan(q, q, q, g, g, chunk=64)
+
+    def test_kernel_limits_raise_before_a_launch(self):
+        """What the kernels do not take raises in the wrapper, before any
+        library is built or launched."""
+        g = torch.zeros((2, 256))
+        q = torch.zeros((2, 256, 64))
+        with pytest.raises(ValueError, match="Dh"):
+            PM.launch_passes(q, q, q, g, g, 256, PM.ALL_PASSES)
+        q = torch.zeros((2, 512, 128))
+        g = torch.zeros((2, 512))
+        with pytest.raises(ValueError, match="chunks"):
+            PM.launch_passes(q, q, q, g, g, 512, PM.ALL_PASSES)
+        q = torch.zeros((PM.MAX_GRID_YZ + 1, 1, 128))
+        g = torch.zeros((PM.MAX_GRID_YZ + 1, 1))
+        with pytest.raises(ValueError, match="65535"):
+            PM.launch_passes(q, q, q, g, g, 1, PM.ALL_PASSES)
+
+    @pytest.mark.parametrize("BH,S,Dh,L", [(32, 4096, 384, 256),
+                                           (2, 300, 128, 100),
+                                           (3, 64, 256, 1), (1, 200, 384, 40)])
+    def test_launch_plan_covers_every_row_column_and_chunk(self, BH, S, Dh,
+                                                           L):
+        """The output blocks tile every (row, column) of every chunk once,
+        their key tiles reach every key a row sees, the state blocks tile C
+        once, and the gates lanes' runs cover a chunk once."""
+        plan = PM.launch_plan(BH, S, Dh, L)
+        gx, gy, gz = plan["output"]
+        assert (gy, gz) == (S // L, BH)
+        seen = torch.zeros((L, Dh), dtype=torch.int32)
+        for x in range(gx):
+            t0, e0 = PM.output_tile(plan, x)
+            t_end = min(t0 + PM.ROWS, L)
+            assert t0 < L
+            seen[t0:t_end, e0:e0 + PM.COLS] += 1
+            keys = -(-t_end // PM.KEYS) * PM.KEYS
+            assert keys >= t_end
+        assert bool((seen == 1).all())
+        if gx > plan["slices"]:   # heaviest row tiles first
+            assert PM.output_tile(plan, 0)[0] > PM.output_tile(
+                plan, gx - 1)[0]
+        assert plan["scores"] == (plan["row_tiles"], S // L, BH)
+        assert plan["row_tiles"] * PM.ROWS >= L > (plan["row_tiles"] - 1) \
+            * PM.ROWS
+        sx, sy, sz = plan["state"]
+        assert (sx * PM.ROWS, sy * PM.COLS, sz) == (Dh, Dh, BH)
+        assert plan["gates"] == (BH, 1, 1)
+        runs = PM.gate_runs(L)
+        assert len(runs) == 32
+        covered = [j for lo, hi in runs for j in range(lo, hi)]
+        assert covered == list(range(L))
+
+    def test_plain_matches_the_reference_kernel_on_a_ragged_chunk(self):
+        """A chunk (100) that is no multiple of the kernel's row or key
+        tiles, at Dh 384."""
+        rng = np.random.default_rng(11)
+        xs = _fold(*_mlstm_inputs(rng, 1, 2, 300, 384))
+        want = r_mlstm(*(jnp.asarray(x) for x in xs), chunk=100,
+                       interpret=True)
+        _close(PM.mlstm_scan(*(_t(x) for x in xs), chunk=100), want, 1e-4,
+               1e-3)
 
 
 # ---------------------------------------------------------------------------
