@@ -12,8 +12,9 @@ Phases (any failure exits non-zero; no result line is printed then):
    compiler's register reports; then checks the design in the SASS
    (``cuobjdump -sass``): the flash library must hold HGMMA (wgmma) and
    UTMALDG (TMA loads), the decode library UBLKCP (bulk copies), the mLSTM
-   library HGMMA (its 3xTF32 products) and the RG-LRU library UTMALDG (its
-   copy ring), and no kernel of ``NO_SPILL`` may spill; it counts the
+   library HGMMA (its 3xTF32 products), the RG-LRU library UTMALDG (its
+   copy ring) and both quant kernels UBLKCP (their copy ring), and no
+   kernel of ``NO_SPILL`` may spill; it counts the
    integer and f64 instructions of the event library's draw code
    (``event_draws_kernel``), which the sampled kernel's bound reads.
 3. parity: the event kernel against its plain PyTorch version on the
@@ -29,7 +30,9 @@ Phases (any failure exits non-zero; no result line is printed then):
    against the explicit kernel and the plain version on those draws;
    the int8 quantize and dequantize kernels against theirs, bitwise (int8
    payloads, scale bits, output bits; a NaN compares as NaN), on
-   ``quant_cases()``; the four model-zoo kernels against theirs (and
+   ``quant_cases()``, one leaf a launch and then all of them in one launch
+   (in order and reversed; each leaf also equal to its one-leaf result);
+   the four model-zoo kernels against theirs (and
    against the oracles of ``kernels/ref.py``) at small ragged and edge
    shapes: RG-LRU bitwise (f32 and bf16; the ring route with W not a
    multiple of its 32 lanes and S not of its 64-step stages, (3, 300, 200)
@@ -72,10 +75,12 @@ Phases (any failure exits non-zero; no result line is printed then):
    leaf bitwise equal to the plain version's dequantization of its
    payload and within half its group's scale (+1e-6 of the group's
    max|x|) of the original; uncompressed leaves bitwise equal; payload
-   <= 0.27 of the f32 bytes; 57 quantize and 57 dequantize launches and
-   no plain-version call; every deep flush recorded "ok"; the policy's
-   (T, m) solved on the card within 1e-8 of the CPU's on the same
-   observations.  Prints the save and restore splits.
+   <= 0.27 of the f32 bytes; one quantize launch for the 57 leaves of
+   the deep checkpoint and one dequantize launch for the restore, no
+   one-leaf launch and no plain-version call; every deep flush recorded
+   "ok"; the policy's (T, m) solved on the card within 1e-8 of the CPU's
+   on the same observations.  Prints the save and restore splits and
+   their peak device memory.
 7. times: CUDA-event medians of 5 samples of each kernel and of its
    plain version (a sample: calls back to back over 20 ms or more, see
    ``_events_ms``) at the main-path shapes (compared again): per MC call
@@ -84,7 +89,11 @@ Phases (any failure exits non-zero; no result line is printed then):
    the transpose between them, the two-step path (the ``sample_gaps``
    draws, then the explicit kernel on them), the warps' efficiency (lane
    steps over 32 times the longest lane's), and ``simulate_trajectories``
-   end to end with its host parts.
+   end to end with its host parts; the quant kernels over one
+   checkpoint's 57 leaves in one launch, in 57 one-leaf launches (the
+   parent's pattern) and on the largest leaf alone, each through its
+   wrapper (host work included) and, for the grouped launches, also on a
+   leaf table uploaded once, each beside the byte bound.
 8. the model-zoo kernel layer at full width, through ``kernels.ops``
    (decode through its raw wrapper): RecurrentGemma-9B's RG-LRU scan
    (2, 4096, 4096) f32 with zero and seeded h0, its local attention
@@ -151,6 +160,7 @@ SOURCES = ("event_sweep.cu", "quant_blockwise.cu", "rglru_scan.cu",
            "flash_attention.cu", "decode_attention.cu", "mlstm_scan.cu")
 #: the files a kernel is built from, where its source includes a header.
 KERNEL_FILES = {"flash_attention": ("flash_attention.cu", "hopper.cuh"),
+                "quant_blockwise": ("quant_blockwise.cu", "hopper.cuh"),
                 "decode_attention": ("decode_attention.cu", "hopper.cuh"),
                 "rglru_scan": ("rglru_scan.cu", "hopper.cuh"),
                 "mlstm_scan": ("mlstm_scan.cu", "hopper.cuh")}
@@ -226,9 +236,12 @@ def xlstm_state(make):
 def quant_cases():
     """(name, f32 numpy array) cases of the quantize parity check, from
     numpy seed 12: lognormal magnitudes with random signs at 4,096, 5,000
-    (padded by 120) and 2^20 + 17 elements, and one array of 128-lane
-    groups with a NaN, a +inf, a -inf, all zeros, halfway ties at scale 1,
-    subnormals, and the +-127 clip edge."""
+    (padded by 120) and 2^20 + 17 elements, one array of 128-lane groups
+    with a NaN, a +inf, a -inf, all zeros, halfway ties at scale 1,
+    subnormals, and the +-127 clip edge; and, drawn after them and listed
+    before the special groups, leaves of 4,097 (a 1-element tail, padded
+    by 511) and 300 elements (under 512, so rows of 128, padded by 84) and
+    the special groups' first three (384 elements)."""
     import numpy as np
     rng = np.random.default_rng(12)
 
@@ -248,10 +261,14 @@ def quant_cases():
     groups[6][64] = 3e-38              # smallest normals beside subnormals
     clip = groups[7]
     clip[:4] = [127.00001, -127.00001, 126.99999, -126.99999]
-    return [("lognormal_4096", lognormal(4096)),
-            ("lognormal_5000_pad120", lognormal(5000)),
-            ("lognormal_1048593", lognormal(2**20 + 17)),
-            ("special_values", np.concatenate(groups))]
+    cases = [("lognormal_4096", lognormal(4096)),
+             ("lognormal_5000_pad120", lognormal(5000)),
+             ("lognormal_1048593", lognormal(2**20 + 17)),
+             ("special_values", np.concatenate(groups))]
+    return cases[:3] + [("lognormal_4097_pad511", lognormal(4097)),
+                        ("lognormal_300_pad84", lognormal(300)),
+                        ("special_values_384", np.concatenate(groups[:3])),
+                        cases[3]]
 
 
 def fail(msg: str) -> None:
@@ -326,6 +343,18 @@ def _sass(src: str) -> str:
     if proc.returncode != 0:
         fail(f"cuobjdump -sass failed on {src}: {proc.stderr[-500:]}")
     return proc.stdout
+
+
+def _sass_function(sass: str, fragment: str) -> tuple:
+    """(name, SASS) of the one function whose mangled name holds
+    ``fragment``; fails unless exactly one does."""
+    parts = [(p.split("\n", 1) + [""])[:2]
+             for p in sass.split("Function : ")[1:]]
+    found = [(head.strip(), body) for head, body in parts if fragment in head]
+    if len(found) != 1:
+        fail(f"{len(found)} functions of the SASS match {fragment!r}: "
+             f"{[name for name, _ in found]}")
+    return found[0]
 
 
 #: SASS opcodes (before the first dot) by the unit that runs them: the f64
@@ -425,11 +454,18 @@ def _draw_ops(sass: str) -> dict:
 DESIGN_SASS = {"flash_attention.cu": ("HGMMA", "UTMALDG"),
                "decode_attention.cu": ("UBLKCP",),
                "mlstm_scan.cu": ("HGMMA",),
-               "rglru_scan.cu": ("UTMALDG",)}
+               "rglru_scan.cu": ("UTMALDG",),
+               "quant_blockwise.cu": ("UBLKCP",)}
+#: kernels that must each hold their source's design instructions
+#: themselves: both quant kernels.  The fragments carry the mangled name's
+#: length prefix, so that one kernel's name cannot match inside the other's.
+DESIGN_KERNELS = {"quant_blockwise.cu": ("22quantize_leaves_kernel",
+                                         "24dequantize_leaves_kernel")}
 #: kernels that must compile without spilling registers.
 NO_SPILL = ("flash_wgmma_kernel", "event_sweep_kernel", "event_draws_kernel",
             "rglru_ring_kernel", "gates_kernel", "state_kernel",
-            "scores_kernel", "output_kernel")
+            "scores_kernel", "output_kernel", "quantize_leaves_kernel",
+            "dequantize_leaves_kernel")
 
 
 def _spills(log_text: str) -> dict:
@@ -460,6 +496,12 @@ def check_design() -> dict:
         missing = [op for op in wanted if counts[op] == 0]
         if missing:
             fail(f"{src} has no {missing} in its SASS")
+        for kernel in DESIGN_KERNELS.get(src, ()):
+            name, body = _sass_function(sass, kernel)
+            have = {op: body.count(op) for op in wanted}
+            log(f"sass {src} {kernel} (matched {name}): {have}")
+            if not all(have.values()):
+                fail(f"{kernel} lacks its design instructions {wanted}")
     for src in SOURCES:
         spills = {fn: n for fn, n in _spills(_build.build_log(src)).items()
                   if any(k in fn for k in NO_SPILL)}
@@ -706,13 +748,19 @@ def _max_abs(a, b) -> float:
 
 def phase_quant_parity(dev) -> tuple:
     """Quantize/dequantize kernels against their plain versions on the card,
-    bitwise, on every ``quant_cases()`` array; returns the largest
-    absolute differences (quantize, dequantize)."""
+    bitwise, on every ``quant_cases()`` array: one leaf a launch (the
+    one-entry wrappers), then all of them in one launch, in the cases'
+    order and reversed, and each alone through the grouped wrappers (a
+    one-row table, passed by value, on the unpadded leaf), each leaf also
+    equal to its one-entry result; returns the largest absolute
+    differences (quantize, dequantize)."""
     import torch
     from repro_torch.kernels import ops, quant_blockwise as qb
     err_q = err_d = 0.0
     before = (qb.quantize.launches, qb.dequantize.launches)
-    for name, x in quant_cases():
+    cases = quant_cases()
+    single = []
+    for name, x in cases:
         t = torch.from_numpy(x).to(dev)
         q, s, pad = ops.quantize_array(t)
         x2 = torch.cat([t, t.new_zeros(pad)]).reshape(q.shape)
@@ -728,8 +776,49 @@ def phase_quant_parity(dev) -> tuple:
             f"inf scales {int(torch.isinf(s).sum())}")
         if not all(ok):
             fail(f"quant kernels != plain versions on {name}")
+        single.append((t, q, s, pad, d.reshape(-1)[:x.size].reshape(x.shape)))
     if (qb.quantize.launches, qb.dequantize.launches) <= before:
         fail("the quant launch counters did not increase")
+
+    before = (qb.quantize_leaves.launches, qb.dequantize_leaves.launches)
+    n = len(cases)
+    for label, order in (("in order", range(n)),
+                         ("reversed", range(n - 1, -1, -1))):
+        xs = [single[i][0] for i in order]
+        q, s, leaves = qb.quantize_leaves(xs)
+        pq, ps, _ = qb.quantize_leaves_plain(xs)
+        args = ([v[0] for v in leaves], [v[1] for v in leaves],
+                [x.shape for x in xs], [v[2] for v in leaves])
+        d = qb.dequantize_leaves(*args)
+        pd = qb.dequantize_leaves_plain(*args)
+        torch.cuda.synchronize()
+        ok = (_bits_equal(q, pq), _bits_equal(s, ps),
+              all(_bits_equal(a, b) for a, b in zip(d, pd)),
+              all(_bits_equal(lq, one[1]) and _bits_equal(ls, one[2])
+                  and lp == one[3] and _bits_equal(a, one[4])
+                  for one, (lq, ls, lp), a in zip(
+                      (single[i] for i in order), leaves, d)))
+        err_q = max(err_q, _max_abs(q, pq), _max_abs(s, ps))
+        err_d = max([err_d] + [_max_abs(a, b) for a, b in zip(d, pd)])
+        log(f"parity quant, {n} leaves in one launch ({label}): "
+            f"{s.numel()} groups; q bitwise={ok[0]} scales bitwise={ok[1]} "
+            f"dequant bitwise={ok[2]}; every leaf equal to its one-entry "
+            f"result={ok[3]}")
+        if not all(ok):
+            fail(f"grouped quant kernels != plain versions ({label})")
+    for (name, _), (t, q1, s1, pad1, d1) in zip(cases, single):
+        (lq, ls, lp), = qb.quantize_leaves([t])[2]
+        a, = qb.dequantize_leaves([lq], [ls], [t.shape], [lp])
+        torch.cuda.synchronize()
+        if not (_bits_equal(lq, q1) and _bits_equal(ls, s1) and lp == pad1
+                and _bits_equal(a, d1)):
+            fail(f"a one-row grouped launch != the one-entry result on "
+                 f"{name}")
+    log(f"parity quant, each of the {n} leaves alone through the grouped "
+        f"wrappers (one row by value): equal to its one-entry result")
+    if (qb.quantize_leaves.launches, qb.dequantize_leaves.launches) != (
+            before[0] + 2 + n, before[1] + 2 + n):
+        fail("the grouped quant kernels did not launch once a call")
     return err_q, err_d
 
 
@@ -1159,10 +1248,17 @@ def run_ckpt_path(dev, root: Path) -> dict:
     mgr = CheckpointManager(store, pol, ManagerConfig(pfs_every=None))
     meter = EnergyMeter(prof)
 
+    def peak_from_here():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    mem = {"save_before": peak_from_here()}
     t0 = time.perf_counter()
     first = mgr.maybe_checkpoint(1, state)
     mgr.wait()
     t_deep = time.perf_counter() - t0
+    mem["save_peak"] = torch.cuda.max_memory_allocated()
     save_split = dict(store.last_save)
     not_due = mgr.maybe_checkpoint(2, state)
     step2 = 1 + pol.period_steps()
@@ -1171,10 +1267,12 @@ def run_ckpt_path(dev, root: Path) -> dict:
     t_buddy = time.perf_counter() - t0
     m_policy = pol.deep_every()
     mgr.drop_buddy()                        # hard failure: buddy lost too
+    mem["restore_before"] = peak_from_here()
     t0 = time.perf_counter()
     restored, r_step, source = mgr.restore(state)
     torch.cuda.synchronize()
     t_restore = time.perf_counter() - t0
+    mem["restore_peak"] = torch.cuda.max_memory_allocated()
     for st in mgr.stats:
         meter.add(Phase.CHECKPOINT_IO if st["level"] >= 2
                   else Phase.CHECKPOINT_IO_BUDDY, st["C_s"])
@@ -1184,6 +1282,7 @@ def run_ckpt_path(dev, root: Path) -> dict:
             "step2": step2, "m_policy": m_policy, "restore_step": r_step,
             "source": source, "t_deep_s": t_deep, "t_buddy_s": t_buddy,
             "t_restore_s": t_restore, "save_split": save_split,
+            "device_memory": mem,
             "restore_split": dict(store.last_restore),
             "meter": meter.report()}
 
@@ -1288,11 +1387,17 @@ def report_ckpt(run: dict) -> dict:
         f"{buddy['snapshot_s']:.4f}, push {buddy['write_s']:.4f}")
     log("ckpt restore (s): " + ", ".join(f"{k} {v:.4f}"
                                          for k, v in restore.items()))
+    mem = run["device_memory"]
+    for op in ("save", "restore"):
+        log(f"ckpt {op} device memory: peak {mem[op + '_peak']} bytes, "
+            f"{mem[op + '_peak'] - mem[op + '_before']} above the "
+            f"{mem[op + '_before']} allocated before it")
     log(f"ckpt energy meter (paper two-level profile, normalized powers): "
         f"{json.dumps(run['meter'])}")
     return {"save_s": save, "buddy_s": {"snapshot_d2h": buddy["snapshot_s"],
                                         "push": buddy["write_s"]},
-            "restore_s": restore, "C2_s": deep["C_s"], "C1_s": buddy["C_s"]}
+            "restore_s": restore, "C2_s": deep["C_s"], "C1_s": buddy["C_s"],
+            "device_memory_bytes": mem}
 
 
 # ---------------------------------------------------------------------------
@@ -1547,58 +1652,134 @@ def phase_times(big, mc_grid, model, runs, peaks, draw_ops, dev) -> list:
 _QUANT_OPS = {"quantize": 7, "dequantize": 2}
 
 
+def _leaf_launch(entry: str, rows: list, n_groups: int, dev):
+    """A call that launches the quant library's ``entry`` over the leaf
+    table ``rows`` made ready once (uploaded, or for one row packed as the
+    wrappers pass it), so that it times the kernel without the wrappers'
+    host work."""
+    from repro_torch.kernels import _build, quant_blockwise as qb
+    table, row, keep = qb.table_args(rows, dev)
+    fn = getattr(qb.load_library(), entry)
+
+    def call():
+        _build.launch(fn, table, row, len(rows), n_groups, device=dev,
+                      name=entry)
+        return keep
+    return call
+
+
 def phase_quant_times(run: dict, peaks, dev) -> dict:
     """CUDA-event times of the quantize and dequantize kernels and of their
     plain versions over the 57 compressed leaves of the checkpoint (one
     checkpoint's worth, at the path's shapes), checked bitwise again, with
-    the byte bound; also the largest leaf alone."""
+    the byte bound, in rows: ``checkpoint``, one launch over the leaves as
+    they lie (the store's path); ``per_leaf``, one launch a leaf on padded
+    (rows, D) copies through the one-leaf wrappers (how the store called
+    them before); ``largest``, the largest leaf alone.  ``kernel_ms`` times
+    the wrapper calls back to back, host work included; ``table_kernel_ms``
+    the same launches on leaf tables made ready once, without the
+    wrappers' host work."""
     import torch
     from repro_torch.ckpt.tree import tree_leaves
-    from repro_torch.kernels import ops, quant_blockwise as qb
+    from repro_torch.kernels import quant_blockwise as qb
     bw, _, f32_peak, _, _, _ = peaks
-    xs = []
-    for x in tree_leaves(run["state"]):
-        if x.dtype == torch.float32 and x.numel() >= 4096:
-            pad, D = ops._pad_of(x.numel())
-            flat = x.reshape(-1)
-            if pad:
-                flat = torch.cat([flat, flat.new_zeros(pad)])
-            xs.append(flat.reshape(-1, D))
-    qs = [qb.quantize(x) for x in xs]
-    for x, (q, s) in zip(xs, qs):
-        pq, ps = qb.quantize_plain(x)
-        if not (_bits_equal(q, pq) and _bits_equal(s, ps)
-                and _bits_equal(qb.dequantize(q, s),
-                                qb.dequantize_plain(q, s))):
-            fail("quant kernels != plain versions at the path's shapes")
-    big = max(range(len(xs)), key=lambda i: xs[i].numel())
+    leaves = [x for x in tree_leaves(run["state"])
+              if x.dtype == torch.float32 and x.numel() >= 4096]
+    padded = []
+    for x in leaves:
+        pad, D = qb.pad_of(x.numel())
+        padded.append(torch.cat([x.reshape(-1), x.new_zeros(pad)]).reshape(
+            -1, D))
+    q, s, views = qb.quantize_leaves(leaves)
+    pq, ps, _ = qb.quantize_leaves_plain(leaves)
+    args = ([v[0] for v in views], [v[1] for v in views],
+            [x.shape for x in leaves], [v[2] for v in views])
+    if not (_bits_equal(q, pq) and _bits_equal(s, ps) and all(
+            _bits_equal(a, b) for a, b in zip(qb.dequantize_leaves(*args),
+                                              qb.dequantize_leaves_plain(
+                                                  *args)))):
+        fail("quant kernels != plain versions at the path's shapes")
+    big = max(range(len(leaves)), key=lambda i: leaves[i].numel())
+    one = lambda i: ([args[0][i]], [args[1][i]], [args[2][i]], [args[3][i]])
+    # the kernels alone, on tables made ready once (the arenas kept alive)
+    arenas = qb._quantize_table([x.reshape(-1) for x in leaves], dev)
+    outs = qb._dequantize_table(*args)
+    q_rows, d_rows, n_groups = arenas[2], outs[3], outs[4]
+    g_big = args[1][big].numel()
+    kern = {(name, label): _leaf_launch(f"repro_{name}_leaves", rows, g, dev)
+            for name, table in (("quantize", q_rows), ("dequantize", d_rows))
+            for label, rows, g in (("checkpoint", table, n_groups),
+                                   ("largest", [table[big][:5] + [0]],
+                                    g_big))}
+    # the 57 one-leaf launches alone, on the padded leaves
+    one_q = [(torch.empty(x.shape, dtype=torch.int8, device=dev),
+              torch.empty((x.shape[0], x.shape[1] // qb.LANE_GROUP),
+                          device=dev)) for x in padded]
+    one_d = [torch.empty(x.shape, device=dev) for x in padded]
+    one_leaf = {
+        "quantize": [_leaf_launch(
+            "repro_quantize_leaves", [[x.data_ptr(), a.data_ptr(),
+                                       b.data_ptr(), x.numel(), x.shape[1],
+                                       0]], b.numel(), dev)
+            for x, (a, b) in zip(padded, one_q)],
+        "dequantize": [_leaf_launch(
+            "repro_dequantize_leaves", [[o.data_ptr(), a.data_ptr(),
+                                         b.data_ptr(), a.numel(), a.shape[1],
+                                         0]], b.numel(), dev)
+            for o, a, b in zip(one_d, args[0], args[1])]}
+    for name, calls in one_leaf.items():
+        kern[(name, "per_leaf")] = lambda calls=calls: [f() for f in calls]
+    # label: (wrapper calls, the kernel on a ready table, plain version)
+    rows = {
+        "quantize": {
+            "checkpoint": (lambda: qb.quantize_leaves(leaves),
+                           kern[("quantize", "checkpoint")],
+                           lambda: qb.quantize_leaves_plain(leaves)),
+            "per_leaf": (lambda: [qb.quantize(x) for x in padded],
+                         kern[("quantize", "per_leaf")],
+                         lambda: [qb.quantize_plain(x) for x in padded]),
+            "largest": (lambda: qb.quantize_leaves([leaves[big]]),
+                        kern[("quantize", "largest")],
+                        lambda: qb.quantize_leaves_plain([leaves[big]]))},
+        "dequantize": {
+            "checkpoint": (lambda: qb.dequantize_leaves(*args),
+                           kern[("dequantize", "checkpoint")],
+                           lambda: qb.dequantize_leaves_plain(*args)),
+            "per_leaf": (lambda: [qb.dequantize(a, b) for a, b
+                                  in zip(args[0], args[1])],
+                         kern[("dequantize", "per_leaf")],
+                         lambda: [qb.dequantize_plain(a, b) for a, b
+                                  in zip(args[0], args[1])]),
+            "largest": (lambda: qb.dequantize_leaves(*one(big)),
+                        kern[("dequantize", "largest")],
+                        lambda: qb.dequantize_leaves_plain(*one(big)))}}
     out = {}
-    for name, ker, plain in (
-            ("quantize", lambda sel: [qb.quantize(xs[i]) for i in sel],
-             lambda sel: [qb.quantize_plain(xs[i]) for i in sel]),
-            ("dequantize", lambda sel: [qb.dequantize(*qs[i]) for i in sel],
-             lambda sel: [qb.dequantize_plain(*qs[i]) for i in sel])):
+    for name, table in rows.items():
         res = {}
-        for label, sel in (("checkpoint", range(len(xs))), ("largest",
-                                                            [big])):
-            n = sum(xs[i].numel() for i in sel)
-            nbytes = 5 * n + 4 * (n // 128)       # f32 <-> int8 + scales
+        for label, (wrapper, ker, plain) in table.items():
+            sel = [big] if label == "largest" else range(len(leaves))
+            n = sum(leaves[i].numel() for i in sel)
+            g = sum(args[1][i].numel() for i in sel)
+            nbytes = 4 * n + 132 * g   # f32 <-> padded int8 + scales
             bytes_ms = nbytes / bw * 1e3
             ops_ms = _QUANT_OPS[name] * n / f32_peak * 1e3
             res[label] = {
                 "leaves": len(sel), "elements": n, "bytes": nbytes,
-                "kernel_ms": _events_ms(lambda: ker(sel)),
-                "plain_ms": _events_ms(lambda: plain(sel)),
+                "kernel_ms": _events_ms(wrapper),
+                "table_kernel_ms": _events_ms(ker),
+                "plain_ms": _events_ms(plain),
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
             r = res[label]
             log(f"time {name} [{label}: {r['leaves']} leaves, {n} "
-                f"elements]: kernel {r['kernel_ms']:.4f} ms, plain "
-                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']}), {r['bound_ms'] / r['kernel_ms']:.3f} "
-                f"of the bound's rate")
+                f"elements]: kernel {r['kernel_ms']:.4f} ms (wrapper calls, "
+                f"host work included), on tables made ready once "
+                f"{r['table_kernel_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                f"{r['bound_ms'] / r['kernel_ms']:.3f} of the bound's rate")
         out[name] = res
-    del xs, qs
+    del leaves, padded, q, s, pq, ps, views, args, arenas, outs, kern
+    del one_q, one_d, one_leaf, rows
     torch.cuda.empty_cache()
     return out
 
@@ -2099,6 +2280,7 @@ def _kernel_modules():
 
 def _wrappers():
     """{name: (kernel wrapper, its plain version)} of all eight kernels
+    (the quant kernels through their one-leaf and their grouped wrappers)
     and the draw-only entry (whose plain version, ``draw_gaps``, is what
     ``sample_gaps`` calls)."""
     from repro_torch.core.failures import draw_gaps
@@ -2109,6 +2291,8 @@ def _wrappers():
             "event_draws": (es.event_draws, draw_gaps),
             "quantize": (qb.quantize, qb.quantize_plain),
             "dequantize": (qb.dequantize, qb.dequantize_plain),
+            "quantize_leaves": (qb.quantize_leaves, qb.quantize_plain),
+            "dequantize_leaves": (qb.dequantize_leaves, qb.dequantize_plain),
             "rglru_scan": (rg.rglru_scan, rg.rglru_scan_plain),
             "flash_attention": (fa.flash_attention,
                                 fa.flash_attention_plain),
@@ -2121,7 +2305,7 @@ def _counts() -> dict:
     """Launches of every kernel, and the plain versions' calls in all."""
     w = _wrappers()
     out = {name: ker.launches for name, (ker, _) in w.items()}
-    out["plain"] = sum(plain.calls for _, plain in w.values())
+    out["plain"] = sum(plain.calls for plain in {p for _, p in w.values()})
     return out
 
 
@@ -2199,14 +2383,14 @@ def main() -> None:
         ck = run_ckpt_path(dev, root)
         torch.cuda.synchronize()
         ck_counts = _counts()
-        log(f"checkpoint path: quantize launches {ck_counts['quantize']}, "
-            f"dequantize launches {ck_counts['dequantize']}, plain-version "
-            f"calls {ck_counts['plain']}")
-        n_comp = _ckpt_sizes()[0]
-        if (ck_counts["quantize"], ck_counts["dequantize"],
-                ck_counts["plain"]) != (n_comp, n_comp, 0):
-            fail(f"the checkpoint path did not go through the quant kernels "
-                 f"{n_comp} + {n_comp} times")
+        quant_names = ("quantize_leaves", "dequantize_leaves", "quantize",
+                       "dequantize", "plain")
+        log("checkpoint path: " + ", ".join(
+            f"{k} {ck_counts[k]}" for k in quant_names[:4])
+            + f" launches, plain-version calls {ck_counts['plain']}")
+        if tuple(ck_counts[k] for k in quant_names) != (1, 1, 0, 0, 0):
+            fail(f"the checkpoint path did not quantize and dequantize its "
+                 f"{_ckpt_sizes()[0]} leaves in one launch each")
         report["ckpt"] = gate_ckpt(ck, dev)
         report["ckpt_times"] = report_ckpt(ck)
         qtimes = phase_quant_times(ck, peaks, dev)
@@ -2285,14 +2469,15 @@ def main() -> None:
         kernels.append({
             "name": f"{name}_blockwise", "route": "cuda",
             "source": "src/repro_torch/csrc/quant_blockwise.cu",
+            "sources": [f"src/repro_torch/csrc/{f}"
+                        for f in KERNEL_FILES["quant_blockwise"]],
             "replaces": f"src/repro/kernels/quant_blockwise.py:{line}",
-            "launches": ck_counts[name], "max_abs_err": err,
+            "launches": ck_counts[f"{name}_leaves"], "max_abs_err": err,
             "parity": "bitwise", "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "build_s": build_s["quant_blockwise.cu"],
-            "variants": [qtimes[name]["checkpoint"],
-                         qtimes[name]["largest"]]})
+            "variants": qtimes[name]})
     full_width_keys = {
         "rglru_scan": ("rglru_zero_h0", "rglru_seeded_h0"),
         "flash_attention": ("local_attention",),

@@ -31,15 +31,24 @@ Optional int8 blockwise compression (``compress=True``) quantizes every
 f32 leaf of at least 4096 elements on the store's ``device`` through the
 ``quant_blockwise`` kernel (``device="cuda"``, the default) or its plain
 version (``device="cpu"``): ~4x smaller payloads, which shrink the paper's
-C parameter (lossy: bounded by absmax/127 per block).  Restores run the
-dequantize kernel on the same device and return tensors there, or on the
-device of the corresponding leaf of ``like_tree`` when it is a tensor.
+C parameter (lossy: bounded by absmax/127 per block).  A save quantizes
+them in one launch into two packed arenas and copies each arena to the
+host once; a restore dequantizes them in one launch on the same device
+and returns tensors there, or on the device of the corresponding leaf of
+``like_tree`` when it is a tensor.  A launch holds its leaves' f32, int8
+and scales on the device at once (about 5 bytes an element), so the
+leaves are cut into consecutive batches, one launch each, that fit half
+of the device's free memory (:func:`_batches`): one batch for a state of
+a few GB on an 80 GB card, several for a state larger than that.  The
+restored tree itself is on the device whenever ``like_tree`` is, or the
+store's device when it gives none.
 """
 from __future__ import annotations
 
 import dataclasses
 import io
 import json
+import math
 import threading
 import time
 import zlib
@@ -148,12 +157,48 @@ def _numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _onto(arr: torch.Tensor, like) -> torch.Tensor:
+    """A restored leaf on the device of ``like`` when it is a tensor."""
+    if isinstance(like, torch.Tensor) and arr.device != like.device:
+        return arr.to(like.device)
+    return arr
+
+
 def _compressible(leaf) -> bool:
     """The reference's rule: f32 leaves of at least 4096 elements."""
     if isinstance(leaf, torch.Tensor):
         return leaf.dtype == torch.float32 and leaf.numel() >= 4096
     arr = np.asarray(leaf)
     return arr.dtype == np.float32 and arr.size >= 4096
+
+
+#: device bytes a compressed element holds during its launch: its f32, its
+#: int8 payload and its share of the f32 scale of its 128-group.
+_DEVICE_BYTES_PER_ELEMENT = 4 + 1 + 4 / 128
+
+
+def _device_budget(device: torch.device) -> float:
+    """Bytes one quantize or dequantize launch of the store may hold on
+    ``device``: half of its free memory (a flush runs beside training),
+    or no limit off a card."""
+    if device.type != "cuda":
+        return math.inf
+    return torch.cuda.mem_get_info(device)[0] / 2
+
+
+def _batches(sizes: list, budget: float) -> list:
+    """Consecutive runs of the indices of ``sizes`` (element counts), each
+    within ``budget`` device bytes at ``_DEVICE_BYTES_PER_ELEMENT``; a leaf
+    over the budget alone makes a run."""
+    runs, held = [], 0.0
+    for i, n in enumerate(sizes):
+        need = n * _DEVICE_BYTES_PER_ELEMENT
+        if not runs or held + need > budget:
+            runs.append([])
+            held = 0.0
+        runs[-1].append(i)
+        held += need
+    return runs
 
 
 @dataclasses.dataclass
@@ -199,6 +244,35 @@ class ShardedStore:
             torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------ save
+    def _quantize(self, leaves: list, tm: dict) -> dict:
+        """{leaf index: (payload, scales, pad, shape)} of the compressible
+        leaves, payload and scales as host numpy arrays.  Each batch of
+        them (:func:`_batches`; all of them when the device has room) is
+        quantized on the device in one launch, then each packed arena comes
+        to the host in one copy and a leaf's arrays are views into it."""
+        comp = [i for i, leaf in enumerate(leaves)
+                if self.cfg.compress and _compressible(leaf)]
+        if not comp:
+            return {}
+        packed = {}
+        sizes = [torch.as_tensor(leaves[i]).numel() for i in comp]
+        for batch in _batches(sizes, _device_budget(self.device)):
+            idx = [comp[j] for j in batch]
+            ta = time.perf_counter()
+            xs = [torch.as_tensor(leaves[i]).to(self.device) for i in idx]
+            tb = time.perf_counter()
+            q_arena, s_arena, views = kops.quantize_arrays(xs)
+            q_host, s_host = q_arena.cpu().numpy(), s_arena.cpu().numpy()
+            for i, x, (q, s, pad) in zip(idx, xs, views):
+                qo, so = q.storage_offset(), s.storage_offset()
+                packed[i] = (q_host[qo:qo + q.numel()].reshape(q.shape),
+                             s_host[so:so + s.numel()].reshape(s.shape),
+                             pad, list(x.shape))
+            del xs, q_arena, s_arena, views
+            tm["h2d"] += tb - ta
+            tm["quant"] += time.perf_counter() - tb
+        return packed
+
     def save(self, step: int, tree: Any, *, shard_id: int = 0,
              extra_meta: Optional[dict] = None,
              abort: Optional[threading.Event] = None) -> dict:
@@ -219,21 +293,16 @@ class ShardedStore:
         gen = self.root / f"step_{step:09d}"
         gen.mkdir(parents=True, exist_ok=True)
 
+        packed = self._quantize(leaves, tm)
         arrays = {}
         meta_leaves = []
         for i, leaf in enumerate(leaves):
-            if self.cfg.compress and _compressible(leaf):
-                ta = time.perf_counter()
-                x = torch.as_tensor(leaf).to(self.device)
-                tb = time.perf_counter()
-                q, s, pad = kops.quantize_array(x)
-                arrays[f"leaf_{i}_q"] = q.cpu().numpy()
-                arrays[f"leaf_{i}_s"] = s.cpu().numpy()
-                tm["h2d"] += tb - ta
-                tm["quant"] += time.perf_counter() - tb
-                entry = {"index": i, "dtype": "float32",
-                         "shape": list(x.shape), "compressed": True,
-                         "pad": int(pad)}
+            if i in packed:
+                q, s, pad, shape = packed.pop(i)
+                arrays[f"leaf_{i}_q"] = q
+                arrays[f"leaf_{i}_s"] = s
+                entry = {"index": i, "dtype": "float32", "shape": shape,
+                         "compressed": True, "pad": int(pad)}
             else:
                 arr = _numpy(leaf)
                 arrays[f"leaf_{i}"] = arr
@@ -362,27 +431,43 @@ class ShardedStore:
 
         ta = time.perf_counter()
         dev = self.device
-        moved = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
-        del arrays
+        entries = manifest["leaves"]
+        moved = {f"leaf_{e['index']}": torch.from_numpy(
+                     arrays.pop(f"leaf_{e['index']}")).to(dev)
+                 for e in entries if not e["compressed"]}
         tm["h2d"] = time.perf_counter() - ta
+        tm["dequant"] = 0.0
+
+        leaves_like, treedef = tree_flatten(like_tree)
+        like_of = {e["index"]: like for e, like in zip(entries, leaves_like)}
+        comp = [e for e in entries if e["compressed"]]
+        dequantized = {}
+        for batch in _batches([math.prod(e["shape"]) for e in comp],
+                              _device_budget(dev) if comp else 0.0):
+            es = [comp[j] for j in batch]
+            ta = time.perf_counter()
+            qs = [torch.from_numpy(arrays.pop(f"leaf_{e['index']}_q")).to(dev)
+                  for e in es]
+            ss = [torch.from_numpy(arrays.pop(f"leaf_{e['index']}_s")).to(dev)
+                  for e in es]
+            tb = time.perf_counter()
+            arrs = kops.dequantize_arrays(
+                qs, ss, shapes=[tuple(e["shape"]) for e in es],
+                dtypes=[e["dtype"] for e in es], pads=[e["pad"] for e in es])
+            for e, arr in zip(es, arrs):
+                dequantized[e["index"]] = _onto(arr, like_of[e["index"]])
+            del qs, ss, arrs
+            tm["h2d"] += tb - ta
+            tm["dequant"] += time.perf_counter() - tb
 
         ta = time.perf_counter()
-        leaves_like, treedef = tree_flatten(like_tree)
         out = []
-        for entry, like in zip(manifest["leaves"], leaves_like):
+        for entry, like in zip(entries, leaves_like):
             i = entry["index"]
-            if entry["compressed"]:
-                arr = kops.dequantize_array(
-                    moved.pop(f"leaf_{i}_q"), moved.pop(f"leaf_{i}_s"),
-                    shape=tuple(entry["shape"]), dtype=entry["dtype"],
-                    pad=entry["pad"])
-            else:
-                arr = moved.pop(f"leaf_{i}")
-            if isinstance(like, torch.Tensor) and arr.device != like.device:
-                arr = arr.to(like.device)
-            out.append(arr)
+            out.append(dequantized.pop(i) if entry["compressed"] else
+                       _onto(moved.pop(f"leaf_{i}"), like))
         self._sync()
-        tm["dequant"] = time.perf_counter() - ta
+        tm["dequant"] += time.perf_counter() - ta
         self.last_restore = tm
         return tree_unflatten(treedef, out), manifest["step"]
 

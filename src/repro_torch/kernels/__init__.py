@@ -4,8 +4,11 @@ reference:
 
   event_sweep      — the MC engine's per-failure event loop over
                      (points x trials), f64 or compensated f32
-  quant_blockwise  — ``quantize`` and ``dequantize``: int8 absmax per
-                     128-lane group (checkpoint compression)
+  quant_blockwise  — int8 absmax per 128-lane group (checkpoint
+                     compression): ``quantize_leaves`` and
+                     ``dequantize_leaves`` over all of a checkpoint's
+                     leaves in one launch, ``quantize`` and
+                     ``dequantize`` over one array
   flash_attention  — online-softmax attention, causal / sliding /
                      chunked / bidirectional masks
   decode_attention — one query token against a KV cache (flash-decoding)

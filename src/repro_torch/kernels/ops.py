@@ -14,6 +14,8 @@ device of its input: the kernel on CUDA, its plain version on the CPU.
   reference's padding (``D`` = 512 lanes for arrays of at least 512
   elements, else 128, zero-padded to a whole number of rows), so the
   payloads they produce are the reference's, shape for shape.
+  :func:`quantize_arrays` and :func:`dequantize_arrays` do the same for a
+  list of arrays in one kernel launch, leaf for leaf equal to them.
 """
 from __future__ import annotations
 
@@ -21,7 +23,9 @@ import torch
 
 from . import flash_attention as _fa
 from . import mlstm_scan as _ml
-from .quant_blockwise import dequantize, quantize
+from .quant_blockwise import (dequantize, dequantize_leaves, quantize,
+                              quantize_leaves)
+from .quant_blockwise import pad_of as _pad_of
 from .rglru_scan import rglru_scan  # noqa: F401
 
 
@@ -50,12 +54,6 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, H, S, Dh)
 
 
-def _pad_of(size: int) -> tuple:
-    """(zero elements appended, row width D) for an array of ``size``."""
-    D = 512 if size >= 512 else 128
-    return (-size) % D, D
-
-
 def quantize_array(x: torch.Tensor):
     """Quantize an f32 tensor of any shape; returns (int8 2-D payload,
     f32 scales, pad)."""
@@ -79,3 +77,20 @@ def dequantize_array(q: torch.Tensor, s: torch.Tensor, *, shape, dtype,
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype)
     return flat.reshape(tuple(shape)).to(dtype)
+
+
+def quantize_arrays(xs: list):
+    """Quantize f32 tensors of any shapes in one launch; returns (int8
+    payload arena, f32 scales arena, [(payload, scales, pad)] a leaf), the
+    per-leaf triples equal to :func:`quantize_array`'s and views into the
+    two arenas, so that a caller can move all payloads in two copies."""
+    return quantize_leaves(xs)
+
+
+def dequantize_arrays(qs: list, ss: list, *, shapes, dtypes,
+                      pads) -> list:
+    """Inverse of :func:`quantize_arrays` in one launch: one array a leaf,
+    equal to :func:`dequantize_array` on that leaf's arguments."""
+    outs = dequantize_leaves(qs, ss, shapes, pads)
+    return [x.to(getattr(torch, d) if isinstance(d, str) else d)
+            for x, d in zip(outs, dtypes)]

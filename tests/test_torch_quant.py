@@ -206,3 +206,30 @@ class TestWrappers:
             d, pd = PQ.dequantize(q, s), PQ.dequantize_plain(q, s)
             assert torch.equal(d.isnan(), pd.isnan())
             assert torch.equal(torch.nan_to_num(d), torch.nan_to_num(pd))
+
+    @pytest.mark.gpu
+    def test_grouped_kernels_match_plain_versions_on_the_card(self):
+        """All cases in one launch each way, in order and reversed, and
+        each alone (a one-row table, passed by value), against the grouped
+        plain versions (the same table and arenas)."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device (chip_smoke.py runs this check "
+                        "on the card)")
+        same = lambda a, b: (torch.equal(a.isnan(), b.isnan()) and
+                             torch.equal(torch.nan_to_num(a),
+                                         torch.nan_to_num(b)))
+        xs = [torch.from_numpy(x).to("cuda") for _, x in CASES]
+        for order in (xs, xs[::-1], *([x] for x in xs)):
+            before = (PQ.quantize_leaves.launches,
+                      PQ.dequantize_leaves.launches)
+            q, s, views = PQ.quantize_leaves(order)
+            pq, ps, _ = PQ.quantize_leaves_plain(order)
+            assert torch.equal(q, pq) and same(s, ps)
+            args = ([v[0] for v in views], [v[1] for v in views],
+                    [x.shape for x in order], [v[2] for v in views])
+            for a, b in zip(PQ.dequantize_leaves(*args),
+                            PQ.dequantize_leaves_plain(*args)):
+                assert same(a, b)
+            assert (PQ.quantize_leaves.launches,
+                    PQ.dequantize_leaves.launches) == (before[0] + 1,
+                                                       before[1] + 1)
