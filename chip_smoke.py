@@ -111,6 +111,31 @@ Phases (any failure exits non-zero; no result line is printed then):
    is 3xTF32 on the tensor cores (three products each), with the FP32-core
    bound and each pass's time (gates, state, output) beside it.
 
+9. the paper's figures and tables (between phases 5 and 6): first the
+   candidate check: ``simulate_candidates`` on one point (the MC
+   surrogate's schedule, 17 candidates) must make one launch, the
+   schedule read through a point stride of 0, bitwise equal to one
+   ``simulate_trajectories`` launch per candidate; and the step scan
+   (``engine_kind="step"``) on the card bitwise equal to the event kernel
+   on a dyadic schedule and to the CPU's step scan.  Then fig1-3,
+   ``table_baselines``, ``table_simulation``
+   (``default_rng(0)``), fig5 at full size (``default_rng(0)`` and
+   ``default_rng(1)``) and one ``MCSurrogate(fig12_checkpoint(300),
+   rho 5.5, Weibull(0.7)).argmin("energy")`` through
+   ``repro_torch.benchmarks``.  Gates: the explicit kernel launched and
+   nothing else; the same run on the CPU, and the card's numbers within
+   1e-12 relative of it (the MSK period, a golden-section argmin, 1e-8),
+   fig5 with the same candidate picks; fig1's headline (>20% energy
+   gain, 5-15% time loss at mu 300, rho 5.5) and fig5's (the energy
+   penalty at k 0.5, mu 120 within half a point of 8.1% and the grid's
+   largest; the optima within fig5's 2% validation gate).  Times: each
+   part on the host clock, and the explicit kernel on fig5's and the
+   argmin's own launches (replayed back to back through the wrapper and
+   on arguments made ready once, compared bitwise with the plain
+   version) beside its bound: the gaps the lanes read (a point stride of
+   0 shares them), outputs and parameters, or the update's f64
+   operations.
+
 Near the end it prints one JSON line ``{"gates": {...}}`` with every
 gate's numbers, then one ``{"kernels": [...]}`` line, then the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -2270,6 +2295,306 @@ def phase_zoo_times(inp: dict, peaks, dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# 9. the paper's figures and tables
+# ---------------------------------------------------------------------------
+
+#: the generators' seeds of the figures (the reference's: fig5's sweep and
+#: table_simulation 0, fig5's validation 1) and of the MC surrogate.
+FIG_SEED, FIG_VALIDATE_SEED, SURROGATE_SEED = 0, 1, 0
+#: the surrogate: fig12_checkpoint(300) under Weibull(0.7), rho = 5.5.
+SURROGATE_MU, SURROGATE_SHAPE = 300.0, 0.7
+#: fig5's headline (the reference's own fig5 on the CPU): the energy
+#: penalty at k = 0.5, mu = 120, and the band it is held to.
+FIG5_HEADLINE, FIG5_BAND = 0.081, 0.005
+
+
+class _LaunchLog:
+    """Records the engine's explicit-kernel calls while active, under the
+    part named by ``part``: ``(args, kwargs, n_failures)`` each.  The
+    wrapper it wraps still counts every launch."""
+
+    def __init__(self):
+        self.calls: dict = {}
+        self.part = None
+
+    def __enter__(self):
+        from repro_torch.sim import engine as te
+        self._real = real = te.event_sweep
+
+        def record(*args, **kw):
+            out = real(*args, **kw)
+            self.calls.setdefault(self.part, []).append(
+                (args, kw, out["n_failures"]))
+            return out
+        te.event_sweep = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.sim import engine as te
+        te.event_sweep = self._real
+
+
+def _surrogate(dev):
+    import numpy as np
+    from repro_torch.core import (EXASCALE_POWER_RHO55, MCSurrogate, Weibull,
+                                  fig12_checkpoint)
+    return MCSurrogate(fig12_checkpoint(SURROGATE_MU), EXASCALE_POWER_RHO55,
+                       Weibull(shape=SURROGATE_SHAPE),
+                       rng=np.random.default_rng(SURROGATE_SEED), device=dev)
+
+
+def run_figures_path(dev, launch_log=None) -> dict:
+    """fig1-3 and both tables (all in f64, as the scripts run), fig5 at
+    full size and one ``MCSurrogate.argmin("energy")``, on ``dev``; each
+    part's result and host seconds.  ``launch_log`` (a :class:`_LaunchLog`)
+    is told which part runs."""
+    import numpy as np
+    from repro_torch.benchmarks import (fig1_rho_sweep, fig2_mu_rho,
+                                        fig3_scalability, fig5_robustness,
+                                        table_baselines, table_simulation)
+    rng = np.random.default_rng
+    parts = {
+        "fig1": lambda: fig1_rho_sweep.run(dev),
+        "fig2": lambda: fig2_mu_rho.run(dev),
+        "fig3": lambda: fig3_scalability.run(dev),
+        "table_baselines": lambda: table_baselines.run(dev),
+        "table_simulation": lambda: table_simulation.run(rng(FIG_SEED),
+                                                         dev),
+        "fig5": lambda: fig5_robustness.run(rng(FIG_SEED),
+                                            rng(FIG_VALIDATE_SEED), dev),
+        "argmin": lambda: _surrogate(dev).argmin("energy")}
+    out, secs = {}, {}
+    for name, fn in parts.items():
+        if launch_log is not None:
+            launch_log.part = name
+        out[name], secs[name] = _sync_time(fn)
+        log(f"figures {name} on {dev}: {secs[name]:.4f} s")
+    out["secs"] = secs
+    return out
+
+
+def _max_rel(a, b) -> float:
+    import numpy as np
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    if a.shape != b.shape:
+        fail(f"figures: shapes differ, {a.shape} and {b.shape}")
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300),
+                        initial=0.0))
+
+
+def gate_figures(card: dict, cpu: dict) -> dict:
+    """The card's figures against the port's CPU run: periods and values
+    within 1e-12 relative (the MSK period, a golden-section argmin, within
+    1e-8), fig5's and the surrogate's argmins the same; fig1's headline
+    (>20% energy gain at ~10% time loss, mu 300, rho 5.5); fig5's (the
+    energy penalty at k 0.5, mu 120 within ``FIG5_BAND`` of 8.1%, the
+    grid's largest, the optima within the 2% validation gate)."""
+    rel = {}
+    for name in ("fig1", "fig2", "fig3"):
+        rel[name] = _max_rel(card[name][2], cpu[name][2])
+    rows = lambda r, msk: [x[2:] for x in r[2] if (x[1] == "msk_energy")
+                           == msk]
+    rel["table_baselines"] = _max_rel(rows(card["table_baselines"], False),
+                                      rows(cpu["table_baselines"], False))
+    rel["table_baselines_msk"] = _max_rel(
+        rows(card["table_baselines"], True),
+        rows(cpu["table_baselines"], True))
+    rel["table_simulation"] = _max_rel(
+        [x[1:] for x in card["table_simulation"][2]],
+        [x[1:] for x in cpu["table_simulation"][2]])
+    res_c, res_h = card["fig5"][0], cpu["fig5"][0]
+    rel["fig5"] = max(_max_rel(getattr(res_c, f), getattr(res_h, f))
+                      for f in ("eval_periods", "time_penalty_exp",
+                                "energy_penalty_exp", "time_penalty_young",
+                                "time_penalty_daly", "energy_penalty_young",
+                                "energy_penalty_daly", "wall_mc",
+                                "energy_mc"))
+    rel["argmin"] = _max_rel(card["argmin"], cpu["argmin"])
+    log("figures, card against CPU (max relative difference): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()))
+    bad = [k for k, v in rel.items()
+           if v > (1e-8 if k == "table_baselines_msk" else 1e-12)]
+    if bad:
+        fail(f"figures: the card's results differ from the CPU's: {bad}")
+    same_picks = bool((res_c.eval_periods[:2] == res_h.eval_periods[:2])
+                      .all())
+    _, (mu, rho, e_ratio, t_ratio), _ = card["fig1"]
+    ep = res_c.energy_penalty_exp
+    worst, drift = card["fig5"][2], card["fig5"][3]
+    head = {"fig1": {"mu": mu, "rho": rho, "energy_gain": e_ratio - 1.0,
+                     "time_loss": t_ratio - 1.0},
+            "fig5": {"energy_penalty_k05_mu120": float(ep[0, 0] - 1.0),
+                     "largest": bool(ep[0, 0] == ep.max()),
+                     "validation_worst": worst, "penalty_drift": drift},
+            "argmin_energy": card["argmin"],
+            "fig5_same_candidate_picks": same_picks,
+            "max_rel_card_vs_cpu": rel}
+    log(f"fig1 headline at mu {mu:g}, rho {rho:g}: energy gain "
+        f"{(e_ratio - 1) * 100:.2f}%, time loss {(t_ratio - 1) * 100:.2f}%; "
+        f"fig5 energy penalty at k 0.5, mu 120: "
+        f"{(ep[0, 0] - 1) * 100:.3f}% (largest {head['fig5']['largest']}), "
+        f"validation within {worst * 100:.3f}% (gate 2%), penalty drift "
+        f"{drift * 100:.3f}%; surrogate energy argmin {card['argmin']:.6f}")
+    if not (mu == 300.0 and abs(rho - 5.5) < 0.26 and e_ratio - 1.0 > 0.20
+            and 0.05 < t_ratio - 1.0 < 0.15):
+        fail("fig1's headline (>20% energy for ~10% time) does not hold")
+    if not (abs(ep[0, 0] - 1.0 - FIG5_HEADLINE) <= FIG5_BAND
+            and head["fig5"]["largest"] and worst <= 0.02):
+        fail("fig5's headline (~8.1% at k 0.5, mu 120, validated) does not "
+             "hold")
+    if not same_picks:
+        fail("fig5: the card picked other candidates than the CPU")
+    return head
+
+
+def phase_candidates(dev) -> dict:
+    """The stride-0 launch (one point, the surrogate's schedule, its 17
+    first candidates in one launch) against one launch per candidate
+    (``simulate_trajectories``), bitwise; and the step scan on the card:
+    against the event kernel on a dyadic schedule and against the CPU's
+    step scan, bitwise."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import event_sweep as es
+    from repro_torch.sim import (mu_rho_grid, simulate_candidates,
+                                 simulate_trajectories)
+    sur = _surrogate(dev)
+    xs = np.geomspace(sur.lo, sur.hi, 17)
+    before = es.event_sweep.launches
+    cand = simulate_candidates(xs, sur._grid1, sur.T_base, gaps=sur._gaps,
+                               device=dev)
+    one_launch = es.event_sweep.launches - before == 1
+    fields = ("wall_time", "energy", "work_executed", "io_time",
+              "down_time", "n_failures", "n_checkpoints", "truncated",
+              "gaps_exhausted")
+    stride0_equal = one_launch
+    for m, T in enumerate(xs):
+        tb = simulate_trajectories(T, sur._grid1, sur.T_base, gaps=sur._gaps,
+                                   device=dev)
+        stride0_equal &= all(torch.equal(getattr(cand, f)[m],
+                                         getattr(tb, f)) for f in fields)
+    rng = np.random.default_rng(2029)
+    gaps = np.maximum(np.round(rng.exponential(
+        1.0, size=(4, 64, 96)) * np.array([120.0, 120.0, 300.0, 300.0])[
+        :, None, None] * 2**16) / 2**16, 2.0**-16)
+    T = np.array([[32.25, 34.5], [56.75, 60.0]])
+    step, event, step_cpu = (
+        simulate_trajectories(T, mu_rho_grid([120.0, 300.0], [2.0, 5.5],
+                                             device=d), T_base=1500.0,
+                              gaps=gaps, engine_kind=k, device=d)
+        for k, d in (("step", dev), ("event", dev), ("step", "cpu")))
+    step_event = all(torch.equal(getattr(step, f), getattr(event, f))
+                     for f in fields)
+    step_cpu_equal = all(torch.equal(getattr(step, f).cpu(),
+                                     getattr(step_cpu, f)) for f in fields)
+    done = not bool(step.truncated.any())
+    log(f"candidates: stride-0 launch of 17 candidates (one launch "
+        f"{one_launch}) bitwise equal to 17 launches: {stride0_equal}; step "
+        f"scan on the card bitwise equal to the event kernel (dyadic): "
+        f"{step_event}, to the CPU's step scan: {step_cpu_equal}, all "
+        f"lanes done: {done}")
+    if not (stride0_equal and step_event and step_cpu_equal and done):
+        fail("candidates or step-scan check failed on the card")
+    return {"stride0_equal": stride0_equal, "step_equals_event": step_event,
+            "step_equals_cpu": step_cpu_equal}
+
+
+def _launch_bound(calls, peaks) -> dict:
+    """The explicit kernel's bound over recorded launches, one launch at a
+    time: the gaps its lanes read (each lane its first min(n_failures + 1,
+    F); a point stride of 0 shares one schedule row among the launch's
+    rows, read once), its outputs and parameters over the memory rate,
+    and the update's f64 operations over the FP64 rate; beside it the
+    whole schedule read once a launch."""
+    import torch
+    bw, f64_peak = peaks[0], peaks[1]
+    tot = {"bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0, "gaps": 0,
+           "schedule_bytes": 0}
+    for args, kw, nf in calls:
+        g = args[6]
+        rows, N, F = g.shape
+        used = torch.clamp_max(nf.to(torch.int64) + 1, F)
+        read = used.max(dim=0).values.sum() if g.stride(0) == 0 \
+            else used.sum()
+        nbytes = int(read) * 8 + rows * N * _OUT_BYTES + 6 * rows * 8
+        b = nbytes / bw * 1e3
+        o = int(used.sum()) * _OPS_PER_GAP["f64"] / f64_peak * 1e3
+        tot["bytes_ms"] += b
+        tot["ops_ms"] += o
+        tot["bound_ms"] += max(b, o)
+        tot["gaps"] += int(used.sum())
+        tot["schedule_bytes"] += (1 if g.stride(0) == 0 else rows) * N * F * 8
+    tot["schedule_bytes_ms"] = tot["schedule_bytes"] / bw * 1e3
+    tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+                       else "operations")
+    return tot
+
+
+def _prepared_launches(calls):
+    """A call that launches the explicit kernel over the recorded calls'
+    arguments made ready once (contiguous parameters, outputs allocated),
+    so that it times the kernel without the wrapper's host work."""
+    import torch
+    from repro_torch.kernels import _build, event_sweep as es
+    fn = es.load_library().repro_event_sweep
+    ready = []
+    for args, kw, _ in calls:
+        params = [x.contiguous() for x in args[:6]]
+        g = args[6]
+        B, N, F = g.shape
+        outs = es._outputs(B, N, g.device)
+        ready.append((params, g, outs, [
+            int(g.dtype == torch.float64), int(bool(kw["compensated"])),
+            *[x.data_ptr() for x in params], g.data_ptr(), *g.stride(), B,
+            N, F, int(kw["n_steps"]), *[o.data_ptr() for o in outs]]))
+
+    def call():
+        for params, g, outs, a in ready:
+            _build.launch(fn, *a, device=g.device, name="event_sweep")
+        return ready
+    return call
+
+
+def phase_figure_times(launch_log, peaks) -> dict:
+    """The explicit kernel on the figures path's own launches, per part
+    (fig5, the surrogate's argmin): the recorded calls replayed back to
+    back through the kernel's wrapper (``ms``, host work included) and on
+    arguments made ready once (``kernel_ms``), and through its plain
+    version (on the card; compared bitwise), each part's times beside its
+    bound."""
+    from repro_torch.kernels import event_sweep as es
+    out = {}
+    for part in ("fig5", "argmin"):
+        calls = launch_log.calls.get(part, [])
+        if not calls:
+            fail(f"figures: {part} made no explicit-kernel launch")
+        run_k = lambda: [es.event_sweep(*a, **k) for a, k, _ in calls]
+        run_p = lambda: [es.event_sweep_plain(*a, **k) for a, k, _ in calls]
+        equal, err = True, 0.0
+        for x, y in zip(run_k(), run_p()):
+            e, d = _compare(x, y)
+            equal, err = equal and e, max(err, d)
+        if not equal:
+            fail(f"figures: explicit kernel != plain version on {part}")
+        t = dict(_launch_bound(calls, peaks), launches=len(calls),
+                 rows=sum(a[6].shape[0] for a, _, _ in calls),
+                 ms=_events_ms(run_k),
+                 kernel_ms=_events_ms(_prepared_launches(calls)),
+                 plain_ms=_events_ms(run_p, reps=1),
+                 bitwise=equal, max_abs_err=err)
+        log(f"time figures {part}: explicit kernel {t['ms']:.4f} ms over "
+            f"{t['launches']} launches ({t['rows']} rows) through the "
+            f"wrapper, {t['kernel_ms']:.4f} ms on arguments made ready "
+            f"once, plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}; bytes {t['bytes_ms']:.4f}, operations "
+            f"{t['ops_ms']:.4f}); the whole schedule once a launch "
+            f"{t['schedule_bytes_ms']:.4f} ms")
+        out[part] = t
+    return out
+
+
 def _kernel_modules():
     from repro_torch.kernels import (decode_attention, event_sweep,
                                      flash_attention, mlstm_scan,
@@ -2375,6 +2700,35 @@ def main() -> None:
     del gaps_ex, tb_ex
     torch.cuda.empty_cache()
 
+    # the paper's figures and tables (fig5 and the MC surrogate through the
+    # explicit kernel, in f64), their counts read around them
+    report["candidates"] = phase_candidates(dev)
+    with _LaunchLog() as launch_log:
+        _reset_counts()
+        figs = run_figures_path(dev, launch_log)
+        torch.cuda.synchronize()
+        fig_counts = _counts()
+    log(f"figures path: event_sweep launches {fig_counts['event_sweep']} "
+        f"(fig5 {len(launch_log.calls.get('fig5', []))}, argmin "
+        f"{len(launch_log.calls.get('argmin', []))}), event_sweep_sampled "
+        f"launches {fig_counts['event_sweep_sampled']}, plain-version calls "
+        f"{fig_counts['plain']}")
+    if (fig_counts["event_sweep"] <= 0 or fig_counts["event_sweep_sampled"]
+            or fig_counts["event_draws"] or fig_counts["plain"]):
+        fail("the figures path did not run through the explicit kernel "
+             "alone")
+    from repro_torch.benchmarks import _util as fig_util
+    card_results = fig_util.RESULTS
+    fig_util.RESULTS = card_results / "cpu"
+    figs_cpu = run_figures_path(torch.device("cpu"))
+    fig_util.RESULTS = card_results
+    report["figures"] = gate_figures(figs, figs_cpu)
+    report["figures"]["host_s"] = {"card": figs["secs"],
+                                   "cpu": figs_cpu["secs"]}
+    fig_times = phase_figure_times(launch_log, peaks)
+    del launch_log, figs, figs_cpu
+    torch.cuda.empty_cache()
+
     # the checkpoint runtime path, its counts read around it
     root = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(root, ignore_errors=True)
@@ -2423,22 +2777,34 @@ def main() -> None:
     ztimes = phase_zoo_times(inp, peaks, dev)
     del inp
 
-    # the explicit kernel: launches, times and bound of the explicit path;
-    # beside them, on the 8 MC calls' drawn schedules, both layouts
+    # the explicit kernel: launches, times and bound of the figures path
+    # (fig5 and the surrogate's argmin); beside them the caller's schedule
+    # and, on the 8 MC calls' drawn schedules, both layouts
     max_err = max([parity_err, sampled_parity["max_abs_err"],
                    ex_times["max_abs_err"]]
-                  + [v["max_abs_err"] for v in variants])
+                  + [v["max_abs_err"] for v in variants]
+                  + [v["max_abs_err"] for v in fig_times.values()])
+    on_figs = lambda key: sum(v[key] for v in fig_times.values())
     on_mc = lambda key: sum(v[key] for v in variants)
     kernels = [{
         "name": "event_sweep", "route": "cuda",
         "source": "src/repro_torch/csrc/event_sweep.cu",
         "replaces": "src/repro/kernels/event_sweep.py:65",
-        "launches": ex_counts["event_sweep"],
+        "launches": fig_counts["event_sweep"],
         "max_abs_err": max_err, "parity": "bitwise",
-        "ms": ex_times["ms"], "plain_ms": ex_times["plain_ms"],
-        "bound_ms": ex_times["bound_ms"], "bound_by": ex_times["bound_by"],
+        "ms": on_figs("kernel_ms"), "wrapper_ms": on_figs("ms"),
+        "plain_ms": on_figs("plain_ms"),
+        "bound_ms": on_figs("bound_ms"),
+        "bound_by": ("bytes" if on_figs("bytes_ms") >= on_figs("ops_ms")
+                     else "operations"),
         "library_ms": None,
         "build_s": build_s["event_sweep.cu"],
+        "figures": fig_times,
+        "caller_schedule": {
+            "launches": ex_counts["event_sweep"], "ms": ex_times["ms"],
+            "plain_ms": ex_times["plain_ms"],
+            "bound_ms": ex_times["bound_ms"],
+            "bound_by": ex_times["bound_by"]},
         "on_mc_schedules": {
             "bnf_ms": on_mc("explicit_bnf_ms"),
             "bfn_ms": on_mc("explicit_bfn_ms"),

@@ -10,7 +10,8 @@ from .failures import (FailureProcess, Exponential, Weibull, LogNormal,
                        draw_gaps)
 from .model import (time_final, time_final_prime, time_fault_free,
                     time_lost_per_failure, expected_failures, phase_times,
-                    energy_final, energy_final_prime, K_factor, K_dE_dT,
+                    energy_final, energy_breakdown, energy_final_prime,
+                    K_factor, K_dE_dT,
                     K_dE_dT_autodiff, MultilevelPhaseTimes, ml_time_final,
                     ml_phase_times, ml_energy_final, ml_energy_breakdown,
                     ml_energy_final_prime, ml_K_factor, ml_K_dE_dT)
@@ -18,9 +19,13 @@ from .optimal import (t_opt_time, t_opt_time_ex, PeriodResult,
                       t_opt_time_numeric, t_opt_energy,
                       t_opt_energy_numeric, t_young, t_daly, t_msk_energy,
                       energy_quadratic_coefficients, derived_coefficients,
+                      paper_printed_coefficients, MCSurrogate,
+                      t_opt_time_mc, t_opt_energy_mc, mc_evaluate_periods,
                       period_for, STRATEGIES, golden_section,
                       DEFAULT_M_MAX, t_opt_time_multilevel,
                       t_opt_energy_multilevel,
                       ml_energy_quadratic_coefficients)
 from .simulator import simulate, simulate_once, SimResult
 from .policy import CheckpointPolicy, PolicyConfig, ML_STRATEGIES
+from .tradeoff import (TradeoffPoint, evaluate, sweep_rho, sweep_mu_rho,
+                       sweep_nodes, RobustnessPoint, evaluate_robustness)

@@ -108,6 +108,22 @@ def energy_final(T, ckpt: CheckpointParams, power: PowerParams,
             + ph.T_final * power.P_static)
 
 
+def energy_breakdown(T, ckpt: CheckpointParams, power: PowerParams,
+                     T_base: float = 1.0, device="cuda") -> dict:
+    """Per-component energies and T_final at a scalar period, as host
+    floats (for reports and tests)."""
+    ph = phase_times(T, ckpt, T_base, device)
+    comp = {
+        "E_cal": float(ph.T_cal * power.P_cal),
+        "E_io": float(ph.T_io * power.P_io),
+        "E_down": float(ph.T_down * power.P_down),
+        "E_static": float(ph.T_final * power.P_static),
+    }
+    comp["E_final"] = sum(comp.values())
+    comp["T_final"] = float(ph.T_final)
+    return comp
+
+
 def energy_final_prime(T, ckpt: CheckpointParams, power: PowerParams,
                        T_base: float = 1.0, device="cuda"):
     """Analytic dE_final/dT (see the reference for the derivation)."""

@@ -11,7 +11,9 @@ MSK    — Meneses–Sarood–Kalé energy model as the paper's §3.2 side note
          describes it (omega = 0; per-failure re-exec (T-2C)/2, I/O C).
 
 These are scalar solvers: the model is evaluated as f64 tensors on
-``device`` and the root bookkeeping runs on the host.  The closed forms
+``device`` and the root bookkeeping runs on the host.  For non-exponential
+failure processes :class:`MCSurrogate` and the ``*_mc`` solvers find the
+periods on a Monte-Carlo surrogate run by ``sim.engine``.  The closed forms
 that read only the dataclass fields (Young, Daly, the derived
 coefficients) are plain host arithmetic and take no device.
 """
@@ -20,12 +22,14 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from .._device import as_f64
+from .._device import as_f64, resolve_device
 from . import model
+from .failures import FailureProcess, as_process
 from .params import (CheckpointParams, MultilevelCheckpointParams,
                      MultilevelPowerParams, PowerParams)
 
@@ -159,6 +163,25 @@ def derived_coefficients(ckpt: CheckpointParams, power: PowerParams,
     c1 = (be * C - al * a) * b / mu + Q / (2 * mu**2)
     c0 = (-a * b * (P + mu) / mu - be * C * b**2
           - Q * (b / (2 * mu) + a / (4 * mu**2)))
+    return float(c2), float(c1), float(c0)
+
+
+def paper_printed_coefficients(
+        ckpt: CheckpointParams, power: PowerParams,
+) -> Tuple[float, float, float]:
+    """The paper's final displayed quadratic coefficients, verbatim: kept
+    for the erratum comparison (its constant term disagrees with the exact
+    interpolated quadratic when alpha != 1)."""
+    C, R, D, mu = ckpt.C, ckpt.R, ckpt.D, ckpt.mu
+    a, b, omega = ckpt.a, ckpt.b, ckpt.omega
+    al, be, ga = power.alpha, power.beta, power.gamma
+    c2 = ((al * omega * C + be * R + ga * D) / (2 * mu**2)
+          + b / (2 * mu) + (a - be * C) / (4 * mu**2) + 1 / (2 * mu))
+    c1 = ((be * C - a) * b / mu
+          - 2 * (al * (1 - omega) - be) * C**2 / (4 * mu**2))
+    c0 = (-a * b * (al * omega * C + be * R + ga * D + mu) / mu
+          - be * C * b**2
+          + (b / (2 * mu) + a / (4 * mu**2)) * (al * (1 - omega) - be) * C**2)
     return float(c2), float(c1), float(c0)
 
 
@@ -321,6 +344,155 @@ def t_opt_energy_multilevel(ck: MultilevelCheckpointParams,
             f"No valid (T, m): deep checkpoint C2={ck.C2} too large for "
             f"platform MTBF mu={ck.mu} at every m <= {m_max}.")
     return best[1], best[2]
+
+
+# --------------------------------------------------------------------------
+# MC-surrogate solvers for non-exponential failure processes
+# --------------------------------------------------------------------------
+#
+# No closed form exists for Weibull / log-normal / trace failures, so the
+# optimal period is found on a Monte-Carlo surrogate: one schedule set
+# (common random numbers) is reused for every candidate T, which makes the
+# objective a deterministic, nearly smooth function of T.  A coarse grid
+# scan localizes the argmin's basin; golden section on the surrogate
+# polishes it.
+
+
+class MCSurrogate:
+    """CRN Monte-Carlo objective E[T_final] / E[E_final] as a function of T.
+
+    Built once per (ckpt, power, process): the schedule is sampled once on
+    the host from the caller's ``rng`` (``np.random.default_rng(s)``
+    reproduces the reference's ``seed=s``) and moved to ``device`` once;
+    every evaluation replays it through ``sim.engine.simulate_candidates``
+    (one launch for all of a call's candidates under the event kinds), so
+    calls are deterministic and comparable across T.
+    """
+
+    def __init__(self, ckpt: CheckpointParams, power: PowerParams,
+                 process: Optional[FailureProcess] = None,
+                 T_base: Optional[float] = None, n_trials: int = 160, *,
+                 rng: np.random.Generator,
+                 engine_kind: Optional[str] = None, dispatch=None,
+                 device="cuda"):
+        # imported here: the sim package imports core
+        from ..sim import engine as _engine
+        from ..sim.scenarios import ParamGrid
+        self.ckpt, self.power = ckpt, power
+        self.process = as_process(process)
+        self.engine_kind = _engine.resolve_engine_kind(engine_kind)
+        self.dispatch = dispatch
+        self.device = resolve_device(device)
+        lo, hi = _bracket(ckpt)
+        t_ref = t_opt_time_ex(ckpt, self.device).T
+        # Generous decades around the exponential optimum, clear of the
+        # bracket edges where E[T_final] diverges and the budgets with it.
+        self.lo = max(lo * 1.02, t_ref / 10.0)
+        self.hi = min(hi * 0.9, t_ref * 10.0)
+        if T_base is None:
+            # many periods and failures per trajectory, a sane budget
+            T_base = max(30.0 * t_ref, 10.0 * ckpt.mu)
+        self.T_base = float(T_base)
+        self.n_trials = int(n_trials)
+
+        self._grid1 = ParamGrid.from_params(ckpt, power,
+                                            self.device).reshape((1,))
+        probes = np.linspace(self.lo, self.hi, 9)
+        cap = _engine.default_fail_capacity(probes, self._grid1, self.T_base,
+                                            process=self.process)
+        self._n_steps = (None if self.engine_kind in _engine._EVENT_LIKE
+                         else _engine.default_step_budget(
+                             probes, self._grid1, self.T_base,
+                             process=self.process))
+        gaps = _engine.presample_gaps(self._grid1, self.n_trials, cap, rng,
+                                      process=self.process)
+        self._gaps = torch.as_tensor(gaps, dtype=torch.float64,
+                                     device=self.device)
+        self._engine = _engine
+        self._first_evals: dict = {}   # initial argmin grid, shared by keys
+
+    def __call__(self, Ts) -> dict:
+        """Mean wall time / energy (+ standard errors) at each candidate T,
+        host numpy arrays; all candidates share the schedule."""
+        Ts = np.atleast_1d(np.asarray(Ts, dtype=np.float64))
+        tb = self._engine.simulate_candidates(
+            Ts, self._grid1, self.T_base, gaps=self._gaps,
+            n_steps=self._n_steps, engine_kind=self.engine_kind,
+            dispatch=self.dispatch, device=self.device)
+        if bool(tb.truncated.any()):
+            raise RuntimeError("MC surrogate: step budget exceeded — "
+                               "candidate period too close to the bracket "
+                               "edge for this failure process")
+        if bool(tb.gaps_exhausted.any()):
+            raise RuntimeError("MC surrogate: failure schedule exhausted — "
+                               "increase the pre-sample capacity")
+        wall, energy = tb.wall_time[:, 0, :], tb.energy[:, 0, :]
+        n = wall.shape[-1]
+        host = lambda x: x.cpu().numpy()
+        se = lambda a: host(a.std(dim=-1, correction=1)) / math.sqrt(n)
+        return {"time": host(wall.mean(dim=-1)),
+                "energy": host(energy.mean(dim=-1)),
+                "time_se": se(wall), "energy_se": se(energy)}
+
+    def argmin(self, key: str, rounds: int = 3, pts: int = 17) -> float:
+        """Coarse-to-fine grid localization + golden-section polish of the
+        surrogate argmin for ``key`` in {"time", "energy"}."""
+        lo, hi = self.lo, self.hi
+        xs = np.geomspace(lo, hi, pts)
+        for rnd in range(rounds):
+            if rnd == 0:
+                # the first (geomspace) grid is the same for both keys
+                if pts not in self._first_evals:
+                    self._first_evals[pts] = self(xs)
+                ys = self._first_evals[pts][key]
+            else:
+                ys = self(xs)[key]
+            i = int(np.argmin(ys))
+            lo, hi = xs[max(i - 1, 0)], xs[min(i + 1, pts - 1)]
+            xs = np.linspace(lo, hi, pts)
+        return golden_section(lambda t: float(self([t])[key][0]), lo, hi,
+                              tol=1e-6, max_iter=40)
+
+
+def t_opt_time_mc(ckpt: CheckpointParams,
+                  process: Optional[FailureProcess] = None,
+                  power: Optional[PowerParams] = None,
+                  T_base: Optional[float] = None, n_trials: int = 160, *,
+                  rng: np.random.Generator,
+                  engine_kind: Optional[str] = None, dispatch=None,
+                  device="cuda") -> float:
+    """Time-optimal period under an arbitrary failure process (MC
+    surrogate); with the exponential process it converges to AlgoT."""
+    power = power or PowerParams(P_static=1.0, P_cal=0.0, P_io=0.0)
+    return MCSurrogate(ckpt, power, process, T_base, n_trials, rng=rng,
+                       engine_kind=engine_kind, dispatch=dispatch,
+                       device=device).argmin("time")
+
+
+def t_opt_energy_mc(ckpt: CheckpointParams, power: PowerParams,
+                    process: Optional[FailureProcess] = None,
+                    T_base: Optional[float] = None, n_trials: int = 160, *,
+                    rng: np.random.Generator,
+                    engine_kind: Optional[str] = None, dispatch=None,
+                    device="cuda") -> float:
+    """Energy-optimal period under an arbitrary failure process."""
+    return MCSurrogate(ckpt, power, process, T_base, n_trials, rng=rng,
+                       engine_kind=engine_kind, dispatch=dispatch,
+                       device=device).argmin("energy")
+
+
+def mc_evaluate_periods(Ts: Sequence[float], ckpt: CheckpointParams,
+                        power: PowerParams,
+                        process: Optional[FailureProcess] = None,
+                        T_base: Optional[float] = None, n_trials: int = 160,
+                        *, rng: np.random.Generator,
+                        engine_kind: Optional[str] = None, dispatch=None,
+                        device="cuda") -> dict:
+    """Mean wall time / energy at each candidate period under ``process``
+    (one schedule shared by all candidates)."""
+    return MCSurrogate(ckpt, power, process, T_base, n_trials, rng=rng,
+                       engine_kind=engine_kind, dispatch=dispatch,
+                       device=device)(Ts)
 
 
 # --------------------------------------------------------------------------

@@ -10,18 +10,27 @@ Root selection matches the scalar solver: E' = Q/K with K > 0 on the
 valid interval, so the energy minimum is the root of Q where Q' > 0; any
 point where that root is missing, complex, out of the bracket, or beaten
 by the golden-section argmin falls back to the numeric result.
+
+The robustness grids (:func:`evaluate_robustness_grid`,
+:func:`evaluate_periods_grid`, :func:`sweep_weibull_shapes`) score the
+exponential-assumption periods under a non-exponential process by Monte
+Carlo, every candidate on one schedule per grid point
+(``engine.simulate_candidates``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .._device import F64, resolve_device
+from ..core.failures import as_process
 from ..core.params import PowerParams
 from . import dispatch as _dispatch
+from . import engine as _engine
 from . import precision as _precision
 from . import scenarios
 from .scenarios import ParamGrid
@@ -337,21 +346,262 @@ def evaluate_grid(grid: ParamGrid, T_base: float = 1.0, dispatch=None,
 # ---------------------------------------------------------------------------
 
 def sweep_rho_grid(rhos: Sequence[float], mu_minutes: float,
-                   alpha: float = 1.0, device="cuda") -> GridResult:
+                   alpha: float = 1.0, device="cuda",
+                   precision=None) -> GridResult:
     """Figure 1: rho swept at one MTBF (grid shape ``(1, len(rhos))``)."""
     return evaluate_grid(scenarios.mu_rho_grid([mu_minutes], rhos, alpha,
-                                               device), device=device)
+                                               device), precision=precision,
+                         device=device)
 
 
 def sweep_mu_rho_grid(mus: Sequence[float], rhos: Sequence[float],
-                      alpha: float = 1.0, device="cuda") -> GridResult:
+                      alpha: float = 1.0, device="cuda",
+                      precision=None) -> GridResult:
     """Figure 2: the (mu x rho) ratio surfaces in one call."""
     return evaluate_grid(scenarios.mu_rho_grid(mus, rhos, alpha, device),
-                         device=device)
+                         precision=precision, device=device)
 
 
 def sweep_nodes_grid(n_nodes: Sequence[float], power: PowerParams,
-                     device="cuda") -> GridResult:
+                     device="cuda", precision=None) -> GridResult:
     """Figure 3: scalability in N at one power scenario."""
     return evaluate_grid(scenarios.nodes_grid(n_nodes, power, device),
-                         device=device)
+                         precision=precision, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Robustness: exponential-assumption periods under realistic failures
+# ---------------------------------------------------------------------------
+#
+# No closed form exists for non-exponential processes, so the grid solver
+# is Monte Carlo: one schedule set per grid point, sampled on the host from
+# the caller's generator and moved to the device once, is reused for every
+# candidate period (common random numbers); the argmins are localized by
+# coarse-to-fine refinement, each round one ``simulate_candidates`` call
+# for every candidate and grid point; every reported period is scored on
+# the same schedules, so the penalties are CRN-paired.  The candidate
+# bookkeeping is host numpy (a few floats per grid point); the means come
+# back from the device once per call.
+
+@dataclasses.dataclass(frozen=True)
+class RobustnessResult:
+    """Per-grid-point periods and CRN penalties; numpy arrays of
+    ``grid.shape``.
+
+    ``*_penalty_*`` are ratios >= ~1: wall time (or energy) at the
+    exponential-assumption period divided by its value at the MC
+    process-optimal period, under the non-exponential process.
+    """
+
+    grid: ParamGrid
+    process: object                # FailureProcess
+    T_base: np.ndarray             # per-point simulated work (grid.shape)
+    n_trials: int
+    T_exp_time: np.ndarray         # AlgoT closed form (exponential model)
+    T_exp_energy: np.ndarray       # AlgoE quadratic root
+    T_young: np.ndarray
+    T_daly: np.ndarray
+    T_mc_time: np.ndarray          # process-optimal (MC surrogate)
+    T_mc_energy: np.ndarray
+    eval_periods: np.ndarray       # (6,) + grid.shape, the scored periods
+                                   # [mc_t, mc_e, algoT, algoE, young, daly]
+                                   # clipped into the safe range; feed to
+                                   # evaluate_periods_grid to validate them
+    wall_mc: np.ndarray            # E[T_final] at T_mc_time
+    energy_mc: np.ndarray          # E[E_final] at T_mc_energy
+    wall_mc_se: np.ndarray
+    energy_mc_se: np.ndarray
+    time_penalty_exp: np.ndarray
+    energy_penalty_exp: np.ndarray
+    time_penalty_young: np.ndarray
+    time_penalty_daly: np.ndarray
+    energy_penalty_young: np.ndarray
+    energy_penalty_daly: np.ndarray
+    valid: np.ndarray
+
+
+def _flat_tbase(T_base, grid: ParamGrid) -> np.ndarray:
+    """Per-point T_base as a flat (grid.size,) array, from a scalar, an
+    already-flat vector, or a grid-shaped array."""
+    arr = np.asarray(T_base, dtype=np.float64)
+    if arr.shape == grid.shape:
+        return arr.ravel().copy()
+    return np.broadcast_to(arr, (grid.size,)).copy()
+
+
+def _mc_eval(T_cand, flat: ParamGrid, T_base, gaps, n_steps=None,
+             engine_kind: Optional[str] = None, dispatch=None):
+    """Means (and standard errors) over trials of wall time and energy for
+    candidate periods ``T_cand`` of shape ``(M, B)`` against the flat grid,
+    in one ``simulate_candidates`` call on the grid's device; host numpy
+    arrays of shape ``(M, B)``."""
+    T_cand = np.atleast_2d(np.asarray(T_cand, dtype=np.float64))
+    tb = _engine.simulate_candidates(T_cand, flat, T_base, gaps=gaps,
+                                     n_steps=n_steps,
+                                     engine_kind=engine_kind,
+                                     dispatch=dispatch, device=flat.device)
+    if bool(tb.truncated.any()):
+        raise RuntimeError("robustness sweep: step budget exceeded — "
+                           "candidate period too close to a bracket edge")
+    if bool(tb.gaps_exhausted.any()):
+        raise RuntimeError("robustness sweep: failure schedule exhausted — "
+                           "increase the capacity margins")
+    n = tb.wall_time.shape[-1]
+    host = lambda x: x.cpu().numpy()
+    se = lambda a: host(a.std(dim=-1, correction=1)) / math.sqrt(n)
+    return (host(tb.wall_time.mean(dim=-1)), host(tb.energy.mean(dim=-1)),
+            se(tb.wall_time), se(tb.energy))
+
+
+def _mc_setup(flat: ParamGrid, probes, T_base, n_trials: int,
+              rng: np.random.Generator, process, engine_kind: str):
+    """(device schedule, step budget) of the candidate calls: the capacity
+    and the budget of the worst probe, the schedule sampled once on the
+    host from ``rng`` and moved to the grid's device."""
+    cap = _engine.default_fail_capacity(probes, flat, T_base,
+                                        process=process)
+    n_steps = (None if engine_kind in _engine._EVENT_LIKE else
+               _engine.default_step_budget(probes, flat, T_base,
+                                           process=process))
+    gaps = _engine.presample_gaps(flat, n_trials, cap, rng, process=process)
+    return torch.as_tensor(gaps, dtype=F64, device=flat.device), n_steps
+
+
+def evaluate_robustness_grid(grid: ParamGrid, process,
+                             T_base: Optional[float] = None,
+                             n_trials: int = 160, *,
+                             rng: np.random.Generator,
+                             n_candidates: int = 13, rounds: int = 3,
+                             engine_kind: Optional[str] = None,
+                             dispatch=None,
+                             device="cuda") -> RobustnessResult:
+    """MC robustness evaluation of a whole grid under ``process``, on
+    ``device``.
+
+    Each refinement round scores ``n_candidates`` periods for every grid
+    point in one candidate call; a final call scores the six reported
+    periods (MC-time, MC-energy, AlgoT, AlgoE, Young, Daly) on the same
+    schedules, sampled once from the caller's ``rng``
+    (``np.random.default_rng(s)`` reproduces the reference's ``seed=s``).
+    The closed-form periods come from :func:`evaluate_grid` under the
+    engine kind's policy (f64 for ``"event"``).  Re-validate the reported
+    optima with :func:`evaluate_periods_grid` on another generator.
+    """
+    process = as_process(process)
+    kind = _engine.resolve_engine_kind(engine_kind)
+    dev = resolve_device(device)
+    pol = _engine._engine_policy(kind, dispatch, None, dev)
+    grid = grid.to(dev)
+    res = evaluate_grid(grid, T_base=1.0, dispatch=dispatch, precision=pol,
+                        device=dev)
+    if not bool(res.valid.all()):
+        raise ValueError("robustness sweep: grid contains degenerate points "
+                         "(no valid period); filter them first")
+    flat = grid.ravel()
+    B = flat.size
+    host = lambda x: x.cpu().numpy().ravel()
+    Tt, Te, Ty, Td = (host(x) for x in (res.T_time, res.T_energy,
+                                        res.T_young, res.T_daly))
+    lo0, hi0 = (host(x) for x in flat.period_bounds())
+    # Search well clear of the bracket edges, where E[T_final] (and with it
+    # the budgets) diverges; the optimum sits near the exponential T* for
+    # every renewal process with the same mean.
+    lo = np.maximum(lo0 * 1.02, Tt / 6.0)
+    hi = np.minimum(lo0 + 0.75 * (hi0 - lo0), Tt * 6.0)
+    if T_base is None:
+        T_base = np.maximum(30.0 * Tt, 10.0 * host(flat.mu))
+    T_base = _flat_tbase(T_base, grid)
+    probes = lo[None, :] * (hi / lo)[None, :] ** np.linspace(
+        0.0, 1.0, 9)[:, None]
+    gaps, n_steps = _mc_setup(flat, probes, T_base, n_trials, rng, process,
+                              kind)
+    mc = lambda xs: _mc_eval(xs, flat, T_base, gaps, n_steps, kind, dispatch)
+
+    # Coarse-to-fine localization of both argmins (batched over the grid).
+    frac = np.linspace(0.0, 1.0, n_candidates)[:, None]
+    xs_t = lo[None, :] * (hi / lo)[None, :] ** frac     # geometric first pass
+    xs_e = xs_t
+
+    def shrink(xs, ys):
+        i = np.argmin(ys, axis=0)
+        lo2 = xs[np.maximum(i - 1, 0), np.arange(B)]
+        hi2 = xs[np.minimum(i + 1, n_candidates - 1), np.arange(B)]
+        return lo2[None, :] + (hi2 - lo2)[None, :] * frac
+
+    def score(xs_time, xs_energy):
+        # one call returns both objectives, so the shared first round is
+        # simulated once
+        wall_t, energy_t, _, _ = mc(xs_time)
+        if xs_energy is xs_time:
+            return wall_t, energy_t
+        return wall_t, mc(xs_energy)[1]
+
+    for _ in range(rounds):
+        wall_t, energy_e = score(xs_t, xs_e)
+        xs_t = shrink(xs_t, wall_t)
+        xs_e = shrink(xs_e, energy_e)
+    wall_t, energy_e = score(xs_t, xs_e)
+    T_mc_t = xs_t[np.argmin(wall_t, axis=0), np.arange(B)]
+    T_mc_e = xs_e[np.argmin(energy_e, axis=0), np.arange(B)]
+
+    # Score all six reported periods on the same schedules (CRN-paired).
+    cands = np.clip(np.stack([T_mc_t, T_mc_e, Tt, Te, Ty, Td]),
+                    lo[None, :], hi[None, :])
+    wall, energy, wall_se, energy_se = mc(cands)
+    shp = grid.shape
+    r = lambda a: np.asarray(a, dtype=np.float64).reshape(shp)
+    return RobustnessResult(
+        grid=grid, process=process, T_base=r(T_base),
+        n_trials=int(n_trials),
+        T_exp_time=r(Tt), T_exp_energy=r(Te), T_young=r(Ty), T_daly=r(Td),
+        T_mc_time=r(T_mc_t), T_mc_energy=r(T_mc_e),
+        eval_periods=cands.reshape((6,) + shp),
+        wall_mc=r(wall[0]), energy_mc=r(energy[1]),
+        wall_mc_se=r(wall_se[0]), energy_mc_se=r(energy_se[1]),
+        time_penalty_exp=r(wall[2] / wall[0]),
+        energy_penalty_exp=r(energy[3] / energy[1]),
+        time_penalty_young=r(wall[4] / wall[0]),
+        time_penalty_daly=r(wall[5] / wall[0]),
+        energy_penalty_young=r(energy[4] / energy[1]),
+        energy_penalty_daly=r(energy[5] / energy[1]),
+        valid=res.valid.cpu().numpy().copy())
+
+
+def evaluate_periods_grid(grid: ParamGrid, process, periods, T_base,
+                          n_trials: int = 160, *,
+                          rng: np.random.Generator,
+                          engine_kind: Optional[str] = None, dispatch=None,
+                          device="cuda") -> dict:
+    """MC means at given candidate periods under ``process``, on
+    ``device`` (common random numbers across candidates, a schedule sampled
+    from the caller's ``rng``).
+
+    ``periods`` has shape ``(M,) + grid.shape``; returns a dict of numpy
+    ``wall`` / ``energy`` (+ ``_se``) arrays of the same shape.  This is the
+    independent-validation entry: score ``RobustnessResult.eval_periods``
+    on another generator and compare the derived penalties.
+    """
+    process = as_process(process)
+    kind = _engine.resolve_engine_kind(engine_kind)
+    flat = grid.ravel().to(resolve_device(device))
+    B = flat.size
+    P = np.asarray(periods, dtype=np.float64).reshape((-1, B))
+    T_base = _flat_tbase(T_base, grid)
+    gaps, n_steps = _mc_setup(flat, P, T_base, n_trials, rng, process, kind)
+    wall, energy, wall_se, energy_se = _mc_eval(P, flat, T_base, gaps,
+                                                n_steps, kind, dispatch)
+    shp = (P.shape[0],) + grid.shape
+    return {"wall": wall.reshape(shp), "energy": energy.reshape(shp),
+            "wall_se": wall_se.reshape(shp),
+            "energy_se": energy_se.reshape(shp)}
+
+
+def sweep_weibull_shapes(shapes: Sequence[float], mu_minutes: Sequence[float],
+                         base: str = "exascale_rho55", device="cuda",
+                         **kwargs) -> RobustnessResult:
+    """Weibull shape x exascale-platform MTBF robustness sweep (fig5's
+    entry point); ``kwargs`` go to :func:`evaluate_robustness_grid` (its
+    ``rng`` among them)."""
+    grid, process = scenarios.robustness_grid(shapes, mu_minutes, base=base,
+                                              device=device)
+    return evaluate_robustness_grid(grid, process, device=device, **kwargs)

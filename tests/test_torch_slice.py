@@ -105,7 +105,15 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
             "repro_torch.kernels.decode_attention, "
             "repro_torch.kernels.rglru_scan, "
             "repro_torch.kernels.mlstm_scan, "
-            "repro_torch.benchmarks.bench_kernels\n"
+            "repro_torch.benchmarks.bench_kernels, "
+            "repro_torch.core.tradeoff, repro_torch.benchmarks.run, "
+            "repro_torch.benchmarks.fig1_rho_sweep, "
+            "repro_torch.benchmarks.fig2_mu_rho, "
+            "repro_torch.benchmarks.fig3_scalability, "
+            "repro_torch.benchmarks.fig5_robustness, "
+            "repro_torch.benchmarks.table_baselines, "
+            "repro_torch.benchmarks.table_simulation, "
+            "repro_torch.benchmarks.quickstart\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(','.join(bad))\n")
