@@ -136,6 +136,42 @@ Phases (any failure exits non-zero; no result line is printed then):
    0 shares them), outputs and parameters, or the update's f64
    operations.
 
+10. the multilevel (buddy + PFS) path (after phase 9), each part with
+   the counts set to 0 just before it and read just after, every line
+   with the card's name and power limit.  ml-sweep-262k:
+   ``evaluate_multilevel_grid`` on ``buddy_ratio_grid(geomspace(0.01, 1,
+   512), geomspace(0.001, 0.5, 512), mu_min=300)`` at m 1..12, f64 and
+   compensated f32 (host clock, chunks, peak device memory); the f64
+   result equal to the port's CPU run on every 64th point within 1e-12
+   (the same m picks, valid and NaN positions), compensated f32 by the
+   reference's multilevel gate (m flips of one notch at most, the f32
+   pick's f64 energy within 10 objective_tol, the periods compared
+   directly within argmin_rtol where the m picks agree; where they flip,
+   the direct reading printed and the period held against the f64 one of
+   its own cadence).  ml-mc-1024x4096:
+   ``simulate_trajectories_ml`` at the AlgoT and AlgoE (T, m) of
+   ``buddy_ratio_grid(geomspace(0.02, 1, 32), geomspace(0.01, 0.4, 32),
+   mu_min=600)``, 4096 trials, T_base 4000, f64, each schedule drawn by
+   ``presample_failures`` from ``default_rng(0)`` and moved to the card
+   once (host clock split into presampling, the copy, the scan and the
+   energy integral; steps against the budget; peak device memory); no
+   truncated or exhausted lane, 72 points x 64 trials equal to the CPU's
+   run (bitwise, else named and gated at 1e-12), the MC means within 2%
+   (AlgoT) and 2.5% (AlgoE, where the first-order forms miss the
+   reference's own MC by up to 2.05%) of the closed forms wherever
+   m T < mu, the points beyond 2% printed.  The sweep and the scan are
+   plain PyTorch: no kernel launch and no plain-version call.  figs-fig4:
+   fig4, ``sweep_buddy_ratio`` on fig4's axes and ``energy_study``
+   (``default_rng(0)``) on the card (the explicit and the sampled event
+   kernels launched, no plain call), within 1e-12 of the CPU's run (the
+   study's lines equal), fig4's headline (40.56% at ratio 0.02, q 0.01,
+   m* 12).  The m = 1 reduction: the lift of a single-level grid (q 0.3)
+   through ``simulate_trajectories_ml(T, 1)`` bitwise equal, on a dyadic
+   schedule, to the step kind and to the explicit event kernel (launched
+   and counted), on a raw schedule to the step kind (the energy integral,
+   which prices each level's I/O at its own power, within 1e-15), and to
+   the CPU's scan.
+
 Near the end it prints one JSON line ``{"gates": {...}}`` with every
 gate's numbers, then one ``{"kernels": [...]}`` line, then the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -2595,6 +2631,583 @@ def phase_figure_times(launch_log, peaks) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 10. the multilevel (buddy + PFS) path
+# ---------------------------------------------------------------------------
+
+#: ml-sweep-262k: fig4's scenario family, buddy ratio x q geomspaced,
+#: 512 x 512, mu 300, fig4's cadences; every ML_SWEEP_STRIDE-th point is
+#: solved again on the CPU.
+ML_SWEEP_AXES = ((0.01, 1.0, 512), (0.001, 0.5, 512))
+ML_SWEEP_MU = 300.0
+ML_M_VALUES = tuple(range(1, 13))
+ML_SWEEP_STRIDE = 64
+#: ml-mc-1024x4096: the reference's two-level MC sizing case, at its
+#: jointly optimal (T, m), schedules from default_rng(ML_MC_SEED); lanes of
+#: ML_CPU_POINTS points x ML_CPU_TRIALS trials are run again on the CPU.
+ML_MC_AXES = ((0.02, 1.0, 32), (0.01, 0.4, 32))
+ML_MC_MU = 600.0
+ML_MC_SEED = 0
+ML_CPU_POINTS, ML_CPU_TRIALS = 72, 64
+#: the MC means' largest gap to the first-order closed forms where
+#: m T < mu: the reference's 2% at AlgoT; at AlgoE the forms sit up to
+#: 2.09% above this run's MC (q 0.36-0.40), and the reference's own
+#: simulate_grid_ml (seed 0, 4096 trials) reads 1.67% and 2.05% (standard
+#: error 0.13%) at the two points beyond 2%
+#: (tests/test_torch_multilevel.py, TestFirstOrderGap): 2.5% is the card's
+#: reading plus three standard errors.
+ML_MODEL_GAP = {"algo_t": 0.02, "algo_e": 0.025}
+#: fig4's headline (the reference's own fig4 on the CPU): energy below
+#: PFS-only, buddy ratio, q, m*.
+FIG4_HEADLINE = (0.4056, 0.02, 0.01, 12)
+#: the m = 1 reduction's schedule (a seeded numpy generator).
+ML_M1_SEED = 2030
+
+
+def _geom_grid(axes, mu, dev):
+    import numpy as np
+    from repro_torch.sim import buddy_ratio_grid
+    (r0, r1, nr), (q0, q1, nq) = axes
+    return buddy_ratio_grid(np.geomspace(r0, r1, nr), np.geomspace(q0, q1, nq),
+                            mu_min=mu, device=dev)
+
+
+def _peak_time(fn):
+    """``(result, host-clock s, peak device bytes above what was allocated
+    before)`` of ``fn``."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, secs = _sync_time(fn)
+    return out, secs, torch.cuda.max_memory_allocated() - base
+
+
+def run_ml_sweep(dev, mlog) -> tuple:
+    """ml-sweep-262k: ``evaluate_multilevel_grid`` under f64 and
+    compensated f32; (grid, {policy: result}, {policy: numbers})."""
+    from repro_torch.sim import (COMPENSATED_F32, F64, chunk_plan,
+                                 evaluate_multilevel_grid)
+    from repro_torch.sim.sweep import _ML_BYTES_PER_POINT_M
+    grid = _geom_grid(ML_SWEEP_AXES, ML_SWEEP_MU, dev)
+    chunks = len(chunk_plan(grid.size,
+                            _ML_BYTES_PER_POINT_M * len(ML_M_VALUES)))
+    res, nums = {}, {}
+    for pol in (F64, COMPENSATED_F32):
+        res[pol.name], secs, peak = _peak_time(
+            lambda: evaluate_multilevel_grid(grid, m_values=ML_M_VALUES,
+                                             precision=pol, device=dev))
+        nums[pol.name] = {"host_s": secs, "chunks": chunks,
+                          "peak_bytes": peak}
+        mlog(f"ml-sweep-262k evaluate_multilevel_grid {grid.size} points x "
+             f"{len(ML_M_VALUES)} cadences [{pol.name}]: {secs:.4f} s host "
+             f"clock (cold), {chunks} chunks, peak device memory {peak} B")
+    return grid, res, nums
+
+
+def gate_ml_sweep(grid, res, mlog) -> dict:
+    """The card's f64 result against the port's CPU run on every
+    ``ML_SWEEP_STRIDE``-th point (within 1e-12 relative, the same m picks,
+    valid and NaN positions); compensated f32 against f64 by the
+    reference's multilevel gate (tests/test_pallas_engine.py,
+    ``test_multilevel_family``): m flips of at most one notch, the f32
+    pick's f64 energy within 10 ``objective_tol`` of the f64 optimum, and
+    the periods compared directly, ``|T32 - T64| / T64`` within
+    ``argmin_rtol``, at every point where the m picks agree.  Where they
+    differ by a notch (a near-tie between two cadences), the two periods
+    are optima of different cadences and the direct reading is printed,
+    not gated: there the f32 period is held within ``argmin_rtol`` of the
+    f64 period of its own cadence."""
+    import torch
+    from repro_torch.sim import COMPENSATED_F32, evaluate_multilevel_grid
+    from repro_torch.sim.sweep import _ML_BY_M_ORDER, _ML_OUT_ORDER
+    r64, r32 = res["f64"], res["compensated_f32"]
+    idx = torch.arange(0, grid.size, ML_SWEEP_STRIDE, device=grid.device)
+    sub = grid.take(idx)
+    cpu = evaluate_multilevel_grid(sub.to("cpu"), m_values=ML_M_VALUES,
+                                   precision="f64", device="cpu")
+    worst, same = 0.0, True
+    for f in _ML_OUT_ORDER + _ML_BY_M_ORDER:
+        x = getattr(r64, f)
+        x = x.reshape(-1)[idx] if x.dim() == len(grid.shape) else \
+            x.reshape(x.shape[0], -1)[:, idx]
+        y = getattr(cpu, f)
+        x = x.cpu()
+        if x.dtype in (torch.bool, torch.int64):
+            same &= torch.equal(x, y)
+            continue
+        same &= torch.equal(torch.isnan(x), torch.isnan(y))
+        ok = ~torch.isnan(y)
+        if bool(ok.any()):
+            worst = max(worst, float(((x - y).abs()[ok]
+                                      / y.abs()[ok].clamp_min(1e-300)).max()))
+    mlog(f"ml-sweep-262k card f64 against the CPU on {idx.numel()} points: "
+         f"max rel {worst:.3e} (<= 1e-12), same m picks, valid and NaN "
+         f"positions: {same}")
+    if worst > 1e-12 or not same:
+        fail("ml-sweep-262k: the card's f64 result differs from the CPU's")
+
+    pol = COMPENSATED_F32
+    v = r64.valid
+    if not torch.equal(v, r32.valid):
+        fail("ml-sweep-262k: valid masks differ between policies")
+    out = {"cpu_points": idx.numel(), "cpu_max_rel": worst}
+    for T, m, Tm in (("T_time", "m_time", "T_time_by_m"),
+                     ("T_energy", "m_energy", "T_energy_by_m")):
+        m64, m32 = getattr(r64, m), getattr(r32, m)
+        T64, T32 = getattr(r64, T), getattr(r32, T)
+        direct = (T32 - T64).abs() / T64
+        same_m, flip = v & (m64 == m32), v & (m64 != m32)
+        at_pick = torch.gather(getattr(r64, Tm), 0,
+                               (m32 - ML_M_VALUES[0])[None])[0]
+        own = ((T32 - at_pick).abs() / at_pick)[flip]
+        arg = float(direct[same_m].max())
+        flips = int(flip.sum())
+        notch = int((m64 - m32)[v].abs().max())
+        flip_direct = [float(direct[flip].min()), float(direct[flip].max())] \
+            if flips else None
+        flip_own = float(own.max()) if flips else 0.0
+        out[T] = {"argmin_rel": arg, "m_flips": flips, "max_notch": notch,
+                  "flipped_direct_rel": flip_direct,
+                  "flipped_own_cadence_rel": flip_own}
+        mlog(f"ml-sweep-262k compensated {T}: {int(v.sum())} valid points; "
+             f"|T32 - T64| / T64 at the {int(same_m.sum())} points with the "
+             f"same m: max {arg:.3e} (<= {pol.argmin_rtol}); m flips "
+             f"{flips}, largest {notch} notch (<= 1)"
+             + (f"; at the flipped points |T32 - T64| / T64 "
+                f"{flip_direct[0]:.3e} to {flip_direct[1]:.3e} (not gated: "
+                f"optima of different cadences), T32 against the f64 period "
+                f"of its own cadence max {flip_own:.3e} (<= "
+                f"{pol.argmin_rtol})" if flips else ""))
+        if arg > pol.argmin_rtol or flip_own > pol.argmin_rtol or notch > 1:
+            fail(f"ml-sweep-262k: compensated {T} outside its gate")
+    E64 = r64.E_by_m
+    at64 = torch.gather(E64, 0, (r64.m_energy - ML_M_VALUES[0])[None])[0]
+    at32 = torch.gather(E64, 0, (r32.m_energy - ML_M_VALUES[0])[None])[0]
+    obj = float(((at32 - at64).abs() / at64.abs())[v].max())
+    out["energy_objective_rel"] = obj
+    mlog(f"ml-sweep-262k compensated AlgoE pick's f64 energy: max rel "
+         f"{obj:.3e} (<= {10 * pol.objective_tol:g})")
+    if obj > 10 * pol.objective_tol:
+        fail("ml-sweep-262k: the compensated pick's energy is off")
+    return out
+
+
+def run_ml_mc(dev, mlog) -> tuple:
+    """ml-mc-1024x4096 at the AlgoT and the AlgoE (T, m), f64: each
+    schedule drawn by ``presample_failures`` from ``default_rng(0)`` on the
+    host, moved to the card once, and swept by ``simulate_trajectories_ml``;
+    (grid, solved result, {algo: run})."""
+    import numpy as np
+    import torch
+    from repro_torch.sim import (F64, default_fail_capacity_ml,
+                                 evaluate_multilevel_grid, presample_failures,
+                                 simulate_trajectories_ml)
+    from repro_torch.sim.engine import _ml_energy
+    grid = _geom_grid(ML_MC_AXES, ML_MC_MU, dev)
+    sol = evaluate_multilevel_grid(grid, m_values=ML_M_VALUES, precision=F64,
+                                   device=dev)
+    runs = {}
+    for algo, T, m in (("algo_t", sol.T_time, sol.m_time),
+                       ("algo_e", sol.T_energy, sol.m_energy)):
+        cap = default_fail_capacity_ml(T.reshape(-1), m.reshape(-1),
+                                       grid.ravel(), T_BASE)
+        t0 = time.perf_counter()
+        gaps, hard = presample_failures(grid, N_TRIALS, cap,
+                                        np.random.default_rng(ML_MC_SEED))
+        pre_s = time.perf_counter() - t0
+        (g, h), h2d_s = _sync_time(lambda: (
+            torch.as_tensor(gaps, device=dev),
+            torch.as_tensor(hard, device=dev)))
+        tb, call_s, peak = _peak_time(lambda: simulate_trajectories_ml(
+            T, m, grid, T_BASE, gaps=g, hard=h, device=dev))
+        fields = {k: getattr(tb, k).reshape(grid.size, -1) for k in (
+            "wall_time", "work_executed", "io1_time", "io2_time",
+            "down_time")}
+        _, energy_s = _sync_time(lambda: _ml_energy(fields, grid, N_TRIALS))
+        scan_s = call_s - energy_s
+        nums = {"capacity": cap, "n_steps": tb.n_steps, "steps": tb.steps,
+                "presample_s": pre_s, "h2d_s": h2d_s, "call_s": call_s,
+                "scan_s": scan_s, "energy_s": energy_s,
+                "ms_per_step": scan_s / max(tb.steps, 1) * 1e3,
+                "schedule_bytes": gaps.nbytes + hard.nbytes,
+                "peak_bytes": peak,
+                "m_range": [int(m.min()), int(m.max())],
+                "T_range": [float(T.min()), float(T.max())]}
+        mlog(f"ml-mc-1024x4096 {algo}: m {nums['m_range']}, T "
+             f"{nums['T_range'][0]:.2f}-{nums['T_range'][1]:.2f} min, "
+             f"capacity {cap}, schedule {nums['schedule_bytes']} B; host "
+             f"clock: numpy presampling {pre_s:.4f} s, H2D copy {h2d_s:.4f} "
+             f"s, simulate_trajectories_ml {call_s:.4f} s (scan {scan_s:.4f} "
+             f"s, energy integral {energy_s:.4f} s); {tb.steps} steps of "
+             f"the {tb.n_steps} budget, {nums['ms_per_step']:.4f} ms a step; "
+             f"peak device memory {peak} B above the schedule")
+        runs[algo] = (T, m, gaps, hard, tb, nums)
+        del g, h
+    return grid, sol, runs
+
+
+def gate_ml_mc(grid, runs, mlog) -> dict:
+    """No truncated or exhausted lane; ``ML_CPU_POINTS`` (point, trial
+    block) lanes run again on the CPU, bitwise equal (gated at 1e-12 if
+    not, with the differing fields named); the per-point means against
+    ``ml_time_final`` / ``ml_energy_final`` within ``ML_MODEL_GAP`` at
+    every point with m T < mu (2% at AlgoT, 2.5% at AlgoE), the points
+    beyond 2% printed, the gap everywhere reported."""
+    import numpy as np
+    import torch
+    from repro_torch.sim import simulate_trajectories_ml
+    from repro_torch.sim.sweep import (ml_energy_final_batched,
+                                       ml_time_final_batched)
+    report = {}
+    for algo, (T, m, gaps, hard, tb, nums) in runs.items():
+        bad = int(tb.truncated.sum()) + int(tb.gaps_exhausted.sum())
+        if bad:
+            fail(f"ml-mc-1024x4096 {algo}: {bad} truncated or exhausted "
+                 f"lanes")
+        flat_T, flat_m = T.reshape(-1), m.reshape(-1)
+        pts = np.linspace(0, grid.size - 1, ML_CPU_POINTS).astype(np.int64)
+        t0 = (np.arange(ML_CPU_POINTS) * 57) % (N_TRIALS - ML_CPU_TRIALS)
+        rows = pts[:, None]
+        cols = t0[:, None] + np.arange(ML_CPU_TRIALS)[None, :]
+        sub = grid.take(torch.as_tensor(pts, device=grid.device)).to("cpu")
+        cpu = simulate_trajectories_ml(
+            flat_T[pts].cpu(), flat_m[pts].cpu(), sub, T_BASE,
+            gaps=gaps[rows, cols], hard=hard[rows, cols],
+            n_steps=tb.n_steps, device="cpu")
+        differ, worst = [], 0.0
+        for f in ("wall_time", "energy", "work_executed", "io1_time",
+                  "io2_time", "down_time", "n_failures", "n_hard_failures",
+                  "n_ckpt1", "n_ckpt2", "truncated", "gaps_exhausted"):
+            x = getattr(tb, f).reshape(grid.size, -1).cpu()[rows, cols]
+            y = getattr(cpu, f)
+            if not torch.equal(x, y):
+                differ.append(f)
+                if x.is_floating_point():
+                    worst = max(worst, float(((x - y).abs()
+                                              / y.abs()).max()))
+                else:
+                    worst = math.inf
+        mlog(f"ml-mc-1024x4096 {algo}: {ML_CPU_POINTS} points x "
+             f"{ML_CPU_TRIALS} trials on the CPU: bitwise "
+             f"{not differ}" + (f" (differ: {differ}, max rel {worst:.3e}, "
+                                f"<= 1e-12)" if differ else ""))
+        if worst > 1e-12:
+            fail(f"ml-mc-1024x4096 {algo}: the card differs from the CPU")
+        p = grid.ravel().fields()
+        mf = flat_m.to(torch.float64)
+        tf = ml_time_final_batched(flat_T, mf, p, T_BASE)
+        e = ml_energy_final_batched(flat_T, mf, p, T_BASE)
+        first = flat_m * flat_T < p["mu"]
+        gt = tb.wall_time.reshape(grid.size, -1).mean(-1) / tf - 1
+        ge = tb.energy.reshape(grid.size, -1).mean(-1) / e - 1
+        gaps_rep = {}
+        for where, sel in (("m_T_below_mu", first),
+                           ("all", torch.ones_like(first))):
+            gaps_rep[where] = {
+                "points": int(sel.sum()),
+                "time": [float(gt[sel].min()), float(gt[sel].max())],
+                "energy": [float(ge[sel].min()), float(ge[sel].max())],
+                "beyond_2pct": int(((gt.abs() > 0.02) | (ge.abs() > 0.02))
+                                   [sel].sum())}
+        f = gaps_rep["m_T_below_mu"]
+        bound = ML_MODEL_GAP[algo]
+        worst = max(abs(x) for x in f["time"] + f["energy"])
+        (r0, r1, nr), (q0, q1, nq) = ML_MC_AXES
+        ratios, qs = np.geomspace(r0, r1, nr), np.geomspace(q0, q1, nq)
+        beyond = [{"point": k, "ratio": float(ratios[k // nq]),
+                   "q": float(qs[k % nq]), "T": float(flat_T[k]),
+                   "m": int(flat_m[k]), "time": float(gt[k]),
+                   "energy": float(ge[k])}
+                  for k in torch.nonzero(first & ((gt.abs() > 0.02)
+                                                  | (ge.abs() > 0.02)))
+                  .reshape(-1).tolist()]
+        gaps_rep["beyond_2pct_points"] = beyond
+        mlog(f"ml-mc-1024x4096 {algo}: MC means against the closed forms "
+             f"(MC / model - 1) at the {f['points']} of {grid.size} points "
+             f"with m T < mu: time {f['time'][0]:+.4f} to "
+             f"{f['time'][1]:+.4f}, energy {f['energy'][0]:+.4f} to "
+             f"{f['energy'][1]:+.4f}, largest {worst:.4f} (<= {bound}), "
+             f"{f['beyond_2pct']} points beyond 2%"
+             + "".join(f"; point {b['point']} (ratio {b['ratio']:.6g}, q "
+                       f"{b['q']:.6g}, T {b['T']:.4f}, m {b['m']}): time "
+                       f"{b['time']:+.5f}, energy {b['energy']:+.5f}"
+                       for b in beyond)
+             + f"; all points: energy {gaps_rep['all']['energy'][0]:+.4f} "
+             f"to {gaps_rep['all']['energy'][1]:+.4f} (not gated)")
+        if worst > bound:
+            fail(f"ml-mc-1024x4096 {algo}: the MC means are {worst:.4f} "
+                 f"from the closed forms where m T < mu (> {bound})")
+        report[algo] = dict(nums, cpu_bitwise=not differ,
+                            cpu_differ=differ, cpu_max_rel=worst,
+                            model_gap=gaps_rep)
+    return report
+
+
+#: the reference's MC acceptance case (tests/test_multilevel.py,
+#: TestMonteCarloValidation): its 2 x 2 grid, cadences 1..4, 400 trials
+#: drawn from seed 5, T_base 4000.
+ML_REF_CASE = dict(ratios=[0.1, 0.25], qs=[0.1, 0.3], mu=600.0,
+                   m_values=(1, 2, 3, 4), n_trials=400, seed=5)
+
+
+def gate_ml_reference_case(dev, mlog) -> dict:
+    """The reference's own acceptance gate on the card: at both joint
+    optima of its 2 x 2 case, ``simulate_grid_ml``'s means within 2% of
+    ``ml_time_final`` / ``ml_energy_final`` at every point, and the
+    AlgoT choice's simulated makespan below the PFS-only optimum's."""
+    import numpy as np
+    import torch
+    from repro_torch.sim import (F64, buddy_ratio_grid,
+                                 evaluate_multilevel_grid, simulate_grid_ml)
+    from repro_torch.sim.sweep import (ml_energy_final_batched,
+                                       ml_time_final_batched)
+    c = ML_REF_CASE
+    grid = buddy_ratio_grid(c["ratios"], c["qs"], mu_min=c["mu"], device=dev)
+    res = evaluate_multilevel_grid(grid, m_values=c["m_values"],
+                                   precision=F64, device=dev)
+    p = grid.fields()
+    out = {}
+    for algo in ("time", "energy"):
+        T, m = getattr(res, f"T_{algo}"), getattr(res, f"m_{algo}")
+        sim = simulate_grid_ml(T, m, grid, T_BASE, n_trials=c["n_trials"],
+                               rng=np.random.default_rng(c["seed"]),
+                               device=dev)
+        mf = m.to(torch.float64)
+        gt = float((sim["T_final"] / ml_time_final_batched(
+            T, mf, p, T_BASE) - 1).abs().max())
+        ge = float((sim["E_final"] / ml_energy_final_batched(
+            T, mf, p, T_BASE) - 1).abs().max())
+        out[algo] = {"time": gt, "energy": ge}
+    one = evaluate_multilevel_grid(grid, m_values=(1,), precision=F64,
+                                   device=dev)
+    wins = all(bool(x) for x in (simulate_grid_ml(
+        res.T_time, res.m_time, grid, T_BASE, n_trials=300,
+        rng=np.random.default_rng(9), device=dev)["T_final"]
+        < simulate_grid_ml(one.T_time, one.m_time, grid, T_BASE,
+                           n_trials=300, rng=np.random.default_rng(9),
+                           device=dev)["T_final"]).reshape(-1))
+    out["beats_pfs_only"] = wins
+    mlog(f"the reference's MC acceptance case on the card (2 x 2, m 1..4, "
+         f"400 trials): largest gap to the closed forms at AlgoT time "
+         f"{out['time']['time']:.4f}, energy {out['time']['energy']:.4f}; "
+         f"at AlgoE time {out['energy']['time']:.4f}, energy "
+         f"{out['energy']['energy']:.4f} (<= 0.02); the joint (T, m) beats "
+         f"PFS-only in the simulator: {wins}")
+    if max(max(v.values()) for v in (out["time"], out["energy"])) > 0.02 \
+            or not wins:
+        fail("the reference's MC acceptance case fails on the card")
+    return out
+
+
+def run_ml_figs(dev) -> dict:
+    """fig4 at the reference's size, ``sweep_buddy_ratio`` on fig4's axes
+    (batched, f64 through ``$REPRO_PRECISION``) and ``energy_study``
+    (``default_rng(0)``) on ``dev``; each part's result and host
+    seconds."""
+    import os
+    from unittest import mock
+
+    import numpy as np
+    from repro_torch.benchmarks import energy_study, fig4_multilevel as f4
+    from repro_torch.core import sweep_buddy_ratio
+
+    def _f64_sweep():
+        with mock.patch.dict(os.environ, {"REPRO_PRECISION": "f64"}):
+            return sweep_buddy_ratio(f4.RATIOS, f4.QS, f4.MU_MIN, device=dev)
+
+    parts = {
+        "fig4": lambda: f4.run(dev),
+        "sweep_buddy_ratio": _f64_sweep,
+        "energy_study": lambda: energy_study.run(np.random.default_rng(0),
+                                                 dev)}
+    out, secs = {}, {}
+    for name, fn in parts.items():
+        out[name], secs[name] = _sync_time(fn)
+    out["secs"] = secs
+    return out
+
+
+def gate_ml_figs(card: dict, cpu: dict, mlog) -> dict:
+    """The card within 1e-12 of the port's CPU run (fig4's and the sweep's
+    numbers, the same cadences; energy_study's printed lines equal), and
+    fig4's headline (40.56% below PFS-only at ratio 0.02, q 0.01,
+    m* = 12)."""
+    rel = {}
+    keys = ("T_time", "T_energy", "time_ratio", "energy_ratio",
+            "time_vs_single", "energy_vs_single")
+    rows = lambda r: [[row[k] for k in row] for row in r[3]]
+    rel["fig4"] = _max_rel(rows(card["fig4"]), rows(cpu["fig4"]))
+    pts = lambda s: [[getattr(p, k) for k in keys + ("m_time", "m_energy")]
+                     for row in s for p in row]
+    rel["sweep_buddy_ratio"] = _max_rel(pts(card["sweep_buddy_ratio"]),
+                                        pts(cpu["sweep_buddy_ratio"]))
+    lines_equal = card["energy_study"] == cpu["energy_study"]
+    head = card["fig4"][2]
+    mlog("figs-fig4, card against CPU (max relative difference): "
+         + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+         + f"; energy_study lines equal: {lines_equal}; fig4 headline "
+         f"{head[0] * 100:.4f}% below PFS-only at ratio {head[1]:g}, q "
+         f"{head[2]:g}, m* {head[3]}; host clock s: card {card['secs']}, "
+         f"CPU {cpu['secs']}")
+    if max(rel.values()) > 1e-12 or not lines_equal:
+        fail("figs-fig4: the card's results differ from the CPU's")
+    if not (abs(head[0] - FIG4_HEADLINE[0]) < 5e-5
+            and tuple(head[1:]) == FIG4_HEADLINE[1:]):
+        fail("figs-fig4: fig4's headline (40.56% at ratio 0.02, q 0.01, "
+             "m* 12) does not hold")
+    return {"max_rel_card_vs_cpu": rel, "energy_study_lines_equal":
+            lines_equal, "fig4_headline": list(head),
+            "host_s": {"card": card["secs"], "cpu": cpu["secs"]}}
+
+
+def _ml_m1_case(dev, dyadic: bool, kinds: bool = True):
+    """The m = 1 reduction on ``dev``: the lift of a 2 x 2 single-level
+    grid (q = 0.3) through ``simulate_trajectories_ml(T, 1)`` and, with
+    ``kinds``, beside it the single-level step kind and, on a dyadic
+    schedule, the event kind (the explicit kernel on the card)."""
+    import numpy as np
+    from repro_torch.sim import (MultilevelParamGrid, mu_rho_grid,
+                                 simulate_trajectories,
+                                 simulate_trajectories_ml)
+    rng = np.random.default_rng(ML_M1_SEED)
+    gaps = rng.exponential(1.0, size=(4, 256, 128)) * np.array(
+        [120.0, 120.0, 300.0, 300.0])[:, None, None]
+    if dyadic:
+        gaps = np.maximum(np.round(gaps * 2**16) / 2**16, 2.0**-16)
+    hard = rng.random(gaps.shape) < 0.3
+    T = np.array([[32.25, 34.5], [56.75, 60.0]])
+    sl = mu_rho_grid([120.0, 300.0], [2.0, 5.5], device=dev)
+    ml = simulate_trajectories_ml(
+        T, 1, MultilevelParamGrid.from_single_level(sl, q=0.3), 1500.0,
+        gaps=gaps, hard=hard, device=dev)
+    names = ("step", "event") if dyadic else ("step",)
+    return ml, {k: simulate_trajectories(T, sl, T_base=1500.0, gaps=gaps,
+                                         engine_kind=k, device=dev)
+                for k in (names if kinds else ())}
+
+
+def _ml_m1_equal(ml, one) -> tuple:
+    """(every trajectory output bitwise equal, energy bitwise equal, max
+    energy rel) of the lift's scan against a single-level batch."""
+    import torch
+    pairs = ((one.wall_time, ml.wall_time),
+             (one.work_executed, ml.work_executed),
+             (one.io_time, ml.io1_time + ml.io2_time),
+             (one.down_time, ml.down_time),
+             (one.n_failures, ml.n_failures),
+             (one.n_checkpoints, ml.n_ckpt1 + ml.n_ckpt2),
+             (one.truncated, ml.truncated),
+             (one.gaps_exhausted, ml.gaps_exhausted))
+    traj = all(torch.equal(a, b) for a, b in pairs)
+    e_rel = float(((ml.energy - one.energy).abs() / one.energy.abs()).max())
+    return traj, torch.equal(ml.energy, one.energy), e_rel
+
+
+def phase_ml_m1(dev, mlog) -> dict:
+    """On the card: the lift's m = 1 scan bitwise equal to the step kind
+    and the explicit event kernel on a dyadic schedule, and to the step
+    kind on a raw one (every trajectory output; the energy integral prices
+    each level's I/O at its own power, so on the raw schedule it is held
+    at 1e-15); the card's scan bitwise equal to the CPU's."""
+    import torch
+    out = {}
+    for dyadic in (True, False):
+        ml, kinds = _ml_m1_case(dev, dyadic)
+        ml_cpu, _ = _ml_m1_case("cpu", dyadic, kinds=False)
+        cpu_equal = all(torch.equal(getattr(ml, f).cpu(), getattr(ml_cpu, f))
+                        for f in ("wall_time", "energy", "work_executed",
+                                  "io1_time", "io2_time", "down_time",
+                                  "n_failures", "n_hard_failures",
+                                  "n_ckpt1", "n_ckpt2"))
+        label = "dyadic" if dyadic else "raw"
+        res = {"card_equals_cpu": cpu_equal,
+               "hard_failures": int(ml.n_hard_failures.sum())}
+        for kind, one in kinds.items():
+            traj, energy, e_rel = _ml_m1_equal(ml, one)
+            res[kind] = {"trajectories_bitwise": traj,
+                         "energy_bitwise": energy, "energy_max_rel": e_rel}
+            mlog(f"m = 1 reduction ({label} schedule) against the {kind} "
+                 f"kind on the card: trajectories bitwise {traj}, energy "
+                 f"bitwise {energy} (max rel {e_rel:.3e}); the card's scan "
+                 f"bitwise the CPU's: {cpu_equal}")
+            if not (traj and (energy if dyadic else e_rel <= 1e-15)):
+                fail(f"m = 1 reduction ({label}) differs from the {kind} "
+                     f"kind")
+        if not cpu_equal or bool(ml.truncated.any()):
+            fail(f"m = 1 reduction ({label}): card != CPU or truncated")
+        out[label] = res
+    return out
+
+
+def phase_multilevel(dev, card: str) -> dict:
+    """Phase 10: ml-sweep-262k, ml-mc-1024x4096, figs-fig4 and the m = 1
+    reduction, each driven with the counts set to 0 just before it and
+    read just after: the sweep and the two-level scan launch no kernel
+    (plain PyTorch) and call no plain version; the figures launch the
+    explicit event kernel (energy_study's robustness rows) and the sampled
+    one (its single-level MC point); the m = 1 check launches the explicit
+    kernel.  Every line carries the card's name and power limit."""
+    import torch
+    mlog = lambda msg: log(f"{msg} [{card}]")
+    report, counts = {}, {}
+    t_phase = time.perf_counter()
+
+    _reset_counts()
+    grid, sweeps, nums = run_ml_sweep(dev, mlog)
+    torch.cuda.synchronize()
+    counts["sweep"] = _counts()
+    report["ml_sweep"] = dict(gate_ml_sweep(grid, sweeps, mlog), runs=nums)
+    del grid, sweeps
+    torch.cuda.empty_cache()
+
+    _reset_counts()
+    grid, _, runs = run_ml_mc(dev, mlog)
+    report["ml_mc_reference_case"] = gate_ml_reference_case(dev, mlog)
+    torch.cuda.synchronize()
+    counts["mc"] = _counts()
+    report["ml_mc"] = gate_ml_mc(grid, runs, mlog)
+    del grid, runs
+    torch.cuda.empty_cache()
+    for part in ("sweep", "mc"):
+        c = counts[part]
+        if any(v for k, v in c.items()):
+            fail(f"the multilevel {part} launched a kernel or called a "
+                 f"plain version: {c}")
+
+    _reset_counts()
+    figs = run_ml_figs(dev)
+    torch.cuda.synchronize()
+    counts["figs"] = c = _counts()
+    if (c["event_sweep"] <= 0 or c["event_sweep_sampled"] <= 0
+            or c["plain"]):
+        fail(f"figs-fig4 did not run through the event kernels alone: {c}")
+    from repro_torch.benchmarks import _util as fig_util
+    card_results = fig_util.RESULTS
+    fig_util.RESULTS = card_results / "cpu"
+    figs_cpu = run_ml_figs(torch.device("cpu"))
+    fig_util.RESULTS = card_results
+    report["figs_fig4"] = gate_ml_figs(figs, figs_cpu, mlog)
+
+    _reset_counts()
+    report["m1"] = phase_ml_m1(dev, mlog)
+    torch.cuda.synchronize()
+    counts["m1"] = c = _counts()
+    if c["event_sweep"] <= 0 or c["plain"]:
+        fail(f"the m = 1 reduction did not run the explicit event kernel "
+             f"alone: {c}")
+    mlog("multilevel path launches: " + "; ".join(
+        f"{part} event_sweep {c['event_sweep']}, event_sweep_sampled "
+        f"{c['event_sweep_sampled']}, plain-version calls {c['plain']}"
+        for part, c in counts.items()))
+    report["launches"] = {part: {k: c[k] for k in (
+        "event_sweep", "event_sweep_sampled", "plain")}
+        for part, c in counts.items()}
+    report["phase_s"] = time.perf_counter() - t_phase
+    mlog(f"multilevel phase: {report['phase_s']:.1f} s")
+    return report
+
+
 def _kernel_modules():
     from repro_torch.kernels import (decode_attention, event_sweep,
                                      flash_attention, mlstm_scan,
@@ -2729,6 +3342,10 @@ def main() -> None:
     del launch_log, figs, figs_cpu
     torch.cuda.empty_cache()
 
+    # the multilevel path (phase 10), each part's counts read around it
+    report["multilevel"] = phase_multilevel(dev, card)
+    torch.cuda.empty_cache()
+
     # the checkpoint runtime path, its counts read around it
     root = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(root, ignore_errors=True)
@@ -2800,6 +3417,7 @@ def main() -> None:
         "library_ms": None,
         "build_s": build_s["event_sweep.cu"],
         "figures": fig_times,
+        "multilevel": report["multilevel"]["launches"],
         "caller_schedule": {
             "launches": ex_counts["event_sweep"], "ms": ex_times["ms"],
             "plain_ms": ex_times["plain_ms"],

@@ -28,4 +28,6 @@ from .optimal import (t_opt_time, t_opt_time_ex, PeriodResult,
 from .simulator import simulate, simulate_once, SimResult
 from .policy import CheckpointPolicy, PolicyConfig, ML_STRATEGIES
 from .tradeoff import (TradeoffPoint, evaluate, sweep_rho, sweep_mu_rho,
-                       sweep_nodes, RobustnessPoint, evaluate_robustness)
+                       sweep_nodes, RobustnessPoint, evaluate_robustness,
+                       MultilevelTradeoffPoint, evaluate_multilevel,
+                       sweep_buddy_ratio)

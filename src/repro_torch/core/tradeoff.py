@@ -8,7 +8,9 @@ All ratios follow the paper's conventions:
 ``optimal``).  The sweep functions solve the whole grid through the
 batched ``repro_torch.sim`` sweeps (``engine="batched"``, the default)
 or point by point (``engine="scalar"``), and return the same
-:class:`TradeoffPoint` lists.  :func:`evaluate_robustness` prices the
+:class:`TradeoffPoint` lists; :func:`evaluate_multilevel` and
+:func:`sweep_buddy_ratio` do the same for the two-level (buddy + PFS)
+platform and its joint (T, m).  :func:`evaluate_robustness` prices the
 exponential-assumption periods under another failure process on a
 Monte-Carlo surrogate.
 """
@@ -21,7 +23,8 @@ import numpy as np
 
 from . import model, optimal
 from .failures import as_process
-from .params import (CheckpointParams, PowerParams, fig12_checkpoint,
+from .params import (CheckpointParams, MultilevelCheckpointParams,
+                     MultilevelPowerParams, PowerParams, fig12_checkpoint,
                      fig3_checkpoint)
 
 
@@ -125,6 +128,100 @@ def sweep_nodes(n_nodes: Sequence[float], power: PowerParams,
     from ..sim import sweep_nodes_grid
     res = sweep_nodes_grid(n_nodes, power, device)
     return list(_points_from_grid(res))
+
+
+# ----------------------------------------------------------------------
+# Multilevel (buddy + PFS) trade-off
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MultilevelTradeoffPoint:
+    """Jointly optimal (T, m) for AlgoT and AlgoE on a two-level platform,
+    the ratios of :class:`TradeoffPoint`, and the comparison against the
+    PFS-only single-level scheme."""
+
+    ckpt: MultilevelCheckpointParams
+    power: MultilevelPowerParams
+    T_time: float              # AlgoT period
+    m_time: int                # AlgoT PFS cadence (deep ckpt every m-th)
+    T_energy: float            # AlgoE period
+    m_energy: int
+    time_ratio: float          # T_final(AlgoE)/T_final(AlgoT)
+    energy_ratio: float        # E_final(AlgoT)/E_final(AlgoE)
+    time_vs_single: float      # T_final(AlgoT, 2-level)/T_final(AlgoT, PFS-only)
+    energy_vs_single: float    # E_final(AlgoE, 2-level)/E_final(AlgoE, PFS-only)
+
+    @property
+    def energy_saving(self) -> float:
+        return 1.0 - 1.0 / self.energy_ratio
+
+    @property
+    def time_overhead(self) -> float:
+        return self.time_ratio - 1.0
+
+
+def evaluate_multilevel(ck: MultilevelCheckpointParams,
+                        power: MultilevelPowerParams,
+                        m_max: int = optimal.DEFAULT_M_MAX,
+                        device="cuda") -> MultilevelTradeoffPoint:
+    """One two-level operating point through the scalar joint (T, m)
+    solvers on ``device``."""
+    Tt, mt = optimal.t_opt_time_multilevel(ck, m_max, device)
+    Te, me = optimal.t_opt_energy_multilevel(ck, power, m_max, device)
+    tf = lambda T, m: float(model.ml_time_final(T, m, ck, device=device))
+    en = lambda T, m: float(model.ml_energy_final(T, m, ck, power,
+                                                  device=device))
+    tf_t, tf_e, e_t, e_e = tf(Tt, mt), tf(Te, me), en(Tt, mt), en(Te, me)
+
+    # PFS-only comparator (the single-level model on C2/R2/D2); where it
+    # has no valid period at all (the buddy level rescuing an infeasible
+    # platform) the vs-single ratios are NaN.
+    sl_ck, sl_pw = ck.single_level(), power.single_level()
+    lo, hi = sl_ck.valid_period_range()
+    if hi <= lo * (1.0 + 1e-9):
+        tvs = evs = float("nan")
+    else:
+        single = evaluate(sl_ck, sl_pw, device)
+        tvs = tf_t / float(model.time_final(single.T_time, sl_ck,
+                                            device=device))
+        evs = e_e / float(model.energy_final(single.T_energy, sl_ck, sl_pw,
+                                             device=device))
+    return MultilevelTradeoffPoint(
+        ckpt=ck, power=power, T_time=Tt, m_time=mt, T_energy=Te, m_energy=me,
+        time_ratio=tf_e / tf_t, energy_ratio=e_t / e_e,
+        time_vs_single=tvs, energy_vs_single=evs)
+
+
+def sweep_buddy_ratio(ratios: Sequence[float], qs: Sequence[float],
+                      mu_minutes: float = 300.0,
+                      m_max: int = optimal.DEFAULT_M_MAX,
+                      engine: str = "batched", device="cuda"):
+    """Exascale two-level sweep: buddy cost ratio x buddy-loss probability.
+
+    Returns a (len(ratios), len(qs)) nested list of
+    :class:`MultilevelTradeoffPoint`.  The batched path solves the whole
+    grid in one :func:`~repro_torch.sim.evaluate_multilevel_grid` call
+    (under the resolved precision policy); ``engine="scalar"`` solves
+    point by point.
+    """
+    if engine == "scalar":
+        from ..sim.scenarios import get_scenario
+        out = []
+        for r in ratios:
+            row = []
+            for q in qs:
+                sc = get_scenario("multilevel_exascale", mu_min=mu_minutes,
+                                  buddy_ratio=float(r), q=float(q))
+                row.append(evaluate_multilevel(sc.ckpt, sc.power, m_max,
+                                               device))
+            out.append(row)
+        return out
+    from ..sim import buddy_ratio_grid, evaluate_multilevel_grid
+    res = evaluate_multilevel_grid(
+        buddy_ratio_grid(ratios, qs, mu_min=mu_minutes, device=device),
+        m_values=tuple(range(1, m_max + 1)), device=device)
+    return [[res.point_at((i, j)) for j in range(len(qs))]
+            for i in range(len(ratios))]
 
 
 # ----------------------------------------------------------------------

@@ -17,7 +17,7 @@ from ._device import F64, resolve_device
 from .ckpt.tree import tree_map
 from .core.params import (CheckpointParams, MultilevelCheckpointParams,
                           MultilevelPowerParams, PowerParams)
-from .sim.scenarios import ParamGrid
+from .sim.scenarios import _ML_FIELDS, MultilevelParamGrid, ParamGrid
 
 
 def grid_from_fields(fields: Mapping[str, np.ndarray],
@@ -30,6 +30,17 @@ def grid_from_fields(fields: Mapping[str, np.ndarray],
                                            dtype=F64, device=dev)
                         for f in ("C", "R", "D", "mu", "omega", "P_static",
                                   "P_cal", "P_io", "P_down")})
+
+
+def ml_grid_from_fields(fields: Mapping[str, np.ndarray],
+                        device="cuda") -> MultilevelParamGrid:
+    """A :class:`MultilevelParamGrid` on ``device`` from a mapping of the
+    sixteen field arrays (what the reference's
+    ``MultilevelParamGrid.fields()`` returns)."""
+    dev = resolve_device(device)
+    return MultilevelParamGrid(**{
+        f: torch.as_tensor(np.asarray(fields[f], dtype=np.float64),
+                           dtype=F64, device=dev) for f in _ML_FIELDS})
 
 
 def ckpt_from_fields(fields: Mapping[str, float]) -> CheckpointParams:

@@ -43,6 +43,11 @@ Schedules come from one of two places:
 :func:`simulate_candidates` runs M candidate periods against one shared
 schedule (common random numbers), the hot path of the MC solvers.
 
+:func:`simulate_trajectories_ml` runs the two-level (buddy + PFS) engine:
+a step scan in plain PyTorch (:func:`_run_one_ml`, the reference's XLA
+scan term for term) over a schedule of gaps and hard-failure flags drawn on
+the host from the caller's numpy generator.
+
 Precision follows :func:`_engine_policy`: gaps are drawn in f64 and cast
 to the policy's compute dtype before the sweep; outputs are f64.  Results
 stay on the device as tensors.
@@ -63,7 +68,7 @@ from ..core.philox import CounterKey
 from ..kernels.event_sweep import event_sweep, event_sweep_sampled
 from . import dispatch as _dispatch
 from . import precision as _precision
-from .scenarios import ParamGrid
+from .scenarios import MultilevelParamGrid, ParamGrid
 
 #: kinds with the event kernel's trajectory semantics and budget algebra.
 _EVENT_LIKE = ("event", "pallas")
@@ -471,10 +476,11 @@ def _explicit_schedules(gaps: torch.Tensor, size: int, n_steps: int,
             gaps=gaps[sl, trials.start:trials.stop, :], n_steps=n_steps)
 
 
-def _normalize_gaps(gaps, size: int, device) -> torch.Tensor:
-    """A caller schedule as an f64 ``(size, n_trials, F)`` tensor on
-    ``device`` (1-D and 2-D schedules broadcast over points/trials)."""
-    g = torch.as_tensor(gaps, dtype=F64, device=device)
+def _normalize_gaps(gaps, size: int, device, dtype=F64) -> torch.Tensor:
+    """A caller schedule as a ``(size, n_trials, F)`` tensor of ``dtype``
+    (f64 gaps; the two-level engine's bool hard flags) on ``device`` (1-D
+    and 2-D schedules broadcast over points/trials)."""
+    g = torch.as_tensor(gaps, dtype=dtype, device=device)
     if g.ndim == 1:
         g = g[None, None, :]
     if g.ndim == 2:
@@ -756,6 +762,363 @@ def simulate_grid(T, grid: ParamGrid, T_base: float = 1.0,
                      ("T_cal", tb.work_executed), ("T_io", tb.io_time),
                      ("T_down", tb.down_time),
                      ("n_failures", tb.n_failures.to(F64))):
+        out[key] = arr.mean(dim=-1)
+        out[key + "_se"] = arr.std(dim=-1, correction=1) / math.sqrt(n)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Multilevel (buddy + PFS) trajectories
+# ---------------------------------------------------------------------------
+#
+# The superperiod: periods 0..m-2 end with a buddy checkpoint (cost C1,
+# commits level 1), period m-1 with a deep checkpoint (cost C2, commits both
+# levels).  Each failure of the schedule carries a "hard" flag (the buddy
+# copy lost, probability q): a soft failure rolls back to the last level-1
+# commit and resumes the period schedule where that commit left it; a hard
+# one rolls back to the last deep commit and restarts the superperiod at
+# period 0.  With m = 1 and degenerate levels every expression below is the
+# single-level step scan's, so the scalar oracle is reproduced bit for bit.
+
+#: device bytes per lane of the two-level scan besides its schedule: the
+#: 20 carry fields and one step's temporaries, with headroom; sizes the
+#: trial blocks of :func:`simulate_trajectories_ml`.
+_ML_LANE_BYTES = 1024
+#: the two-level scan checks whether every lane is done once per this many
+#: steps (a host sync); a done lane's steps are identities, so the cadence
+#: never changes a bit.
+_ML_DONE_EVERY = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class MultilevelTrajectoryBatch:
+    """Per-trajectory outputs, tensors of ``grid.shape + (n_trials,)``;
+    ``steps`` is the number of scan steps run (the most over the trial
+    blocks), out of the budget ``n_steps``."""
+
+    wall_time: torch.Tensor
+    energy: torch.Tensor
+    work_executed: torch.Tensor
+    io1_time: torch.Tensor       # buddy-level I/O (writes + soft recoveries)
+    io2_time: torch.Tensor       # deep-level I/O (writes + hard recoveries)
+    down_time: torch.Tensor
+    n_failures: torch.Tensor
+    n_hard_failures: torch.Tensor
+    n_ckpt1: torch.Tensor        # committed buddy checkpoints
+    n_ckpt2: torch.Tensor        # committed deep checkpoints
+    truncated: torch.Tensor
+    gaps_exhausted: torch.Tensor
+    steps: int = 0
+    n_steps: int = 0
+
+
+def _run_one_ml(T, m, C1, C2, R1, R2, D1, D2, omega1, omega2, T_base,
+                gaps: torch.Tensor, hard: torch.Tensor, *,
+                n_steps: int) -> tuple:
+    """The two-level step scan over a ``(B,) x (B, N, F)`` workload, in
+    f64: the reference's ``_run_one_ml`` term for term (the same ``sel``
+    and ``keep`` selects, in the same order, ``hard[min(n_fail, F - 1)]``)
+    as one masked update of every lane a step, modelled on
+    :func:`_run_one`.  ``m`` is an int32 (B,) tensor, ``hard`` bool.
+
+    The loop stops once every lane is done.  A done lane is kept by
+    ``keep``, so the stop skips identity steps only; it is checked every
+    ``_ML_DONE_EVERY`` steps (a host sync each), which changes no bit.
+    Returns ``(outputs, steps run)``."""
+    dt, dev = gaps.dtype, gaps.device
+    B, N, F = gaps.shape
+    k0 = lambda v: torch.tensor(v, dtype=dt, device=dev)
+    zero, one, eps, inf = k0(0.0), k0(1.0), k0(_EPS), k0(math.inf)
+    col = lambda x: x.reshape(B, 1)
+    T, C1, C2, R1, R2, D1, D2, omega1, omega2, T_base = (
+        col(x) for x in (T, C1, C2, R1, R2, D1, D2, omega1, omega2, T_base))
+    m = col(m).to(torch.int32)
+    i32 = lambda v: torch.full((B, N), v, dtype=torch.int32, device=dev)
+    fz = torch.zeros((B, N), dtype=dt, device=dev)
+    (wall, committed1, committed2, live, work, io1, io2, down,
+     snapshot) = (fz.clone() for _ in range(9))
+    next_fail = gaps[:, :, 0].clone()
+    phase_left = (T - torch.where(m > 1, C1, C2)).expand(B, N).clone()
+    phase, k, resume_k, n_fail, n_hard, n_ckpt1, n_ckpt2 = (
+        i32(0) for _ in range(7))
+    fail_idx = i32(1)
+    done = torch.zeros((B, N), dtype=torch.bool, device=dev)
+
+    steps = 0
+    for steps in range(int(n_steps)):
+        if steps % _ML_DONE_EVERY == 0 and bool(done.all()):
+            break
+        is_deep = k == m - 1
+        Ck = torch.where(is_deep, C2, C1)
+        in_ckpt = phase == CHECKPOINT
+        omega_k = torch.where(is_deep, omega2, omega1)
+        rate = torch.where(in_ckpt, omega_k, one)
+        t_done = torch.where(rate > zero, (T_base - live) / torch.where(
+            rate > zero, rate, one), inf)
+        t_next = torch.minimum(phase_left, t_done)
+        no_fail = wall + t_next < next_fail
+        ck1 = in_ckpt & ~is_deep
+        ck2 = in_ckpt & is_deep
+
+        # branch A: the phase segment completes without failure
+        wall_a = wall + t_next
+        live_a = live + rate * t_next
+        work_a = work + rate * t_next
+        io1_a = io1 + torch.where(ck1, t_next, zero)
+        io2_a = io2 + torch.where(ck2, t_next, zero)
+        left_a = phase_left - t_next
+        finished = live_a >= T_base - eps
+        boundary = ~finished & (left_a <= eps)
+        start_ckpt = boundary & ~in_ckpt
+        end_ckpt = boundary & in_ckpt
+        phase_a = torch.where(start_ckpt, CHECKPOINT,
+                              torch.where(end_ckpt, COMPUTE, phase))
+        k_next = torch.where(k + 1 >= m, 0, k + 1)
+        C_next = torch.where(k_next == m - 1, C2, C1)
+        left_a = torch.where(start_ckpt, Ck,
+                             torch.where(end_ckpt, T - C_next, left_a))
+        snapshot_a = torch.where(start_ckpt, live_a, snapshot)
+        committed1_a = torch.where(end_ckpt, snapshot, committed1)
+        committed2_a = torch.where(end_ckpt & is_deep, snapshot, committed2)
+        k_a = torch.where(end_ckpt, k_next, k)
+        resume_k_a = torch.where(end_ckpt, k_next, resume_k)
+        n_ckpt1_a = n_ckpt1 + (end_ckpt & ~is_deep).to(torch.int32)
+        n_ckpt2_a = n_ckpt2 + (end_ckpt & is_deep).to(torch.int32)
+
+        # branch B: a failure strikes mid-segment
+        hi = torch.clamp(n_fail, max=F - 1).to(torch.int64).unsqueeze(-1)
+        hard_f = torch.gather(hard, 2, hi).squeeze(-1)
+        dtf = next_fail - wall
+        work_b = work + rate * dtf
+        io1_b = io1 + torch.where(ck1, dtf, zero) \
+            + torch.where(hard_f, zero, R1)
+        io2_b = io2 + torch.where(ck2, dtf, zero) \
+            + torch.where(hard_f, R2, zero)
+        D_sel = torch.where(hard_f, D2, D1)
+        R_sel = torch.where(hard_f, R2, R1)
+        wall_b = next_fail + D_sel + R_sel
+        down_b = down + D_sel
+        gi = torch.clamp(fail_idx, max=F - 1).to(torch.int64).unsqueeze(-1)
+        gap = torch.where(fail_idx < F, torch.gather(gaps, 2, gi).squeeze(-1),
+                          inf)
+        next_fail_b = wall_b + gap
+        committed1_b = torch.where(hard_f, committed2, committed1)
+        k_b = torch.where(hard_f, 0, resume_k)
+        left_b = T - torch.where(k_b == m - 1, C2, C1)
+
+        sel = lambda a, b: torch.where(no_fail, a, b)
+        keep = lambda old, new: torch.where(done, old, new)
+        (wall, committed1, committed2, live, work, io1, io2, down, next_fail,
+         phase_left, snapshot, phase, k, resume_k, n_fail, n_hard, n_ckpt1,
+         n_ckpt2, fail_idx) = (keep(o, n) for o, n in (
+             (wall, sel(wall_a, wall_b)),
+             (committed1, sel(committed1_a, committed1_b)),
+             (committed2, sel(committed2_a, committed2)),
+             (live, sel(live_a, committed1_b)),   # back to the surviving level
+             (work, sel(work_a, work_b)),
+             (io1, sel(io1_a, io1_b)),
+             (io2, sel(io2_a, io2_b)),
+             (down, sel(down, down_b)),
+             (next_fail, sel(next_fail, next_fail_b)),
+             (phase_left, sel(left_a, left_b)),
+             (snapshot, sel(snapshot_a, snapshot)),
+             (phase, sel(phase_a, COMPUTE).to(torch.int32)),
+             (k, sel(k_a, k_b).to(torch.int32)),
+             (resume_k, sel(resume_k_a, k_b).to(torch.int32)),
+             (n_fail, sel(n_fail, n_fail + 1)),
+             (n_hard, sel(n_hard, n_hard + hard_f.to(torch.int32))),
+             (n_ckpt1, sel(n_ckpt1_a, n_ckpt1)),
+             (n_ckpt2, sel(n_ckpt2_a, n_ckpt2)),
+             (fail_idx, sel(fail_idx, fail_idx + 1))))
+        done = done | (no_fail & finished)
+    else:
+        steps = int(n_steps)
+    return {"wall_time": wall, "work_executed": work, "io1_time": io1,
+            "io2_time": io2, "down_time": down, "n_failures": n_fail,
+            "n_hard_failures": n_hard, "n_ckpt1": n_ckpt1,
+            "n_ckpt2": n_ckpt2, "truncated": ~done,
+            "gaps_exhausted": fail_idx > F}, steps
+
+
+def _ml_host_terms(m, grid: MultilevelParamGrid) -> tuple:
+    """Host f64 arrays ``(a_m, b_m, mu_m, mu)`` of the flat ``grid`` at
+    cadences ``m`` (int32, as the reference's budget arithmetic)."""
+    g = grid.to("cpu")
+    mt = torch.as_tensor(np.array(_host(m), dtype=np.int32))
+    return tuple(x.numpy() for x in (g.a(mt), g.b(mt), g.mu_eff(mt), g.mu))
+
+
+def _expected_failures_ml(T, m, grid: MultilevelParamGrid,
+                          T_base) -> np.ndarray:
+    """E[#failures] from the two-level closed form, clipped like the
+    single-level estimator (host numpy)."""
+    a, b, mu_m, mu = _ml_host_terms(m, grid)
+    T, T_base = _host(T), _host(T_base)
+    denom = (T - a) * (b - T / (2.0 * mu_m))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        tf = np.where(denom > 1e-12, T_base * T / denom, np.inf)
+    tf = np.where(np.isfinite(tf) & (tf > 0), tf, 50.0 * T_base)
+    return tf / mu
+
+
+def default_fail_capacity_ml(T, m, grid: MultilevelParamGrid, T_base) -> int:
+    """Failures sampled per trajectory: mean + 10 sigma margin."""
+    nf = _expected_failures_ml(T, m, grid, T_base)
+    return int(np.max(np.ceil(nf + 10.0 * np.sqrt(nf + 1.0) + 10.0)))
+
+
+def default_step_budget_ml(T, m, grid: MultilevelParamGrid, T_base) -> int:
+    """Scan length: a hard failure re-executes up to a whole superperiod
+    (m periods, 2 events each), so the margin per failure scales with m."""
+    a = _ml_host_terms(m, grid)[0]
+    T, m = _host(T), np.array(_host(m), dtype=np.int32)
+    work_per_period = np.maximum(T - a, 1e-9)
+    periods = _host(T_base) / work_per_period
+    nf = _expected_failures_ml(T, m, grid, T_base)
+    per_fail = 2.0 * np.maximum(m * T / work_per_period, 1.0) + 4.0
+    events = 2.0 * periods + 2.0 + nf * per_fail
+    margin = 10.0 * np.sqrt(nf + 1.0) * per_fail
+    return int(np.max(np.ceil(2.0 * events + margin + 64.0)))
+
+
+def presample_failures(grid: MultilevelParamGrid, n_trials: int,
+                       capacity: int, rng: np.random.Generator) -> tuple:
+    """Host ``(gaps, hard)``: exponential(mu) inter-failure gaps and
+    Bernoulli(q) level-loss flags, each ``(grid.size, n_trials,
+    capacity)``, drawn from the caller's generator in the reference's order
+    (``np.random.default_rng(s)`` gives its ``seed=s`` schedule bit for
+    bit)."""
+    flat = grid.ravel()
+    size = (grid.size, n_trials, capacity)
+    gaps = rng.exponential(scale=_host(flat.mu)[:, None, None], size=size)
+    hard = rng.random(size=size) < _host(flat.q)[:, None, None]
+    return gaps, hard
+
+
+def _ml_energy(out: dict, grid: MultilevelParamGrid, n_trials: int
+               ) -> torch.Tensor:
+    """The energy integral of every trajectory, ``grid.shape +
+    (n_trials,)``: the per-level I/O times at their own powers."""
+    shp = grid.shape + (n_trials,)
+    dev = out["wall_time"].device
+    bc = lambda x: x.to(dev).reshape(grid.shape + (1,))
+    r = lambda k: out[k].reshape(shp)
+    return (bc(grid.P_static) * r("wall_time")
+            + bc(grid.P_cal) * r("work_executed")
+            + bc(grid.P_io1) * r("io1_time") + bc(grid.P_io2) * r("io2_time")
+            + bc(grid.P_down) * r("down_time"))
+
+
+def simulate_trajectories_ml(T, m, grid: MultilevelParamGrid,
+                             T_base: float = 1.0, n_trials: int = 200,
+                             rng: Optional[np.random.Generator] = None,
+                             gaps=None, hard=None,
+                             n_steps: Optional[int] = None, dispatch=None,
+                             device="cuda") -> MultilevelTrajectoryBatch:
+    """Simulate every two-level (grid point x trial) trajectory on
+    ``device``, through the step scan :func:`_run_one_ml` in f64.
+
+    ``T`` and ``m`` broadcast against ``grid.shape``.  ``gaps`` and ``hard``
+    (numpy or tensors, ``(grid.size, n_trials, F)``, or 1-D/2-D broadcast)
+    override the schedule; otherwise it is drawn on the host from the
+    caller's ``rng`` by :func:`presample_failures`.  The schedule goes to
+    the device once; the scan runs over blocks of trials under the
+    ``dispatch`` memory budget (lanes are independent, so the blocks change
+    no bit).  ``n_steps`` caps the scan (default
+    :func:`default_step_budget_ml`), rounded up to a power of two.
+    """
+    dev = resolve_device(device)
+    flat = grid.ravel().to(dev)
+    B = flat.size
+    bshape = lambda x, dt: np.broadcast_to(np.asarray(_host(x), dtype=dt),
+                                           grid.shape).ravel()
+    T_arr = bshape(T, np.float64)
+    m_arr = bshape(m, np.int32)
+    Tb_arr = bshape(T_base, np.float64)
+    if np.any(m_arr < 1):
+        raise ValueError("deep-checkpoint cadence m must be >= 1")
+    if np.any(T_arr < np.maximum(_host(flat.C1), _host(flat.C2))):
+        raise ValueError("period too short: T must cover the checkpoint")
+    if np.any(T_arr <= _ml_host_terms(m_arr, flat)[0]):
+        raise ValueError("period too short: no work progress per period")
+
+    if gaps is None or hard is None:
+        if rng is None:
+            raise ValueError("simulate_trajectories_ml needs rng= (a numpy "
+                             "Generator) or both gaps= and hard=")
+        cap = default_fail_capacity_ml(T_arr, m_arr, flat, Tb_arr)
+        g, h = presample_failures(flat, int(n_trials), cap, rng)
+        gaps = g if gaps is None else gaps
+        hard = h if hard is None else hard
+    gaps = _normalize_gaps(gaps, B, dev)
+    hard = _normalize_gaps(hard, B, dev, torch.bool)
+    if gaps.shape != hard.shape:
+        raise ValueError(f"gaps {tuple(gaps.shape)} and hard flags "
+                         f"{tuple(hard.shape)} schedules disagree")
+    n_trials = int(gaps.shape[1])
+    if n_steps is None:
+        n_steps = default_step_budget_ml(T_arr, m_arr, flat, Tb_arr)
+    n_steps = _scan_len(n_steps)
+
+    t = lambda x: torch.tensor(x, device=dev)
+    params = (t(T_arr), t(m_arr), flat.C1, flat.C2, flat.R1, flat.R2,
+              flat.D1, flat.D2, flat.omega1, flat.omega2, t(Tb_arr))
+    acc: dict = {}
+    steps = 0
+    tc = _dispatch.trial_chunk(n_trials, B * _ML_LANE_BYTES, dispatch)
+    for t0 in range(0, n_trials, tc):
+        trials = range(t0, min(t0 + tc, n_trials))
+        sl = slice(trials.start, trials.stop)
+        out, ran = _run_one_ml(*params, gaps[:, sl], hard[:, sl],
+                               n_steps=n_steps)
+        steps = max(steps, ran)
+        _scatter(acc, out, slice(None), trials, B, n_trials)
+
+    shp = grid.shape + (n_trials,)
+    r = lambda k: acc[k].reshape(shp)
+    return MultilevelTrajectoryBatch(
+        wall_time=r("wall_time"), energy=_ml_energy(acc, flat.reshape(
+            grid.shape), n_trials),
+        work_executed=r("work_executed"), io1_time=r("io1_time"),
+        io2_time=r("io2_time"), down_time=r("down_time"),
+        n_failures=r("n_failures"), n_hard_failures=r("n_hard_failures"),
+        n_ckpt1=r("n_ckpt1"), n_ckpt2=r("n_ckpt2"),
+        truncated=r("truncated"), gaps_exhausted=r("gaps_exhausted"),
+        steps=steps, n_steps=n_steps)
+
+
+def simulate_grid_ml(T, m, grid: MultilevelParamGrid, T_base: float = 1.0,
+                     n_trials: int = 200,
+                     rng: Optional[np.random.Generator] = None, gaps=None,
+                     hard=None, n_steps: Optional[int] = None,
+                     dispatch=None, device="cuda") -> dict:
+    """Mean/SE tensors of ``grid.shape`` of the two-level Monte Carlo
+    ("T_final", "E_final", "T_cal", "T_io1", "T_io2", "T_down",
+    "n_failures", "n_hard", each with "_se"); the check of the multilevel
+    closed forms.  Raises when a trajectory was truncated or ran out of
+    schedule."""
+    tb = simulate_trajectories_ml(T, m, grid, T_base, n_trials=n_trials,
+                                  rng=rng, gaps=gaps, hard=hard,
+                                  n_steps=n_steps, dispatch=dispatch,
+                                  device=device)
+    n_trunc = int(tb.truncated.sum())
+    if n_trunc:
+        raise RuntimeError(
+            f"{n_trunc} trajectories exceeded the scan budget; pass a "
+            f"larger n_steps (check params)")
+    n_dry = int(tb.gaps_exhausted.sum())
+    if n_dry:
+        raise RuntimeError(
+            f"{n_dry} trajectories exhausted their failure schedule (tail "
+            f"simulated failure-free); pass gaps/hard arrays with larger "
+            f"capacity")
+    out = {}
+    n = tb.wall_time.shape[-1]
+    for key, arr in (("T_final", tb.wall_time), ("E_final", tb.energy),
+                     ("T_cal", tb.work_executed), ("T_io1", tb.io1_time),
+                     ("T_io2", tb.io2_time), ("T_down", tb.down_time),
+                     ("n_failures", tb.n_failures.to(F64)),
+                     ("n_hard", tb.n_hard_failures.to(F64))):
         out[key] = arr.mean(dim=-1)
         out[key + "_se"] = arr.std(dim=-1, correction=1) / math.sqrt(n)
     return out

@@ -4,7 +4,9 @@ A :class:`Scenario` is one named (checkpoint, power) operating point: the
 paper's figure setups and the §4 exascale scenarios live in one registry.
 A :class:`ParamGrid` is the struct-of-arrays form the batched sweep and
 engine consume: the nine resilience/power parameters as broadcast f64
-tensors of one shape, on one device.
+tensors of one shape, on one device.  :class:`MultilevelParamGrid` is its
+two-level (buddy + PFS) counterpart, with the :class:`MultilevelScenario`
+family it stacks.
 """
 from __future__ import annotations
 
@@ -17,9 +19,10 @@ import torch
 from .._device import F64, resolve_device
 from ..core.failures import (FailureProcess, Weibull, as_process,
                              get_process)
-from ..core.params import (CheckpointParams, PowerParams,
-                           EXASCALE_POWER_RHO55, EXASCALE_POWER_RHO7,
-                           MU_IND_JAGUAR_MIN)
+from ..core.params import (CheckpointParams, MultilevelCheckpointParams,
+                           MultilevelPowerParams, PowerParams,
+                           EXASCALE_ML_POWER, EXASCALE_POWER_RHO55,
+                           EXASCALE_POWER_RHO7, MU_IND_JAGUAR_MIN)
 
 
 # ---------------------------------------------------------------------------
@@ -319,3 +322,243 @@ def robustness_grid(shapes: Sequence[float], mu_mins: Sequence[float],
     shape_arr = np.broadcast_to(
         np.asarray(shapes, dtype=np.float64)[:, None], shp)
     return grid, Weibull(shape=shape_arr)
+
+
+# ---------------------------------------------------------------------------
+# Multilevel (buddy + PFS) scenarios and grids
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MultilevelScenario:
+    """One named two-level operating point (buddy + PFS)."""
+
+    name: str
+    ckpt: MultilevelCheckpointParams
+    power: MultilevelPowerParams
+    T_base: float = 1.0
+    description: str = ""
+
+
+@register_scenario("multilevel_exascale")
+def multilevel_exascale(mu_min: float = 300.0, buddy_ratio: float = 0.1,
+                        q: float = 0.1, C_pfs: float = 10.0,
+                        P_io1: float = 20.0) -> MultilevelScenario:
+    """Exascale two-level: buddy RAM checkpoints at ``buddy_ratio * C_PFS``."""
+    C1 = buddy_ratio * C_pfs
+    ck = MultilevelCheckpointParams(C1=C1, R1=C1, C2=C_pfs, R2=C_pfs,
+                                    D1=0.5, D2=1.0, mu=mu_min, q=q,
+                                    omega=0.5)
+    pw = MultilevelPowerParams(P_static=10.0, P_cal=10.0, P_io1=P_io1,
+                               P_io2=100.0)
+    return MultilevelScenario(
+        name=f"multilevel_exascale(mu={mu_min:g},ratio={buddy_ratio:g},"
+             f"q={q:g})",
+        ckpt=ck, power=pw,
+        description="Exascale buddy+PFS hierarchy (VELOC-style)")
+
+
+@register_scenario("multilevel_fig12")
+def multilevel_fig12(mu_min: float = 300.0, buddy_ratio: float = 0.1,
+                     q: float = 0.1) -> MultilevelScenario:
+    """Figures 1-2 resilience setup lifted to two levels (C2=R2=10, D2=1)."""
+    ck = MultilevelCheckpointParams(
+        C1=10.0 * buddy_ratio, R1=10.0 * buddy_ratio, C2=10.0, R2=10.0,
+        D1=1.0, D2=1.0, mu=mu_min, q=q, omega=0.5)
+    return MultilevelScenario(
+        name=f"multilevel_fig12(mu={mu_min:g})", ckpt=ck,
+        power=EXASCALE_ML_POWER,
+        description="paper Fig. 1-2 setup with a buddy fast level")
+
+
+_ML_FIELDS = ("C1", "R1", "D1", "C2", "R2", "D2", "mu", "omega", "q",
+              "P_static", "P_cal", "P_io1", "P_io2", "P_down",
+              "omega1", "omega2")
+
+
+@dataclasses.dataclass(frozen=True)
+class MultilevelParamGrid:
+    """Broadcast f64 tensors of two-level checkpoint + power parameters,
+    one device.
+
+    The plumbing of :class:`ParamGrid` with per-level (C_k, R_k, D_k,
+    P_io_k) fields and the buddy-loss probability ``q``; the cadence ``m``
+    is a decision variable of the solvers and the engine, not a field.
+    ``omega1``/``omega2`` (buddy write / deep flush overlap) default to
+    ``omega``; wherever they are equal the derived quantities take the
+    exact shared-omega expressions.
+    """
+
+    C1: torch.Tensor
+    R1: torch.Tensor
+    D1: torch.Tensor
+    C2: torch.Tensor
+    R2: torch.Tensor
+    D2: torch.Tensor
+    mu: torch.Tensor
+    omega: torch.Tensor
+    q: torch.Tensor
+    P_static: torch.Tensor
+    P_cal: torch.Tensor
+    P_io1: torch.Tensor
+    P_io2: torch.Tensor
+    P_down: torch.Tensor
+    omega1: Optional[torch.Tensor] = None
+    omega2: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.omega1 is None:
+            object.__setattr__(self, "omega1", self.omega)
+        if self.omega2 is None:
+            object.__setattr__(self, "omega2", self.omega)
+        vals = [getattr(self, f) for f in _ML_FIELDS]
+        dev = next((v.device for v in vals if isinstance(v, torch.Tensor)),
+                   None)
+        dev = resolve_device("cuda" if dev is None else dev)
+        arrs = torch.broadcast_tensors(
+            *(torch.as_tensor(v, dtype=F64, device=dev) for v in vals))
+        for f, a in zip(_ML_FIELDS, arrs):
+            object.__setattr__(self, f, a.contiguous())
+
+    # -- shape plumbing ------------------------------------------------------
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.C1.shape)
+
+    @property
+    def size(self) -> int:
+        return self.C1.numel()
+
+    @property
+    def device(self) -> torch.device:
+        return self.C1.device
+
+    def ravel(self) -> "MultilevelParamGrid":
+        return MultilevelParamGrid(**{f: getattr(self, f).reshape(-1)
+                                      for f in _ML_FIELDS})
+
+    def reshape(self, shape) -> "MultilevelParamGrid":
+        return MultilevelParamGrid(**{f: getattr(self, f).reshape(shape)
+                                      for f in _ML_FIELDS})
+
+    def to(self, device) -> "MultilevelParamGrid":
+        dev = resolve_device(device)
+        return MultilevelParamGrid(**{f: getattr(self, f).to(dev)
+                                      for f in _ML_FIELDS})
+
+    def take(self, idx) -> "MultilevelParamGrid":
+        """The flat grid restricted to raveled points ``idx``."""
+        flat = self.ravel()
+        return MultilevelParamGrid(**{f: getattr(flat, f)[idx]
+                                      for f in _ML_FIELDS})
+
+    def fields(self) -> dict:
+        """Dict-of-tensors view."""
+        return {f: getattr(self, f) for f in _ML_FIELDS}
+
+    # -- per-m derived (the multilevel §3.1 analogue) ------------------------
+    def C_mean(self, m) -> torch.Tensor:
+        return ((m - 1) * self.C1 + self.C2) / m
+
+    def _shared_omega(self) -> torch.Tensor:
+        return self.omega1 == self.omega2
+
+    def C_omega_mean(self, m) -> torch.Tensor:
+        per = ((m - 1) * self.omega1 * self.C1
+               + self.omega2 * self.C2) / m
+        return torch.where(self._shared_omega(),
+                           self.omega1 * self.C_mean(m), per)
+
+    def a(self, m) -> torch.Tensor:
+        per = ((m - 1) * (1.0 - self.omega1) * self.C1
+               + (1.0 - self.omega2) * self.C2) / m
+        return torch.where(self._shared_omega(),
+                           (1.0 - self.omega1) * self.C_mean(m), per)
+
+    def b(self, m) -> torch.Tensor:
+        soft = self.D1 + self.R1 + self.C_omega_mean(m)
+        hard = self.D2 + self.R2 + self.omega2 * self.C2
+        return 1.0 - (soft + self.q * (hard - soft)) / self.mu
+
+    def mu_eff(self, m) -> torch.Tensor:
+        return self.mu / (1.0 + self.q * (m - 1))
+
+    def period_bounds(self, m) -> tuple:
+        """(lo, hi) of the raw valid-period interval at cadence ``m``."""
+        lo = torch.maximum(torch.maximum(self.a(m), self.C1), self.C2)
+        return lo, 2.0 * self.mu_eff(m) * self.b(m)
+
+    def valid(self, m) -> torch.Tensor:
+        lo, hi = self.period_bounds(m)
+        return hi > lo * (1.0 + 1e-9)
+
+    # -- object views --------------------------------------------------------
+    def ckpt_at(self, idx) -> MultilevelCheckpointParams:
+        g = lambda f: float(getattr(self, f)[idx])
+        return MultilevelCheckpointParams(
+            C1=g("C1"), R1=g("R1"), C2=g("C2"), R2=g("R2"), D1=g("D1"),
+            D2=g("D2"), mu=g("mu"), q=g("q"), omega=g("omega"),
+            omega1=g("omega1"), omega2=g("omega2"))
+
+    def power_at(self, idx) -> MultilevelPowerParams:
+        g = lambda f: float(getattr(self, f)[idx])
+        return MultilevelPowerParams(P_static=g("P_static"),
+                                     P_cal=g("P_cal"), P_io1=g("P_io1"),
+                                     P_io2=g("P_io2"), P_down=g("P_down"))
+
+    # -- constructors / conversions -----------------------------------------
+    @classmethod
+    def from_params(cls, ckpt: MultilevelCheckpointParams,
+                    power: MultilevelPowerParams,
+                    device="cuda") -> "MultilevelParamGrid":
+        t = lambda x: torch.tensor(x, dtype=F64, device=resolve_device(device))
+        return cls(C1=t(ckpt.C1), R1=t(ckpt.R1), D1=t(ckpt.D1),
+                   C2=t(ckpt.C2), R2=t(ckpt.R2), D2=t(ckpt.D2),
+                   mu=t(ckpt.mu), omega=t(ckpt.omega), q=t(ckpt.q),
+                   P_static=t(power.P_static), P_cal=t(power.P_cal),
+                   P_io1=t(power.P_io1), P_io2=t(power.P_io2),
+                   P_down=t(power.P_down), omega1=t(ckpt.w1),
+                   omega2=t(ckpt.w2))
+
+    @classmethod
+    def from_single_level(cls, grid: ParamGrid,
+                          q=0.0) -> "MultilevelParamGrid":
+        """Degenerate lift of a single-level grid (C1 = C2 and so on), the
+        exact m = 1 reduction; on the single-level grid's device."""
+        return cls(C1=grid.C, R1=grid.R, D1=grid.D, C2=grid.C, R2=grid.R,
+                   D2=grid.D, mu=grid.mu, omega=grid.omega, q=q,
+                   P_static=grid.P_static, P_cal=grid.P_cal,
+                   P_io1=grid.P_io, P_io2=grid.P_io, P_down=grid.P_down)
+
+    def single_level(self) -> ParamGrid:
+        """The PFS-only comparator grid (C=C2, R=R2, D=D2, P_io=P_io2, at
+        the deep level's overlap factor)."""
+        return ParamGrid(C=self.C2, R=self.R2, D=self.D2, mu=self.mu,
+                         omega=self.omega2, P_static=self.P_static,
+                         P_cal=self.P_cal, P_io=self.P_io2,
+                         P_down=self.P_down)
+
+
+def multilevel_grid_from_scenarios(scens: Iterable[MultilevelScenario],
+                                   device="cuda") -> MultilevelParamGrid:
+    """Stack two-level scenarios along one leading axis."""
+    scens = list(scens)
+    c = lambda xs: _col(xs, device)
+    return MultilevelParamGrid(
+        **{f: c([getattr(s.ckpt, f) for s in scens])
+           for f in ("C1", "R1", "D1", "C2", "R2", "D2", "mu", "omega", "q")},
+        omega1=c([s.ckpt.w1 for s in scens]),
+        omega2=c([s.ckpt.w2 for s in scens]),
+        **{f: c([getattr(s.power, f) for s in scens])
+           for f in ("P_static", "P_cal", "P_io1", "P_io2", "P_down")})
+
+
+def buddy_ratio_grid(ratios: Sequence[float], qs: Sequence[float],
+                     mu_min: float = 300.0, device="cuda",
+                     **kwargs) -> MultilevelParamGrid:
+    """Figure 4 grid: Exascale buddy-cost ratio x buddy-loss probability,
+    shape ``(len(ratios), len(qs))``."""
+    scens = [get_scenario("multilevel_exascale", mu_min=mu_min,
+                          buddy_ratio=float(r), q=float(q), **kwargs)
+             for r in ratios for q in qs]
+    return multilevel_grid_from_scenarios(scens, device).reshape(
+        (len(ratios), len(qs)))

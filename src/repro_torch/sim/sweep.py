@@ -11,6 +11,10 @@ valid interval, so the energy minimum is the root of Q where Q' > 0; any
 point where that root is missing, complex, out of the bracket, or beaten
 by the golden-section argmin falls back to the numeric result.
 
+:func:`evaluate_multilevel_grid` solves the two-level (buddy + PFS)
+model for the jointly optimal (T, m) of every grid point, the PFS-only
+single-level optimum beside it.
+
 The robustness grids (:func:`evaluate_robustness_grid`,
 :func:`evaluate_periods_grid`, :func:`sweep_weibull_shapes`) score the
 exponential-assumption periods under a non-exponential process by Monte
@@ -33,7 +37,7 @@ from . import dispatch as _dispatch
 from . import engine as _engine
 from . import precision as _precision
 from . import scenarios
-from .scenarios import ParamGrid
+from .scenarios import MultilevelParamGrid, ParamGrid
 
 _GOLDEN = (math.sqrt(5.0) - 1.0) / 2.0
 
@@ -367,6 +371,392 @@ def sweep_nodes_grid(n_nodes: Sequence[float], power: PowerParams,
     """Figure 3: scalability in N at one power scenario."""
     return evaluate_grid(scenarios.nodes_grid(n_nodes, power, device),
                          precision=precision, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Multilevel (buddy + PFS): jointly optimal (T, m) for a whole grid
+# ---------------------------------------------------------------------------
+
+#: device-memory estimate per (grid point, candidate cadence) of the
+#: multilevel sweep (the stacked golden-section state per m plus the by-m
+#: outputs, with headroom); sizes the chunks of
+#: :func:`evaluate_multilevel_grid`.
+_ML_BYTES_PER_POINT_M = 2048
+
+
+def _ml_omega_terms(p, m):
+    """(w1, w2, Cw, S2, S2w): the per-level overlap aggregates.
+
+    Where the two overlap factors coincide the shared-omega expressions
+    are evaluated as written (bit for bit with the scalar
+    ``MultilevelCheckpointParams`` branches).  ``omega1``/``omega2`` fall
+    back to ``omega`` when a plain parameter dict omits them.
+    """
+    C1, C2 = p["C1"], p["C2"]
+    w1 = p.get("omega1", p["omega"])
+    w2 = p.get("omega2", p["omega"])
+    shared = w1 == w2
+    Cb = ((m - 1.0) * C1 + C2) / m
+    S2 = ((m - 1.0) * C1**2 + C2**2) / m
+    Cw = torch.where(shared, w1 * Cb, ((m - 1.0) * w1 * C1 + w2 * C2) / m)
+    S2w = torch.where(shared, w1 * S2,
+                      ((m - 1.0) * w1 * C1**2 + w2 * C2**2) / m)
+    return w1, w2, Cw, S2, S2w
+
+
+def _ml_derived(p, m):
+    """(C_mean, a_m, b_m, mu_m) of the multilevel §3.1 analogue."""
+    Cb = ((m - 1.0) * p["C1"] + p["C2"]) / m
+    w1, w2, Cw, _, _ = _ml_omega_terms(p, m)
+    a = torch.where(w1 == w2, (1.0 - w1) * Cb,
+                    ((m - 1.0) * (1.0 - w1) * p["C1"]
+                     + (1.0 - w2) * p["C2"]) / m)
+    soft = p["D1"] + p["R1"] + Cw
+    hard = p["D2"] + p["R2"] + w2 * p["C2"]
+    b = 1.0 - (soft + p["q"] * (hard - soft)) / p["mu"]
+    mu_m = p["mu"] / (1.0 + p["q"] * (m - 1.0))
+    return Cb, a, b, mu_m
+
+
+def ml_time_final_batched(T, m, p, T_base=1.0):
+    """Two-level expected makespan, elementwise (period T, deep every m)."""
+    _, a, b, mu_m = _ml_derived(p, m)
+    return T_base * T / ((T - a) * (b - T / (2.0 * mu_m)))
+
+
+def ml_energy_final_batched(T, m, p, T_base=1.0):
+    """Two-level E_final with per-level I/O powers, elementwise."""
+    C1, R1, D1 = p["C1"], p["R1"], p["D1"]
+    C2, R2, D2 = p["C2"], p["R2"], p["D2"]
+    q = p["q"]
+    Cb, a, b, mu_m = _ml_derived(p, m)
+    w1, w2, Cw, S2, S2w = _ml_omega_terms(p, m)
+
+    Tf = T_base * T / ((T - a) * (b - T / (2.0 * mu_m)))
+    nf = Tf / p["mu"]
+    Ew = (T**2 - S2) / (2.0 * T) + S2w / (2.0 * T)
+    w_soft = Cw + Ew
+    w_hard = w2 * C2 + (m - 1.0) * (T - (1.0 - w1) * C1) / 2.0 + Ew
+    T_cal = T_base + nf * (w_soft + q * (w_hard - w_soft))
+
+    ck_io1 = T_base * ((m - 1.0) * C1 / m) / (T - a)
+    ck_io2 = T_base * (C2 / m) / (T - a)
+    io1_pf = ((m - 1.0) / m) * C1**2 / (2.0 * T) + (1.0 - q) * R1 \
+        + q * (m - 1.0) * C1 / 2.0
+    io2_pf = C2**2 / (2.0 * m * T) + q * R2
+    T_down = nf * (D1 + q * (D2 - D1))
+    return _precision.psum((T_cal * p["P_cal"],
+                            (ck_io1 + nf * io1_pf) * p["P_io1"],
+                            (ck_io2 + nf * io2_pf) * p["P_io2"],
+                            T_down * p["P_down"], Tf * p["P_static"]))
+
+
+def _ml_bracket(p, m):
+    """Shrunk (lo, hi, valid) per (m, grid point)."""
+    _, a, b, mu_m = _ml_derived(p, m)
+    lo0 = torch.maximum(torch.maximum(a, p["C1"]), p["C2"])
+    hi0 = 2.0 * mu_m * b
+    valid = hi0 > lo0 * (1.0 + 1e-9)
+    hi0 = torch.where(valid, hi0, 2.0 * lo0 + 1.0)
+    span = hi0 - lo0
+    return lo0 + 1e-9 * span + 1e-12, hi0 - 1e-9 * span, valid
+
+
+def _ml_energy_prime_batched(T, m, p, T_base=1.0):
+    """Analytic two-level dE/dT (the W normal form of ``core.model``)."""
+    C1, C2 = p["C1"], p["C2"]
+    q = p["q"]
+    Pc, P1, P2, Pd = p["P_cal"], p["P_io1"], p["P_io2"], p["P_down"]
+    Cb, a, b, mu_m = _ml_derived(p, m)
+    w1, w2, Cw, S2, S2w = _ml_omega_terms(p, m)
+
+    W0 = (Pc * (Cw + q * (w2 * C2 - Cw
+                          - (m - 1.0) * (1.0 - w1) * C1 / 2.0))
+          + P1 * ((1.0 - q) * p["R1"] + q * (m - 1.0) * C1 / 2.0)
+          + P2 * q * p["R2"]
+          + Pd * (p["D1"] + q * (p["D2"] - p["D1"])))
+    W1 = Pc * (1.0 + q * (m - 1.0)) / 2.0
+    Wm = (Pc * (S2w - S2) / 2.0
+          + P1 * (m - 1.0) * C1**2 / (2.0 * m)
+          + P2 * C2**2 / (2.0 * m))
+    J = P1 * (m - 1.0) * C1 / m + P2 * C2 / m
+
+    Tf = T_base * T / ((T - a) * (b - T / (2.0 * mu_m)))
+    Tfp = T_base * (-a * b + T**2 / (2.0 * mu_m)) \
+        / ((T - a) ** 2 * (b - T / (2.0 * mu_m)) ** 2)
+    W = W0 + W1 * T + Wm / T
+    Wp = W1 - Wm / T**2
+    return (p["P_static"] * Tfp + Tfp / p["mu"] * W + Tf / p["mu"] * Wp
+            - J * T_base / (T - a) ** 2)
+
+
+def _ml_quadratic(p, m, lo, hi, T_base):
+    """(c2, c1, c0, quad_ok) of Q_m = K_m * E' by 3-point Newton
+    interpolation of the analytic product, checked at a 4th point."""
+    _, a, b, mu_m = _ml_derived(p, m)
+
+    def Q(t):
+        K = (t - a) ** 2 * (b - t / (2.0 * mu_m)) ** 2 \
+            / (p["P_static"] * T_base)
+        return K * _ml_energy_prime_batched(t, m, p, T_base)
+
+    span = hi - lo
+    t1, t2, t3 = lo + 0.2 * span, lo + 0.45 * span, lo + 0.7 * span
+    q1, q2, q3 = Q(t1), Q(t2), Q(t3)
+    d1 = (q2 - q1) / (t2 - t1)
+    d2 = (q3 - q2) / (t3 - t2)
+    c2 = (d2 - d1) / (t3 - t1)
+    c1 = d1 - c2 * (t1 + t2)
+    c0 = q1 - t1 * (d1 - c2 * t2)
+
+    t4 = lo + 0.9 * span
+    q4 = Q(t4)
+    q4_poly = c2 * t4**2 + c1 * t4 + c0
+    scale = torch.maximum(torch.maximum(torch.abs(q4), torch.abs(q4_poly)),
+                          torch.clamp_min(torch.abs(c0), 1e-300))
+    quad_ok = torch.abs(q4 - q4_poly) <= 1e-6 * scale
+    return c2, c1, c0, quad_ok
+
+
+def _t_opt_time_ml_from(p, m, t_num):
+    """Per-m AlgoT closed form, the numeric argmin where it degenerates."""
+    _, a, b, mu_m = _ml_derived(p, m)
+    lo, hi, _ = _ml_bracket(p, m)
+    val = 2.0 * a * b * mu_m
+    t_closed = torch.clamp(torch.sqrt(torch.clamp_min(val, 0.0)), lo, hi)
+    return torch.where(val > 0.0, t_closed, t_num)
+
+
+def _t_opt_energy_ml_from(p, m, T_base, t_num):
+    """Per-m AlgoE quadratic root with the scalar solver's guards."""
+    lo, hi, _ = _ml_bracket(p, m)
+    c2, c1, c0, quad_ok = _ml_quadratic(p, m, lo, hi, T_base)
+
+    disc = c1**2 - 4.0 * c2 * c0
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    safe_c2 = torch.where(torch.abs(c2) > 1e-300, c2, 1.0)
+    r1 = (-c1 - sq) / (2.0 * safe_c2)
+    r2 = (-c1 + sq) / (2.0 * safe_c2)
+    safe_c1 = torch.where(torch.abs(c1) > 1e-300, c1, 1.0)
+    rlin = -c0 / safe_c1
+
+    def is_min_root(r):
+        return (quad_ok & (disc >= 0.0) & (torch.abs(c2) > 1e-300)
+                & (r > lo) & (r < hi) & (2.0 * c2 * r + c1 > 0.0))
+
+    lin_ok = quad_ok & (torch.abs(c2) <= 1e-300) \
+        & (torch.abs(c1) > 1e-300) & (rlin > lo) & (rlin < hi) & (c1 > 0.0)
+
+    t_root = torch.where(is_min_root(r1), r1,
+                         torch.where(is_min_root(r2), r2,
+                                     torch.where(lin_ok, rlin, t_num)))
+    e_root = ml_energy_final_batched(t_root, m, p, T_base)
+    e_num = ml_energy_final_batched(t_num, m, p, T_base)
+    return torch.where(e_root <= e_num * (1.0 + 1e-9), t_root, t_num)
+
+
+@dataclasses.dataclass(frozen=True)
+class MultilevelGridResult:
+    """Jointly optimal (T, m) per grid point, plus the per-m curves;
+    tensors on the grid's device.
+
+    Per-point tensors have ``grid.shape``; the ``*_by_m`` tensors carry a
+    leading axis over ``m_values``.  Degenerate points (no valid period at
+    any m) follow :class:`GridResult`: periods C2, m 1, ratios exactly
+    1.0, Tf/E NaN.
+    """
+
+    grid: MultilevelParamGrid
+    m_values: tuple
+    T_base: float
+    T_time: torch.Tensor          # AlgoT period
+    m_time: torch.Tensor          # AlgoT deep-checkpoint cadence (int64)
+    T_energy: torch.Tensor        # AlgoE period
+    m_energy: torch.Tensor        # (int64)
+    Tf_time: torch.Tensor
+    Tf_energy: torch.Tensor
+    E_time: torch.Tensor
+    E_energy: torch.Tensor
+    time_ratio: torch.Tensor      # Tf_energy / Tf_time  (>= 1, "loss")
+    energy_ratio: torch.Tensor    # E_time / E_energy    (>= 1, "gain")
+    time_vs_single: torch.Tensor  # Tf(AlgoT, 2-level) / Tf(AlgoT, PFS-only)
+    energy_vs_single: torch.Tensor  # E(AlgoE, 2-level) / E(AlgoE, PFS-only)
+    T_time_by_m: torch.Tensor     # (M,) + grid.shape
+    Tf_by_m: torch.Tensor
+    T_energy_by_m: torch.Tensor
+    E_by_m: torch.Tensor
+    valid_by_m: torch.Tensor
+    valid: torch.Tensor
+
+    @property
+    def energy_saving(self) -> torch.Tensor:
+        return 1.0 - 1.0 / self.energy_ratio
+
+    @property
+    def time_overhead(self) -> torch.Tensor:
+        return self.time_ratio - 1.0
+
+    def point_at(self, idx):
+        """Scalar :class:`~repro_torch.core.tradeoff
+        .MultilevelTradeoffPoint` view of one grid point."""
+        from ..core.tradeoff import MultilevelTradeoffPoint
+        f = lambda name: getattr(self, name)[idx].item()
+        return MultilevelTradeoffPoint(
+            ckpt=self.grid.ckpt_at(idx), power=self.grid.power_at(idx),
+            T_time=float(f("T_time")), m_time=int(f("m_time")),
+            T_energy=float(f("T_energy")), m_energy=int(f("m_energy")),
+            time_ratio=float(f("time_ratio")),
+            energy_ratio=float(f("energy_ratio")),
+            time_vs_single=float(f("time_vs_single")),
+            energy_vs_single=float(f("energy_vs_single")))
+
+
+_ML_FIELD_ORDER = ("C1", "R1", "D1", "C2", "R2", "D2", "mu", "omega", "q",
+                   "P_static", "P_cal", "P_io1", "P_io2", "P_down",
+                   "omega1", "omega2")
+_ML_OUT_ORDER = ("T_time", "m_time", "T_energy", "m_energy",
+                 "Tf_time", "Tf_energy", "E_time", "E_energy",
+                 "time_ratio", "energy_ratio",
+                 "time_vs_single", "energy_vs_single", "valid")
+_ML_BY_M_ORDER = ("T_time_by_m", "Tf_by_m", "T_energy_by_m", "E_by_m",
+                  "valid_by_m")
+
+
+def _evaluate_ml_core(P, T_base, m_values, m_max=None):
+    """All outputs of :func:`evaluate_multilevel_grid` for one stacked
+    (16, N) chunk: a (13, N) tensor of per-point outputs and a (5, M, N)
+    tensor of per-m tables, of P's dtype.  ``m_max`` (N,), if given, masks
+    the candidates ``m > m_max`` of each point invalid."""
+    p = dict(zip(_ML_FIELD_ORDER, P))
+    mv = torch.as_tensor(m_values, dtype=P.dtype,
+                         device=P.device).reshape(-1, 1)       # (M, 1)
+    lo, hi, valid_m = _ml_bracket(p, mv)                       # (M, N)
+    if m_max is not None:
+        valid_m = valid_m & (mv <= m_max[None, :])
+
+    # The per-m time and energy argmins share ONE golden-section loop over
+    # a stacked leading axis; each row evaluates its own objective.
+    def objective(t):
+        return torch.stack([ml_time_final_batched(t[0], mv, p, T_base),
+                            ml_energy_final_batched(t[1], mv, p, T_base)])
+
+    t_num = golden_section_batched(objective, torch.stack([lo, lo]),
+                                   torch.stack([hi, hi]))
+    Tt_m = _t_opt_time_ml_from(p, mv, t_num[0])               # (M, N)
+    Te_m = _t_opt_energy_ml_from(p, mv, T_base, t_num[1])
+    Tf_m = ml_time_final_batched(Tt_m, mv, p, T_base)
+    E_m = ml_energy_final_batched(Te_m, mv, p, T_base)
+
+    i_t = torch.argmin(torch.where(valid_m, Tf_m, math.inf), dim=0)  # (N,)
+    i_e = torch.argmin(torch.where(valid_m, E_m, math.inf), dim=0)
+    take = lambda arr, i: torch.gather(arr, 0, i[None, :])[0]
+    m_arr = mv[:, 0]
+    T_time, m_time = take(Tt_m, i_t), m_arr[i_t]
+    T_energy, m_energy = take(Te_m, i_e), m_arr[i_e]
+    Tf_time, E_energy = take(Tf_m, i_t), take(E_m, i_e)
+    # cross metrics at the jointly optimal operating points
+    Tf_energy = ml_time_final_batched(T_energy, m_energy, p, T_base)
+    E_time = ml_energy_final_batched(T_time, m_time, p, T_base)
+
+    # the PFS-only single-level comparator on the same grid (C2/R2/D2/P_io2
+    # at the deep level's overlap factor, as grid.single_level())
+    p_sl = {"C": p["C2"], "R": p["R2"], "D": p["D2"], "mu": p["mu"],
+            "omega": p["omega2"], "P_static": p["P_static"],
+            "P_cal": p["P_cal"], "P_io": p["P_io2"], "P_down": p["P_down"]}
+    lo_s, hi_s, valid_s = _bracket(p_sl)
+
+    def objective_s(t):
+        return torch.stack([time_final_batched(t[0], p_sl, T_base),
+                            energy_final_batched(t[1], p_sl, T_base)])
+
+    t_num_s = golden_section_batched(objective_s, torch.stack([lo_s, lo_s]),
+                                     torch.stack([hi_s, hi_s]))
+    Tt_s = _t_opt_time_from(p_sl, t_num_s[0])
+    Te_s = _t_opt_energy_from(p_sl, T_base, t_num_s[1])
+    Tf_s = time_final_batched(Tt_s, p_sl, T_base)
+    E_s = energy_final_batched(Te_s, p_sl, T_base)
+
+    valid = torch.any(valid_m, dim=0)
+    C2 = p["C2"]
+    nan = math.nan
+    scalars = torch.stack([
+        torch.where(valid, T_time, C2),
+        torch.where(valid, m_time, 1.0),
+        torch.where(valid, T_energy, C2),
+        torch.where(valid, m_energy, 1.0),
+        torch.where(valid, Tf_time, nan),
+        torch.where(valid, Tf_energy, nan),
+        torch.where(valid, E_time, nan),
+        torch.where(valid, E_energy, nan),
+        torch.where(valid, Tf_energy / Tf_time, 1.0),
+        torch.where(valid, E_time / E_energy, 1.0),
+        # the vs-single ratios mean nothing where the PFS-only comparator
+        # has no valid period (the buddy level rescuing an infeasible
+        # platform): NaN there
+        torch.where(valid, torch.where(valid_s, Tf_time / Tf_s, nan), 1.0),
+        torch.where(valid, torch.where(valid_s, E_energy / E_s, nan), 1.0),
+        valid.to(C2.dtype)])
+    by_m = torch.stack([Tt_m, torch.where(valid_m, Tf_m, nan),
+                        Te_m, torch.where(valid_m, E_m, nan),
+                        valid_m.to(C2.dtype)])
+    return scalars, by_m
+
+
+def evaluate_multilevel_grid(grid: MultilevelParamGrid,
+                             m_values: Sequence[int] = tuple(range(1, 13)),
+                             T_base: float = 1.0, dispatch=None, m_max=None,
+                             precision=None,
+                             device="cuda") -> MultilevelGridResult:
+    """Jointly optimal (T, m) and the ratios for every grid point, on
+    ``device``.
+
+    ``m_values`` is the candidate set of deep-checkpoint cadences.  The
+    grid axis is cut into chunks under the device-memory budget
+    (``dispatch``; ``_ML_BYTES_PER_POINT_M`` a point and cadence); the
+    computation is elementwise, so the chunks never change results.
+
+    ``m_max`` (optional) caps the cadence per grid point: integers
+    broadcastable to ``grid.shape``; candidates ``m > m_max[point]`` are
+    masked invalid at that point only, so requests with different cadence
+    budgets share one call over the union of their candidates.
+    ``m_max=None`` is the unmasked computation.
+
+    ``precision`` selects the :class:`~repro_torch.sim.precision
+    .PrecisionPolicy` as in :func:`evaluate_grid` (explicit > config >
+    env > the device's default).
+    """
+    dev = resolve_device(device)
+    pol = _dispatch.resolve_precision(dispatch, precision, dev)
+    m_values = tuple(int(m) for m in m_values)
+    if not m_values or min(m_values) < 1:
+        raise ValueError(f"m_values must be positive ints, got {m_values}")
+    flat = grid.ravel().to(dev)
+    P = torch.stack([getattr(flat, f) for f in _ML_FIELD_ORDER])
+    mm = None
+    if m_max is not None:
+        mm = torch.broadcast_to(torch.as_tensor(m_max, dtype=F64, device=dev),
+                                grid.shape).reshape(-1)
+    M, N = len(m_values), flat.size
+    scalars = torch.empty((len(_ML_OUT_ORDER), N), dtype=F64, device=dev)
+    by_m = torch.empty((len(_ML_BY_M_ORDER), M, N), dtype=F64, device=dev)
+    with _precision.use_policy(pol):
+        for start, stop in _dispatch.chunk_plan(
+                N, _ML_BYTES_PER_POINT_M * M, dispatch):
+            s, b = _evaluate_ml_core(
+                pol.cast(P[:, start:stop]), float(T_base), m_values,
+                None if mm is None else pol.cast(mm[start:stop]))
+            scalars[:, start:stop] = s
+            by_m[:, :, start:stop] = b
+    out = {k: scalars[i].reshape(grid.shape)
+           for i, k in enumerate(_ML_OUT_ORDER)}
+    out["valid"] = out["valid"] > 0.5
+    for k in ("m_time", "m_energy"):
+        out[k] = torch.where(out["valid"], out[k], 1.0).to(torch.int64)
+    shp = (M,) + grid.shape
+    tables = {k: by_m[i].reshape(shp) for i, k in enumerate(_ML_BY_M_ORDER)}
+    tables["valid_by_m"] = tables["valid_by_m"] > 0.5
+    return MultilevelGridResult(grid=grid, m_values=m_values,
+                                T_base=float(T_base), **tables, **out)
 
 
 # ---------------------------------------------------------------------------

@@ -6,16 +6,25 @@ points are held to 1e-12.  Each figure and table script of
 ``benchmarks/`` (both writing to a temporary directory): the CSVs must be
 equal byte for byte (fig5's, of full-precision floats, value for value
 within 1e-10), and the port's unrounded rows within 1e-8 (periods) and
-1e-10 (values) of the reference's numbers.  Draws go through numpy
+1e-10 (values) of the reference's numbers.  fig4's CSV, of full-precision
+floats, is byte-equal to the reference's script run operation by operation
+(``jax.disable_jit``), and within 1e-13 of its compiled run, whose XLA
+program contracts ``a + b * c`` into FMAs.  Draws go through numpy
 generators: the port's ``np.random.default_rng(s)`` against the
-reference's ``seed=s``.
+reference's ``seed=s``.  ``energy_study`` matches the reference's
+example section by section; its single-level Monte-Carlo lines (the
+reference draws them through threefry, the port through Philox) within
+four of their combined standard errors.
 """
 import contextlib
 import dataclasses
 import importlib.util
 import io
+import re
 import sys
 from pathlib import Path
+
+import jax
 
 import numpy as np
 import pytest
@@ -25,9 +34,11 @@ import repro.core as RC
 import repro.sim as RS
 
 import repro_torch.core as PC
+import repro_torch.sim as TS
 from repro_torch import interop
-from repro_torch.benchmarks import (_util, fig1_rho_sweep, fig2_mu_rho,
-                                    fig3_scalability, fig5_robustness,
+from repro_torch.benchmarks import (_util, energy_study, fig1_rho_sweep,
+                                    fig2_mu_rho, fig3_scalability,
+                                    fig4_multilevel, fig5_robustness,
                                     quickstart, run, table_baselines,
                                     table_simulation)
 
@@ -39,6 +50,7 @@ import benchmarks._util as ref_util  # noqa: E402
 from benchmarks import fig1_rho_sweep as ref_fig1  # noqa: E402
 from benchmarks import fig2_mu_rho as ref_fig2  # noqa: E402
 from benchmarks import fig3_scalability as ref_fig3  # noqa: E402
+from benchmarks import fig4_multilevel as ref_fig4  # noqa: E402
 from benchmarks import fig5_robustness as ref_fig5  # noqa: E402
 from benchmarks import table_baselines as ref_tb  # noqa: E402
 from benchmarks import table_simulation as ref_ts  # noqa: E402
@@ -59,8 +71,8 @@ def results(monkeypatch, tmp_path):
     """Both packages' scripts write under ``tmp_path``."""
     ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
     ref_dir.mkdir()
-    for m in (ref_util, ref_fig1, ref_fig2, ref_fig3, ref_fig5, ref_tb,
-              ref_ts):
+    for m in (ref_util, ref_fig1, ref_fig2, ref_fig3, ref_fig4, ref_fig5,
+              ref_tb, ref_ts):
         monkeypatch.setattr(m, "RESULTS", ref_dir)
     monkeypatch.setattr(_util, "RESULTS", port_dir)
     return ref_dir, port_dir
@@ -241,21 +253,82 @@ class TestScripts:
         assert drift == pytest.approx(ref_drift, rel=1e-9, abs=1e-12)
         assert len(rows) == 2 and rows[0]["weibull_shape"] == 0.5
 
+    def test_fig4_matches_reference(self, results, monkeypatch):
+        """The CSV byte for byte against the reference's script run
+        operation by operation; values within 1e-13 of its compiled run,
+        the same cadences; the headline (40.56% below PFS-only at ratio
+        0.02, q 0.01, m* = 12)."""
+        monkeypatch.setattr(ref_fig4, "timed",
+                            lambda fn, *a, repeat=3, **k: (fn(*a, **k), 0.0))
+        with jax.disable_jit():
+            ref_fig4.run()
+        out, res, head, rows = fig4_multilevel.run(device=CPU)
+        _same_csv(results[0] / "fig4_multilevel.csv", out)
+        ref = RS.evaluate_multilevel_grid(
+            RS.buddy_ratio_grid(ref_fig4.RATIOS, ref_fig4.QS,
+                                mu_min=ref_fig4.MU_MIN),
+            m_values=ref_fig4.M_VALUES)
+        for f in ("m_time", "m_energy"):
+            np.testing.assert_array_equal(getattr(res, f).numpy(),
+                                          np.asarray(getattr(ref, f)))
+        for f in ("T_time", "T_energy", "time_ratio", "energy_ratio",
+                  "time_vs_single", "energy_vs_single"):
+            _close(getattr(res, f).numpy(), getattr(ref, f), 1e-13)
+        evs = np.asarray(ref.energy_vs_single)
+        assert head[0] == pytest.approx(1.0 - np.nanmin(evs), rel=1e-13)
+        assert abs(head[0] - 0.4056) < 5e-5 and head[1:] == (0.02, 0.01, 12)
+        assert len(rows) == 30 and rows[0]["m_energy"] == 12
+
+    def test_energy_study_matches_reference(self):
+        spec = importlib.util.spec_from_file_location(
+            "ref_energy_study", ROOT / "examples" / "energy_study.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            mod.main()
+        split = lambda text: text.strip("\n").split("\n\n== ")
+        ref = split(buf.getvalue())
+        got = split("\n".join(energy_study.run(np.random.default_rng(0),
+                                               device=CPU)))
+        assert len(got) == len(ref) == 8
+        # the catalog is the port's registry, a subset of the reference's
+        # (the arch scenarios wait for configs/)
+        ref_cat, got_cat = ref[0].split("\n"), got[0].split("\n")
+        assert got_cat[0] == ref_cat[0] and set(got_cat) <= set(ref_cat)
+        assert len(got_cat) == len(TS.list_scenarios()) + 1
+        # the single-level MC point: simulated energies within 4 combined
+        # standard errors (300 trials: 0.26% of E at AlgoT, 0.50% at
+        # AlgoE), the gain within 4 points; the model numbers exact
+        nums = lambda text: [float(x) for x in re.findall(r"[-\d.]+\d",
+                                                          text)]
+        (a_t, m_t, a_e, m_e, gain), (b_t, n_t, b_e, n_e, g2) = (
+            nums(ref[2].split("\n", 1)[1]), nums(got[2].split("\n", 1)[1]))
+        assert (m_t, m_e) == (n_t, n_e)
+        assert abs(b_t / a_t - 1.0) <= 4 * 2**0.5 * 0.0026
+        assert abs(b_e / a_e - 1.0) <= 4 * 2**0.5 * 0.0050
+        assert abs(g2 - gain) <= 4.0
+        # every other section, the Weibull rows and the two-level MC point
+        # included, line for line
+        for i in (1, 3, 4, 5, 6, 7):
+            assert got[i] == ref[i], got[i]
+
     def test_run_figures_on_the_cpu(self, results, capsys):
-        """run_figures at full size: fig5's headline (the reference's
-        8.1% energy penalty at k = 0.5, mu = 120) and its 2% gate."""
+        """run_figures at full size: fig4's headline (41% at ratio 0.02,
+        q 0.01, m* 12), fig5's (the reference's 8.1% energy penalty at
+        k = 0.5, mu = 120) and its 2% gate."""
         rows = run.run_figures(np.random.default_rng(0),
                                np.random.default_rng(0),
                                np.random.default_rng(1), device=CPU)
         names = [r.split(",")[0] for r in rows]
         assert names == ["fig1_rho_sweep", "fig2_mu_rho", "fig3_scalability",
-                         "fig5_robustness", "table_baselines",
-                         "table_simulation"]
-        assert "energy penalty 8.1% at k=0.5 mu=120min" in rows[3]
+                         "fig4_multilevel", "fig5_robustness",
+                         "table_baselines", "table_simulation"]
+        assert "best energy 41% below PFS-only (ratio=0.02, q=0.01, m*=12)" \
+            in rows[3]
+        assert "energy penalty 8.1% at k=0.5 mu=120min" in rows[4]
         assert capsys.readouterr().out.startswith("name,us_per_call,derived")
-        for name in ("fig1_rho_sweep", "fig2_mu_rho", "fig3_scalability",
-                     "fig5_robustness", "table_baselines",
-                     "table_simulation"):
+        for name in names:
             assert (results[1] / f"{name}.csv").is_file()
 
 
@@ -265,7 +338,10 @@ class TestScripts:
     lambda: PC.evaluate(PC.fig12_checkpoint(300.0), PC.EXASCALE_POWER_RHO55),
     lambda: PC.energy_breakdown(60.0, PC.fig12_checkpoint(300.0),
                                 PC.EXASCALE_POWER_RHO55),
-], ids=["fig1", "table_baselines", "evaluate", "energy_breakdown"])
+    lambda: fig4_multilevel.run(),
+    lambda: energy_study.run(np.random.default_rng(0)),
+], ids=["fig1", "table_baselines", "evaluate", "energy_breakdown", "fig4",
+        "energy_study"])
 def test_default_device_raises_without_cuda(call, results):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
