@@ -172,6 +172,31 @@ Phases (any failure exits non-zero; no result line is printed then):
    which prices each level's I/O at its own power, within 1e-15), and to
    the CPU's scan.
 
+11. the checkpoint advisor (after phase 10), every line with the card's
+   name and power limit, the six kernel wrappers' launches and the plain
+   versions' calls counted over the whole phase and required to be zero
+   (the service runs no kernel: its sweeps and certificate are eager
+   PyTorch).  The smoke leg (``repro_torch.launch.serve advisor --smoke
+   --device cuda``: 48 mixed requests from ``default_rng(7)`` batched
+   bitwise equal to solo, the open loop at 2000 Hz with rps > 0, a cache
+   hit rate > 0); the burst (``bench_advisor.time_advisor_rps``, 512
+   single-level requests from ``default_rng(42)``, repeat 2: one
+   dispatched solve, bitwise the naive one-solve-per-request loop,
+   ``speedup_warm`` >= 20); the four open-loop regimes
+   (``time_advisor_regimes``); the burst and a mixed 512 (two-tier share
+   0.5, ``default_rng(11)``) served in f64 on the card and by the port on
+   the CPU (periods and predictions within 1e-12 relative, the same
+   picks, stores and flags); the default policy (compensated f32) on the
+   mixed 512, every served objective within cert_bound + objective_tol
+   of an exact f64 solve on the card; the split of one cold window of the
+   mixed 512 and of a 16,384-request mixed burst (``default_rng(12)``)
+   into fingerprinting, grids and copy up, the two solves, the
+   certificate, the read-back and ``Advice``, with the CUDA kernels a
+   window launches (``torch.profiler``) and their busy share, the 16,384
+   burst's wall on the port's CPU, and the certificate timed on the card
+   and on the host; then ``cache_stats()`` after a repeat workload and
+   ``backend_info("cuda")``.
+
 Near the end it prints one JSON line ``{"gates": {...}}`` with every
 gate's numbers, then one ``{"kernels": [...]}`` line, then the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -3208,6 +3233,349 @@ def phase_multilevel(dev, card: str) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# 11. the checkpoint advisor
+# ---------------------------------------------------------------------------
+
+#: (requests, generator seed) of the phase's workloads: the reference's
+#: burst (bench_advisor: 512 single-level, seed 42), a mixed 512 (two-tier
+#: share 0.5, seed 11) and the 16,384-request mixed burst of the split.
+ADV_BURST_SEED = 42
+ADV_MIXED = (512, 11)
+ADV_BIG = (16384, 12)
+#: card against the port's CPU run, both in f64.
+ADV_CROSS_RTOL = 1e-12
+ADV_SPEEDUP_FLOOR = 20.0
+ADV_SPLIT = ("fingerprint", "grids", "solve_single", "solve_ml",
+             "certificate", "readback", "advice")
+
+
+def _adv_requests(n: int, seed: int, two_tier_frac: float = 0.5):
+    import numpy as np
+    from repro_torch.serve import synthetic_requests
+    return synthetic_requests(n, np.random.default_rng(seed),
+                              two_tier_frac=two_tier_frac)
+
+
+def _adv_compare(card, cpu, what: str, alog) -> dict:
+    """Card against CPU advice, both f64: floats within ADV_CROSS_RTOL,
+    picks and flags equal; returns the largest relative differences."""
+    import math
+    from repro_torch.serve import Quantization
+    tol = Quantization().tol
+    floats = ("period", "predicted_wall", "predicted_energy", "T_time",
+              "T_energy", "vs_single")
+    exact = ("deep_every", "m_time", "m_energy", "store", "valid", "exact",
+             "cache_hit")
+    worst = dict.fromkeys(floats + ("cert_bound",), 0.0)
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        for k in exact:
+            if getattr(a, k) != getattr(b, k):
+                fail(f"advisor {what}: request {i} {k} {getattr(a, k)!r} on "
+                     f"the card, {getattr(b, k)!r} on the CPU")
+        if (a.cert_bound <= tol) != (b.cert_bound <= tol):
+            fail(f"advisor {what}: request {i} certified on one side only")
+        for k in worst:
+            x, y = getattr(a, k), getattr(b, k)
+            if math.isnan(x) and math.isnan(y):
+                continue
+            worst[k] = max(worst[k], abs(x - y) / max(abs(y), 1e-300))
+    alog(f"advisor {what}: card against CPU (f64), {len(card)} requests, "
+         "largest relative differences " + ", ".join(
+             f"{k} {v:.3e}" for k, v in worst.items()))
+    bad = {k: v for k, v in worst.items()
+           if k != "cert_bound" and not v <= ADV_CROSS_RTOL}
+    if bad:
+        fail(f"advisor {what}: card and CPU differ beyond "
+             f"{ADV_CROSS_RTOL}: {bad}")
+    return worst
+
+
+def _adv_objectives(reqs, T, m):
+    """(time, energy) objectives of each request at (T, m) in f64 on the
+    host, from the port's closed forms (T_base scaled)."""
+    import torch
+    from repro_torch.sim import sweep
+    f64 = lambda xs: torch.tensor(xs, dtype=torch.float64)
+    out = [None] * len(reqs)
+    for ml in (False, True):
+        idx = [i for i, r in enumerate(reqs) if r.is_multilevel == ml]
+        if not idx:
+            continue
+        if ml:
+            ps = [reqs[i].multilevel_params() for i in idx]
+            p = {k: f64([getattr(ck, k) for ck, _ in ps])
+                 for k in ("C1", "R1", "D1", "C2", "R2", "D2", "mu", "q",
+                           "omega")}
+            p["omega1"] = f64([ck.w1 for ck, _ in ps])
+            p["omega2"] = f64([ck.w2 for ck, _ in ps])
+            p.update({k: f64([getattr(pw, k) for _, pw in ps])
+                      for k in ("P_static", "P_cal", "P_io1", "P_io2",
+                                "P_down")})
+            tt, mm = f64([T[i] for i in idx]), f64([float(m[i]) for i in idx])
+            tb = f64([reqs[i].T_base for i in idx])
+            vt = sweep.ml_time_final_batched(tt, mm, p, tb)
+            ve = sweep.ml_energy_final_batched(tt, mm, p, tb)
+        else:
+            ps = [reqs[i].single_params() for i in idx]
+            p = {k: f64([getattr(ck, k) for ck, _ in ps])
+                 for k in ("C", "R", "D", "mu", "omega")}
+            p.update({k: f64([getattr(pw, k) for _, pw in ps])
+                      for k in ("P_static", "P_cal", "P_io", "P_down")})
+            tt = f64([T[i] for i in idx])
+            tb = f64([reqs[i].T_base for i in idx])
+            vt = sweep.time_final_batched(tt, p, tb)
+            ve = sweep.energy_final_batched(tt, p, tb)
+        for j, i in enumerate(idx):
+            out[i] = (float(vt[j]), float(ve[j]))
+    return out
+
+
+def _adv_window(reqs, dev, precision=None, profile: bool = False) -> dict:
+    """One cold window of ``reqs`` through a service on ``dev`` under
+    ``precision`` (None: the device's default): host seconds split by part
+    (synchronised), wall; with ``profile`` a second cold window under
+    ``torch.profiler`` for its CUDA kernels and their busy time."""
+    import torch
+    from repro_torch.serve import AdvisorService
+    svc = AdvisorService(cache_name=None, precision=precision, device=dev)
+    svc.timings = {}
+    t0 = time.perf_counter()
+    svc.advise_many(reqs)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    out = {"wall_s": time.perf_counter() - t0, "policy": svc.precision.name,
+           "split_s": {k: svc.timings.get(k, 0.0) for k in ADV_SPLIT},
+           "lanes": svc.metrics()["solved_lanes"]}
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        svc = AdvisorService(cache_name=None, precision=precision,
+                             device=dev)
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            svc.advise_many(reqs)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        kinds = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                kinds["kernels"] = kinds.get("kernels", 0) + 1
+                kinds["busy_us"] = (kinds.get("busy_us", 0.0)
+                                    + e.time_range.elapsed_us())
+            elif e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                            "cudaLaunchKernelExC"):
+                kinds["launch_calls"] = kinds.get("launch_calls", 0) + 1
+        out["profiled"] = {"wall_s": wall,
+                           "kernels": kinds.get("kernels", 0),
+                           "launch_calls": kinds.get("launch_calls", 0),
+                           "busy_s": kinds.get("busy_us", 0.0) * 1e-6}
+        out["profiled"]["busy_share"] = out["profiled"]["busy_s"] / wall
+    return out
+
+
+def _adv_cert_placement(reqs, dev) -> dict:
+    """The certificate of one window's solve timed on the solve's device
+    and on f64 CPU tensors (the same fields and periods), and whether the
+    two agree bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import batcher
+    from repro_torch.serve.fingerprint import (Quantization,
+                                               certified_bound_multilevel,
+                                               certified_bound_single,
+                                               quantize_request,
+                                               quantized_key)
+    from repro_torch.sim import evaluate_grid, evaluate_multilevel_grid
+    q = Quantization()
+    plan = batcher.plan_batch([(quantized_key(qr), qr) for qr in (
+        quantize_request(r, q) for r in reqs)])
+    pg, mg, m_values, m_max = plan.grids(dev)
+    rs = evaluate_grid(pg, device=dev)
+    rm = evaluate_multilevel_grid(mg, m_values=m_values, m_max=m_max,
+                                  device=dev)
+    cases = {"single": (certified_bound_single, pg.fields(),
+                        (rs.T_time, rs.T_energy)),
+             "ml": (certified_bound_multilevel, mg.fields(),
+                    (rm.T_time, rm.m_time, rm.T_energy, rm.m_energy))}
+    out = {}
+    for name, (fn, fields, args) in cases.items():
+        host_f = {k: v.cpu() for k, v in fields.items()}
+        host_a = [a.cpu() for a in args]
+        fn(fields, *args, q)                         # warm both
+        fn(host_f, *host_a, q)
+        on_dev, dev_s = _sync_time(lambda: fn(fields, *args, q))
+        on_host, host_s = _sync_time(lambda: fn(host_f, *host_a, q))
+        out[name] = {"lanes": len(on_dev), "device_s": dev_s,
+                     "host_s": host_s,
+                     "bitwise": bool(np.array_equal(on_dev, on_host)),
+                     "max_rel": _max_rel(np.where(np.isfinite(on_dev),
+                                                  on_dev, 0.0),
+                                         np.where(np.isfinite(on_host),
+                                                  on_host, 0.0))}
+    torch.cuda.synchronize(dev)
+    return out
+
+
+def phase_advisor(dev, card: str) -> dict:
+    """Phase 11: the checkpoint-advisor service on the card (see the
+    module docstring), every line with the card's name and power limit;
+    the six kernel wrappers' launches and the plain versions' calls over
+    the whole phase must stay zero."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks import bench_advisor
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import AdvisorService, Quantization
+    from repro_torch.sim import backend_info, cache_stats
+    alog = lambda msg: log(f"{msg} [{card}]")
+    cpu = torch.device("cpu")
+    report = {}
+    t_phase = time.perf_counter()
+    _reset_counts()
+
+    # 1. the smoke leg through the launcher
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rep = launch_serve.main(["advisor", "--smoke", "--device",
+                                 dev.type])
+    for line in buf.getvalue().splitlines():
+        alog(f"advisor smoke: {line}")
+    if not (rep.rps > 0.0 and rep.hit_rate > 0.0):
+        fail(f"advisor smoke: rps {rep.rps}, hit rate {rep.hit_rate}")
+    report["smoke"] = dict(rep.summary(), secs=time.perf_counter() - t0)
+
+    # 2. the burst (the reference's bench_advisor definition)
+    t0 = time.perf_counter()
+    burst = bench_advisor.time_advisor_rps(
+        np.random.default_rng(ADV_BURST_SEED), repeat=2, device=dev)
+    burst["secs"] = time.perf_counter() - t0
+    alog("advisor burst: " + ", ".join(
+        f"{k} {burst[k]:.6g}" for k in (
+            "naive_s", "batched_cold_s", "batched_warm_s", "rps",
+            "open_loop_rps", "p50_ms", "p99_ms", "speedup_warm", "secs")))
+    if not burst["speedup_warm"] >= ADV_SPEEDUP_FLOOR:
+        fail(f"advisor burst: speedup_warm {burst['speedup_warm']:.2f} "
+             f"under the floor {ADV_SPEEDUP_FLOOR}")
+    report["burst"] = burst
+
+    # 3. the open-loop regimes
+    t0 = time.perf_counter()
+    regimes = bench_advisor.time_advisor_regimes(
+        np.random.default_rng(11), np.random.default_rng(12), device=dev)
+    regimes["secs"] = time.perf_counter() - t0
+    for key, r in regimes.items():
+        if isinstance(r, dict):
+            alog(f"advisor regime {key}: rps {r['rps']:.6g}, p50 "
+                 f"{r['p50_ms']:.6g} ms, p99 {r['p99_ms']:.6g} ms, hit rate "
+                 f"{r['hit_rate']:.4f}, mean window {r['mean_window']:.4g}")
+    report["regimes"] = regimes
+
+    # 4. card against the port's CPU run, both f64
+    burst_reqs = _adv_requests(512, ADV_BURST_SEED, two_tier_frac=0.0)
+    mixed = _adv_requests(*ADV_MIXED)
+    cross = {}
+    for what, reqs in (("burst-512", burst_reqs), ("mixed-512", mixed)):
+        on_card, on_cpu = (AdvisorService(cache_name=None, precision="f64",
+                                          device=d).advise_many(reqs)
+                           for d in (dev, cpu))
+        cross[what] = _adv_compare(on_card, on_cpu, what, alog)
+    report["card_vs_cpu"] = cross
+
+    # 5. the default policy (compensated f32 on CUDA) against exact f64
+    svc = AdvisorService(cache_name=None, device=dev)
+    tol = svc.precision.objective_tol
+    served = svc.advise_many(mixed)
+    truth = AdvisorService(quantization=Quantization(rel=0.0, absolute=0.0),
+                           precision="f64", cache_name=None,
+                           device=dev).advise_many(mixed)
+    ok = [i for i, (a, t) in enumerate(zip(served, truth))
+          if a.valid and t.valid]
+    sub = [mixed[i] for i in ok]
+    sv_t = _adv_objectives(sub, [served[i].T_time for i in ok],
+                           [served[i].m_time for i in ok])
+    sv_e = _adv_objectives(sub, [served[i].T_energy for i in ok],
+                           [served[i].m_energy for i in ok])
+    op_t = _adv_objectives(sub, [truth[i].T_time for i in ok],
+                           [truth[i].m_time for i in ok])
+    op_e = _adv_objectives(sub, [truth[i].T_energy for i in ok],
+                           [truth[i].m_energy for i in ok])
+    worst = 0.0
+    for j, i in enumerate(ok):
+        slack = served[i].cert_bound + tol
+        for sv, op in ((sv_t[j][0], op_t[j][0]), (sv_e[j][1], op_e[j][1])):
+            excess = sv / op - 1.0
+            worst = max(worst, excess / slack)
+            if not sv <= op * (1.0 + slack):
+                fail(f"advisor default policy: request {i} serves {sv!r} "
+                     f"against the exact {op!r}, beyond cert_bound + "
+                     f"objective_tol {slack:.3e}")
+    alog(f"advisor default policy ({svc.precision.name}): {len(ok)} of "
+         f"{len(mixed)} requests valid; served objectives within cert_bound "
+         f"+ objective_tol of an exact f64 solve on the card, the largest "
+         f"excess {worst:.4f} of its slack")
+    report["default_policy"] = {"policy": svc.precision.name,
+                                "checked": len(ok), "excess_of_slack": worst}
+
+    # 6. where a window's time goes: the mixed 512 and a 16,384 burst
+    big = _adv_requests(*ADV_BIG)
+    split = {}
+    for (what, reqs), pol in itertools.product(
+            (("mixed-512", mixed), ("mixed-16k", big)),
+            (None, "f64")):
+        w = _adv_window(reqs, dev, pol, profile=True)
+        what = f"{what}-{w['policy']}"
+        w["certificate_share"] = w["split_s"]["certificate"] / w["wall_s"]
+        alog(f"advisor window {what} ({w['lanes']} lanes): "
+             f"wall {w['wall_s']:.6f} s, certificate share "
+             f"{w['certificate_share']:.4f}; " + ", ".join(
+                 f"{k} {v:.6f}" for k, v in w["split_s"].items())
+             + f"; profiled: {w['profiled']['kernels']} CUDA kernels, "
+             f"{w['profiled']['launch_calls']} launch calls, busy "
+             f"{w['profiled']['busy_s']:.6f} s of {w['profiled']['wall_s']:.6f}"
+             f" s ({w['profiled']['busy_share']:.4f})")
+        split[what] = w
+    w = _adv_window(big, cpu)
+    alog(f"advisor window mixed-16k on the port's CPU ({w['policy']}): wall "
+         f"{w['wall_s']:.6f} s; " + ", ".join(
+             f"{k} {v:.6f}" for k, v in w["split_s"].items()))
+    split["mixed-16k-cpu"] = w
+    cert = _adv_cert_placement(big, dev)
+    for k, c in cert.items():
+        alog(f"advisor certificate {k} ({c['lanes']} lanes): on the card "
+             f"{c['device_s']:.6f} s, on the host {c['host_s']:.6f} s, "
+             f"bitwise {c['bitwise']}, max rel {c['max_rel']:.3e}")
+    split["certificate_placement"] = cert
+    report["split"] = split
+    del big
+
+    # 7. the registry after a repeat workload
+    svc = AdvisorService(device=dev)
+    svc.advise_many(mixed)
+    svc.advise_many(mixed)
+    fp = cache_stats()["serve.fingerprints"]
+    if not (fp["lookups"] == fp["hits"] + fp["misses"] and fp["hits"] > 0):
+        fail(f"advisor registry: serve.fingerprints {fp}")
+    info = backend_info("cuda")
+    alog(f"advisor registry: serve.fingerprints {fp}; backend_info {info}")
+    report["registry"] = {"serve.fingerprints": fp,
+                          "backend_info": repr(info)}
+
+    torch.cuda.synchronize()
+    c = _counts()
+    if any(c.values()):
+        fail(f"the advisor path launched a kernel or called a plain "
+             f"version: {c}")
+    report["launches"] = c
+    report["phase_s"] = time.perf_counter() - t_phase
+    alog(f"advisor path: kernel launches and plain-version calls all zero "
+         f"({c}); advisor phase {report['phase_s']:.1f} s")
+    return report
+
+
 def _kernel_modules():
     from repro_torch.kernels import (decode_attention, event_sweep,
                                      flash_attention, mlstm_scan,
@@ -3344,6 +3712,10 @@ def main() -> None:
 
     # the multilevel path (phase 10), each part's counts read around it
     report["multilevel"] = phase_multilevel(dev, card)
+    torch.cuda.empty_cache()
+
+    # the checkpoint advisor (phase 11), its counts read around it
+    report["advisor"] = phase_advisor(dev, card)
     torch.cuda.empty_cache()
 
     # the checkpoint runtime path, its counts read around it

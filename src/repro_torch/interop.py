@@ -2,8 +2,8 @@
 
 This system's counterpart of carrying a model's weights across: the
 reference's parameter grids, parameter dataclasses (single-level and
-multilevel), failure schedules and state trees become the port's tensors
-and dataclasses.  Everything here works by duck typing on plain mappings,
+multilevel), failure schedules, state trees and advisor requests become
+the port's tensors and dataclasses.  Everything here works by duck typing on plain mappings,
 arrays and containers, so the port never imports the reference package.
 """
 from __future__ import annotations
@@ -17,6 +17,7 @@ from ._device import F64, resolve_device
 from .ckpt.tree import tree_map
 from .core.params import (CheckpointParams, MultilevelCheckpointParams,
                           MultilevelPowerParams, PowerParams)
+from .serve.schema import AdviceRequest, StoreTier
 from .sim.scenarios import _ML_FIELDS, MultilevelParamGrid, ParamGrid
 
 
@@ -123,3 +124,12 @@ def state_from_numpy(tree: Any, device="cuda") -> Any:
     the reference's order (:mod:`repro_torch.ckpt.tree`)."""
     dev = resolve_device(device)
     return tree_map(lambda x: torch.tensor(np.asarray(x), device=dev), tree)
+
+
+def advice_request_from_fields(fields: Mapping[str, Any]) -> AdviceRequest:
+    """The port's :class:`~repro_torch.serve.schema.AdviceRequest` from
+    ``dataclasses.asdict`` of the reference's (its tiers a sequence of
+    mappings); the port's own validation runs on it."""
+    f = dict(fields)
+    f["tiers"] = tuple(StoreTier(**dict(t)) for t in f["tiers"])
+    return AdviceRequest(**f)

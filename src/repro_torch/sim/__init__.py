@@ -12,14 +12,22 @@ Layers:
               the event kernel or the step scan (``engine_kind``),
               M candidate periods on one shared schedule, and the
               two-level (buddy + PFS) step scan.
-  dispatch  — memory-budget chunking and precision resolution.
+  dispatch  — memory-budget chunking, precision resolution, the named
+              bounded caches (:func:`cache_stats`) and
+              :func:`backend_info`.
+  cache     — the persistent kernel-build directory
+              (``$REPRO_COMPILE_CACHE``).
   precision — :class:`PrecisionPolicy` (f64 oracle on the CPU,
               compensated f32 on CUDA) with documented tolerances.
 
 The scalar ``repro_torch.core.simulator.simulate_once`` is the oracle the
 engine is held against.
 """
-from .dispatch import DispatchConfig, resolve_precision, chunk_plan
+from .cache import (enable_compile_cache, maybe_enable_from_env,
+                    active_cache_dir)
+from .dispatch import (DispatchConfig, resolve_precision, chunk_plan,
+                       cache_stats, reset_cache_stats, BackendInfo,
+                       backend_info)
 from .precision import PrecisionPolicy, F64, COMPENSATED_F32
 from .scenarios import (ParamGrid, Scenario, get_scenario, list_scenarios,
                         register_scenario, mu_rho_grid, nodes_grid,
@@ -44,3 +52,7 @@ from .sweep import (GridResult, evaluate_grid, golden_section_batched,
                     evaluate_periods_grid, sweep_weibull_shapes,
                     MultilevelGridResult, evaluate_multilevel_grid,
                     ml_time_final_batched, ml_energy_final_batched)
+
+# Persistent kernel-build directory: opt-in via $REPRO_COMPILE_CACHE (no-op
+# otherwise; see sim/cache.py).
+maybe_enable_from_env()

@@ -9,6 +9,10 @@ changes a model sweep's results; the engine's auto-sampled gaps are
 counter-based per (point, trial, gap index), so chunk size and budget
 never change its results either.
 
+Bounded caches are :class:`LRUCache`; a cache built with a ``name`` lands
+in a registry that :func:`cache_stats` reports (the advisor's fingerprint
+cache is one).  :func:`backend_info` says what a device is.
+
 Configuration resolves from :class:`DispatchConfig` (explicit argument) or
 the environment, as in the reference::
 
@@ -19,16 +23,148 @@ the environment, as in the reference::
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 import warnings
 from typing import List, Optional, Tuple
 
+import torch
+
+from .._device import resolve_device
 from . import precision as _precision
 from .precision import PrecisionPolicy
 
 #: default device-memory budget per call (bytes).
 DEFAULT_MEMORY_BUDGET = 2 << 30
+
+
+class CacheStats:
+    """Hit/miss/insert/eviction counters of one :class:`LRUCache`."""
+
+    __slots__ = ("hits", "misses", "inserts", "evictions")
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.hits = 0
+        self.misses = 0
+        self.inserts = 0
+        self.evictions = 0
+
+    @property
+    def lookups(self) -> int:
+        return self.hits + self.misses
+
+    @property
+    def hit_rate(self) -> float:
+        n = self.lookups
+        return self.hits / n if n else 0.0
+
+    def snapshot(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses,
+                "lookups": self.lookups, "inserts": self.inserts,
+                "evictions": self.evictions, "hit_rate": self.hit_rate}
+
+
+#: name -> LRUCache for every cache constructed with a ``name``.
+# reprolint: disable=RPL002 (this IS the cache_stats() registry: it holds the bounded LRUCaches themselves, one per name, not cached values)
+_CACHE_REGISTRY: dict = {}
+
+
+def cache_stats(reset: bool = False) -> dict:
+    """``{cache name: stats snapshot (+ size/maxsize)}`` for every named
+    cache in the process; ``reset=True`` zeroes the counters after reading
+    (contents untouched: the stats are observability only)."""
+    out = {}
+    for name, cache in sorted(_CACHE_REGISTRY.items()):
+        snap = cache.stats.snapshot()
+        snap["size"] = len(cache)
+        snap["maxsize"] = cache.maxsize
+        out[name] = snap
+        if reset:
+            cache.stats.reset()
+    return out
+
+
+def reset_cache_stats():
+    """Zero every named cache's counters (contents untouched)."""
+    for cache in _CACHE_REGISTRY.values():
+        cache.stats.reset()
+
+
+class LRUCache:
+    """A small LRU map with counters.
+
+    Eviction drops only the cached value; a later lookup of the same key
+    misses and the caller computes it again.  ``name`` registers the cache
+    (and its :class:`CacheStats`) with :func:`cache_stats`, the last cache
+    of a name owning the slot; anonymous caches count privately.
+    """
+
+    def __init__(self, maxsize: int, name: Optional[str] = None):
+        self.maxsize = int(maxsize)
+        self.name = name
+        self.stats = CacheStats()
+        self._d: collections.OrderedDict = collections.OrderedDict()
+        if name is not None:
+            _CACHE_REGISTRY[name] = self
+
+    def get(self, key):
+        try:
+            val = self._d.pop(key)
+        except KeyError:
+            self.stats.misses += 1
+            return None
+        self.stats.hits += 1
+        self._d[key] = val            # re-insert as most recently used
+        return val
+
+    def put(self, key, val):
+        self._d.pop(key, None)
+        self._d[key] = val
+        self.stats.inserts += 1
+        while len(self._d) > self.maxsize:
+            self._d.popitem(last=False)
+            self.stats.evictions += 1
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+    def __contains__(self, key) -> bool:
+        return key in self._d
+
+    def clear(self):
+        self._d.clear()
+
+
+@dataclasses.dataclass(frozen=True)
+class BackendInfo:
+    """What a device is (:func:`backend_info`).
+
+    ``platform`` is ``"cuda"`` or ``"cpu"``, ``device_kind`` the device's
+    name (``torch.cuda.get_device_name``, e.g. "NVIDIA H100 80GB HBM3";
+    ``"cpu"`` on the host), ``n_devices`` the CUDA device count (1 on the
+    host) and ``virtual`` is False: the port has no host-virtual devices.
+    """
+
+    platform: str
+    device_kind: str
+    n_devices: int
+    virtual: bool
+
+
+def backend_info(device="cuda") -> BackendInfo:
+    """The :class:`BackendInfo` of ``device``; raises for an unavailable
+    GPU, as every entry point does."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return BackendInfo(platform="cpu", device_kind="cpu", n_devices=1,
+                           virtual=False)
+    return BackendInfo(platform=dev.type,
+                       device_kind=torch.cuda.get_device_name(dev),
+                       n_devices=torch.cuda.device_count(), virtual=False)
 
 
 def _env_int(name: str) -> Optional[int]:

@@ -152,6 +152,11 @@ def use_policy(policy: PrecisionPolicy):
         _ACTIVE.reset(token)
 
 
+#: the reference's name for :func:`use_policy` (it sets the policy for a
+#: trace there; the eager port runs the block itself).
+trace_policy = use_policy
+
+
 def psum(terms):
     """Policy-aware sum: the plain left-associated chain ``t0 + t1 + ...``
     under the f64 oracle, a Neumaier sum under a compensated policy."""

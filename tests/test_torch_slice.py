@@ -115,7 +115,9 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
             "repro_torch.benchmarks.table_simulation, "
             "repro_torch.benchmarks.quickstart, "
             "repro_torch.benchmarks.fig4_multilevel, "
-            "repro_torch.benchmarks.energy_study\n"
+            "repro_torch.benchmarks.energy_study, repro_torch.serve, "
+            "repro_torch.launch.serve, "
+            "repro_torch.benchmarks.bench_advisor, repro_torch.sim.cache\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(','.join(bad))\n")
