@@ -197,6 +197,32 @@ Phases (any failure exits non-zero; no result line is printed then):
    and on the host; then ``cache_stats()`` after a repeat workload and
    ``backend_info("cuda")``.
 
+12. xLSTM-125M trains (after phase 11), every line with the card's name
+   and power limit, each part's counts set to 0 just before it and read
+   just after.  At full width (12 layers, d 768, 4 heads, mLSTM Dh 384,
+   chunk 256, vocab 50,304 padded to 50,432): ``Model.init`` on a seeded
+   ``torch.Generator`` (173,090,352 params in 22 leaves); three
+   ``make_train_step`` steps (AdamW, lr 1e-3, warmup 1, 100 steps) on one
+   ``SyntheticLM`` batch (seed 0, B 8, S 1024, bf16 compute,
+   ``remat="full"``), each on the host clock: every loss and grad norm
+   finite, the last loss below the first, ``mlstm_scan`` launched 12
+   times a step (6 forwards, 6 remat recomputes) and no plain version
+   called; one more step under ``torch.profiler`` (its CUDA kernels,
+   their busy time, the mLSTM kernels' share) and each recurrent layer
+   timed alone at the step's shapes (the mLSTM forward and backward, the
+   sLSTM forward and backward) for the step's split; ``Model.loss`` under
+   no grad at B 8, S 4096 (6 launches); layer 0's mLSTM h through the
+   kernel against ``mlstm_scan_plain`` within ``ZOO_TOL`` and
+   ``MLSTMScan``'s gradients against autograd through the
+   ``_mlstm_chunk`` scan within ``TRAIN_BWD_TOL`` (relative Frobenius);
+   the card's loss against the port's CPU loss from the same params (B 2,
+   S 512) within 3e-2; ``compress_grads`` on the step's gradients (one
+   quantize and one dequantize launch over the 19 leaves of >= 1024
+   elements, every leaf bitwise the one-leaf round trip, wire ratio <
+   0.3), then three steps with the compression between the gradients and
+   ``apply_updates`` (S 256) whose loss falls; and
+   ``table_arch_periods`` on the card within 1e-12 of the CPU.
+
 Near the end it prints one JSON line ``{"gates": {...}}`` with every
 gate's numbers, then one ``{"kernels": [...]}`` line, then the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -3576,6 +3602,519 @@ def phase_advisor(dev, card: str) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# 12. train: xLSTM-125M at full width
+# ---------------------------------------------------------------------------
+
+#: the train-xlstm-125m cell: src/repro/configs/xlstm_125m.py at full width,
+#: SyntheticLM seed 0, B = microbatch_rows_per_device (8), S = 1024 for the
+#: steps and 4096 (train_4k's length) for the no-grad loss; the card
+#: against the CPU at B 2, S 512; the steps with gradient compression at
+#: S 256 (one chunk: the sLSTM's host-bound loop sets a step's time, and
+#: the compression's gates read the step's own gradients at S 1024).
+TRAIN = dict(arch="xlstm-125m", seed=0, S=1024, S_loss=4096, steps=3,
+             cpu_B=2, cpu_S=512, compress_S=256)
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=100)
+#: xLSTM-125M's parameter tree (tests/test_torch_configs.py holds it
+#: against the reference's).
+TRAIN_PARAMS, TRAIN_LEAVES = 173_090_352, 22
+#: MLSTMScan's gradients against autograd through the ``_mlstm_chunk``
+#: scan on the card, relative Frobenius error per input.  The backward
+#: replays each chunk in f32 from the forward's starting states, which the
+#: kernel's state pass sums in 3xTF32: each product keeps hi.hi + hi.lo +
+#: lo.hi, dropping lo.lo and the lo split's rounding, ~2^-21 relative, and
+#: the states sum up to 1024 keys of them, ~1e-6..1e-5 relative; the
+#: gradients are linear in those states.  1e-4 leaves a tenfold margin over
+#: that and sits far below a wrong state (an error of order 1).
+TRAIN_BWD_TOL = 1e-4
+#: the card's loss against the port's CPU loss from the same params: the
+#: reference's bf16 tolerance (tests/test_models.py).
+TRAIN_CPU_TOL = 3e-2
+#: device kernels of the mLSTM's passes, by name (csrc/mlstm_scan.cu).
+MLSTM_KERNELS = ("gates_kernel", "state_kernel", "scores_kernel",
+                 "output_kernel")
+
+
+def _dev_sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _wall_s(fn, dev, reps: int = 1) -> float:
+    """Host-clock seconds of one call of ``fn`` (synchronised), the least
+    of ``reps`` after one warm call."""
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        _dev_sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        _dev_sync(dev)
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _value_and_grad(m, params, batch):
+    """(loss, the gradient tree) of ``m.loss`` at ``params``: what
+    ``make_train_step`` takes before AdamW."""
+    import torch
+    from repro_torch.ckpt.tree import tree_flatten, tree_unflatten
+    leaves, td = tree_flatten(params)
+    leaves = [x.detach().requires_grad_() for x in leaves]
+    loss = m.loss(tree_unflatten(td, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tree_unflatten(td, list(grads))
+
+
+def _frob(a, b) -> float:
+    import torch
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def run_train_path(dev, cfg, B: int, S: int) -> dict:
+    """The train path: ``Model.init`` on a seeded ``torch.Generator``,
+    then ``TRAIN["steps"]`` ``make_train_step`` steps on one
+    ``SyntheticLM`` batch, each on the host clock (synchronised)."""
+    import torch
+    from repro_torch.data import synthetic
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+    m = build(cfg)
+    gen = torch.Generator(device=dev).manual_seed(TRAIN["seed"])
+    t0 = time.perf_counter()
+    params = m.init(gen, device=dev)
+    _dev_sync(dev)
+    init_s = time.perf_counter() - t0
+    batch = synthetic.for_arch(cfg, batch=B, seq_len=S, seed=TRAIN["seed"],
+                               device=dev).peek(0)
+    step = m.make_train_step(adamw.AdamWConfig(**TRAIN_OPT))
+    opt = adamw.init_state(params, device=dev)
+    p = params
+    out = {"model": m, "params0": params, "batch": batch, "step": step,
+           "init_s": init_s, "losses": [], "grad_norms": [], "step_s": []}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(TRAIN["steps"]):
+        t0 = time.perf_counter()
+        p, opt, met = step(p, opt, batch)
+        loss = float(met["loss"])
+        _dev_sync(dev)
+        out["step_s"].append(time.perf_counter() - t0)
+        out["losses"].append(loss)
+        out["grad_norms"].append(float(met["grad_norm"]))
+    if dev.type == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["params"], out["opt"] = p, opt
+    return out
+
+
+def _profile_train_step(run: dict, dev) -> dict:
+    """One more step (its result dropped) under ``torch.profiler``: the
+    CUDA kernels it launches, their busy time, and the mLSTM kernels'
+    share of it.  The trace's raw events are read directly: building the
+    profiler's Python event list takes ~60 us an event, minutes for a
+    step's ~600,000 kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run["step"](run["params"], run["opt"], run["batch"])
+        _dev_sync(dev)
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    n = busy = ml_n = ml_ns = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
+            continue
+        ns = e.duration_ns()
+        n, busy = n + 1, busy + ns
+        if any(k in e.name() for k in MLSTM_KERNELS):
+            ml_n, ml_ns = ml_n + 1, ml_ns + ns
+    return {"profiled_wall_s": wall, "kernels": n, "busy_s": busy * 1e-9,
+            "mlstm_kernels": ml_n, "mlstm_kernel_s": ml_ns * 1e-9}
+
+
+def _step_without_remat(run: dict, cfg, dev) -> float:
+    """Host-clock seconds of the same step with ``remat="none"`` (its
+    result dropped): the checkpoint's cost is the difference."""
+    import dataclasses
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+    m = build(dataclasses.replace(cfg, remat="none"))
+    step = m.make_train_step(adamw.AdamWConfig(**TRAIN_OPT))
+    _dev_sync(dev)
+    t0 = time.perf_counter()
+    step(run["params"], run["opt"], run["batch"])
+    _dev_sync(dev)
+    return time.perf_counter() - t0
+
+
+def _train_split(run: dict, cfg, dev) -> dict:
+    """Each recurrent layer's share of a step, timed alone at the step's
+    shapes on the host clock (synchronised): the mLSTM forward (the
+    kernel), its backward (the chunk replay), and the sLSTM layer's
+    forward and forward + backward; per step, with ``remat="full"``
+    (each layer's forward runs again before its backward), 2 forwards and
+    a backward of each mLSTM and sLSTM layer."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import recurrent as rec
+    from repro_torch.models.spec import torch_dtype
+    cd = torch_dtype(cfg.compute_dtype)
+    B, S = run["batch"]["tokens"].shape
+    gen = torch.Generator(device=dev).manual_seed(TRAIN["seed"] + 1)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev).to(cd)
+    p_m = {k: v[0] for k, v in run["params"]["stages"][0]["mlstm"].items()}
+    p_s = {k: v[0].detach().requires_grad_()
+           for k, v in run["params"]["stages"][1]["slstm"].items()}
+    with torch.no_grad():
+        q, k, v, li, lf, L = rec.mlstm_inputs(cfg, p_m, x, cd)
+    ins = [t.detach().requires_grad_() for t in (q, k, v, li, lf)]
+    dh = torch.randn(q.shape, generator=gen, device=dev)
+
+    def m_fwd():
+        return ops.mlstm_scan_trainable(*ins, chunk=L)[0]
+
+    def m_both():
+        torch.autograd.grad(m_fwd(), ins, dh)
+
+    xs = x.detach().requires_grad_()
+
+    def s_fwd():
+        return rec.slstm_block(cfg, p_s, xs, cd)[0]
+
+    def s_both():
+        y = s_fwd()
+        torch.autograd.grad(y, [xs, *p_s.values()], torch.ones_like(y))
+
+    f_m, fb_m = _wall_s(m_fwd, dev, 3), _wall_s(m_both, dev, 3)
+    f_s, fb_s = _wall_s(s_fwd, dev), _wall_s(s_both, dev)
+    kinds = cfg.layer_kinds()
+    n_m, n_s = kinds.count("mlstm"), kinds.count("slstm")
+    out = {"mlstm_fwd_s": f_m, "mlstm_bwd_s": fb_m - f_m,
+           "slstm_fwd_s": f_s, "slstm_bwd_s": fb_s - f_s,
+           "step_mlstm_fwd_s": 2 * n_m * f_m,
+           "step_mlstm_bwd_s": n_m * (fb_m - f_m),
+           "step_slstm_s": n_s * (f_s + fb_s)}
+    step = statistics.median(run["step_s"][1:] or run["step_s"])
+    out["step_rest_s"] = step - (out["step_mlstm_fwd_s"]
+                                 + out["step_mlstm_bwd_s"]
+                                 + out["step_slstm_s"])
+    out["step_s"] = step
+    return out
+
+
+def _train_kernel_checks(run: dict, cfg, dev) -> dict:
+    """Layer 0's mLSTM at the step's shapes, on its real input (the
+    trained params' embedding of the batch through ln1): h through the
+    kernel against ``mlstm_scan_plain`` at ``ZOO_TOL``, the block's output
+    both ways, and ``MLSTMScan``'s gradients against autograd through the
+    ``_mlstm_chunk`` scan at ``TRAIN_BWD_TOL``."""
+    import torch
+    from repro_torch.kernels import mlstm_scan as ml
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+    from repro_torch.models import recurrent as rec
+    from repro_torch.models.spec import torch_dtype
+    cd = torch_dtype(cfg.compute_dtype)
+    params = run["params"]
+    p0 = {k: v[0] for k, v in params["stages"][0]["ln1"].items()}
+    pm = {k: v[0] for k, v in params["stages"][0]["mlstm"].items()}
+    out = {}
+    with torch.no_grad():
+        x = layers.embed_lookup(params["embed"], run["batch"]["tokens"], cd)
+        h_in = layers.apply_norm(p0, x, cfg.norm)
+        q, k, v, li, lf, L = rec.mlstm_inputs(cfg, pm, h_in, cd)
+        Bq, H, S, Dh = q.shape
+        fold = lambda t: t.reshape(Bq * H, *t.shape[2:])
+        h_k = ops.mlstm_scan_trainable(q, k, v, li, lf, chunk=L)[0]
+        h_p = ml.mlstm_scan_plain(fold(q), fold(k), fold(v), fold(li),
+                                  fold(lf), chunk=L).reshape(h_k.shape)
+        ok, err, frob = _close(h_k, h_p, ZOO_TOL["mlstm_scan"])
+        out["h"] = {"ok": ok, "max_abs_err": err, "frob": frob}
+        y_k = rec.mlstm_block(cfg, pm, h_in, cd)[0]
+        real = ops.mlstm_scan_trainable
+
+        def plain(q_, k_, v_, li_, lf_, chunk):
+            h, st = ml.mlstm_scan_plain(fold(q_), fold(k_), fold(v_),
+                                        fold(li_), fold(lf_), chunk=chunk,
+                                        states=True)
+            last = tuple(t[:, -1].reshape(Bq, H, *t.shape[2:]) for t in st)
+            return h.reshape(q_.shape), last
+        ops.mlstm_scan_trainable = plain
+        try:
+            y_p = rec.mlstm_block(cfg, pm, h_in, cd)[0]
+        finally:
+            ops.mlstm_scan_trainable = real
+        out["block_y_frob"] = _frob(y_k.float(), y_p.float())
+    gen = torch.Generator(device=dev).manual_seed(TRAIN["seed"] + 2)
+    ins = [t.detach().requires_grad_() for t in (q, k, v, li, lf)]
+    dh = torch.randn(q.shape, generator=gen, device=dev)
+    got = torch.autograd.grad(ops.mlstm_scan_trainable(*ins, chunk=L)[0],
+                              ins, dh)
+    zero = rec.mlstm_zero_state(cfg, Bq, dev)
+    want = torch.autograd.grad(rec._mlstm_chunks(*ins, zero, L)[0], ins, dh)
+    out["bwd_frob"] = {n: _frob(g, w) for n, g, w in
+                       zip(("q", "k", "v", "li", "lf"), got, want)}
+    return out
+
+
+def _train_compress(run: dict, dev) -> dict:
+    """Gradient compression on the step's gradients: one ``compress_grads``
+    call (its launches read around it), each leaf bitwise the one-leaf
+    ``quantize_array``/``dequantize_array`` round trip, its ``stats``;
+    then ``TRAIN["steps"]`` steps with the compression between the
+    gradients and ``apply_updates``, from the initial params, on a batch
+    of ``TRAIN["compress_S"]`` tokens a row."""
+    import torch
+    from repro_torch.ckpt.tree import tree_leaves
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw, grad_compress
+    m, batch = run["model"], run["batch"]
+    _, grads = _value_and_grad(m, run["params0"], batch)
+    cst = grad_compress.init_state(grads, device=dev)
+    _dev_sync(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    back, cst, stats = grad_compress.compress_grads(grads, cst)
+    _dev_sync(dev)
+    out = {"compress_s": time.perf_counter() - t0, "counts": _counts(),
+           "stats": stats}
+    n_big = bits = 0
+    for g, b in zip(tree_leaves(grads), tree_leaves(back)):
+        if g.numel() < grad_compress.MIN_COMPRESSED:
+            bits += int(torch.equal(g.float(), b))
+            continue
+        n_big += 1
+        q, s, pad = ops.quantize_array(g.float())
+        ref = ops.dequantize_array(q, s, shape=g.shape, dtype="float32",
+                                   pad=pad)
+        bits += int(torch.equal(ref.view(torch.int32), b.view(torch.int32)))
+    out["leaves"], out["compressed_leaves"] = len(tree_leaves(grads)), n_big
+    out["bitwise_leaves"] = bits
+    cfg_opt = adamw.AdamWConfig(**TRAIN_OPT)
+    p, opt = run["params0"], adamw.init_state(run["params0"], device=dev)
+    cst = grad_compress.init_state(grads, device=dev)
+    del grads, back
+    B, S = batch["tokens"].shape
+    batch = synthetic.for_arch(m.cfg, batch=B, seq_len=min(
+        S, TRAIN["compress_S"]), seed=TRAIN["seed"], device=dev).peek(0)
+    losses, ratios = [], []
+    _reset_counts()
+    for _ in range(TRAIN["steps"]):
+        loss, g = _value_and_grad(m, p, batch)
+        g, cst, st = grad_compress.compress_grads(g, cst)
+        p, opt, _ = adamw.apply_updates(cfg_opt, p, g, opt)
+        losses.append(float(loss))
+        ratios.append(st["ratio"])
+    _dev_sync(dev)
+    out["steps_counts"] = _counts()
+    out["losses"], out["ratios"] = losses, ratios
+    return out
+
+
+def phase_train(dev, card: str, peaks=None, cfg=None, B=None, S=None,
+                S_loss=None) -> dict:
+    """Phase 12: xLSTM-125M trains on the card (see the module docstring),
+    every line with the card's name and power limit; ``peaks`` (phase 1's)
+    give the mLSTM launch's bound at the step's shape.  ``cfg`` and the
+    sizes default to the train-xlstm-125m cell; smaller ones rehearse the
+    phase on the CPU (``dev`` cpu), where no kernel launches."""
+    import torch
+    from repro_torch.benchmarks import table_arch_periods
+    from repro_torch.ckpt.tree import tree_leaves, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.models.spec import tree_size
+    tlog = lambda msg: log(f"{msg} [{card}]")
+    full = cfg is None
+    cfg = cfg or get_config(TRAIN["arch"])
+    B = B or cfg.microbatch_rows_per_device
+    S, S_loss = S or TRAIN["S"], S_loss or TRAIN["S_loss"]
+    on_card = dev.type == "cuda"
+    n_mlstm = cfg.layer_kinds().count("mlstm")
+    report = {"arch": cfg.name, "B": B, "S": S, "S_loss": S_loss}
+    t_phase = time.perf_counter()
+
+    # 1. the main path: init, then the steps, the counts read around it
+    _reset_counts()
+    run = run_train_path(dev, cfg, B, S)
+    _dev_sync(dev)
+    c = _counts()
+    leaves = tree_leaves(run["params0"])
+    n_params = sum(x.numel() for x in leaves)
+    tlog(f"train: {cfg.name} params {n_params} in {len(leaves)} leaves "
+         f"(init {run['init_s']:.3f} s); B {B}, S {S}: losses "
+         f"{run['losses']}, grad_norms {run['grad_norms']}, step s "
+         f"{run['step_s']}, peak {run.get('peak_gb', 0.0):.2f} GB; "
+         f"launches mlstm_scan {c['mlstm_scan']}, plain calls {c['plain']}")
+    if n_params != tree_size(run["model"].param_spec()) or (
+            full and (n_params, len(leaves)) != (TRAIN_PARAMS,
+                                                 TRAIN_LEAVES)):
+        fail(f"train: the tree holds {n_params} params in {len(leaves)} "
+             f"leaves")
+    losses = run["losses"]
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+            and all(math.isfinite(x) for x in run["grad_norms"])):
+        fail(f"train: the loss did not fall or is not finite: {losses}")
+    want = 2 * n_mlstm * TRAIN["steps"] if on_card else 0
+    if c["mlstm_scan"] != want or (on_card and c["plain"]):
+        fail(f"train: mlstm_scan launched {c['mlstm_scan']} times (want "
+             f"{want}: a forward and the remat recompute of {n_mlstm} "
+             f"layers a step) with {c['plain']} plain-version calls")
+    report.update({k: run[k] for k in ("losses", "grad_norms", "step_s",
+                                       "init_s")})
+    report["peak_gb"] = run.get("peak_gb")
+    report["launches"] = c
+
+    # 2. the step's kernels and busy share; the split of a step
+    t_part = time.perf_counter()
+    if on_card:
+        prof = _profile_train_step(run, dev)
+        prof["busy_share"] = prof["busy_s"] / statistics.median(
+            run["step_s"][1:])
+        if peaks is not None and prof["mlstm_kernels"]:
+            # one forward launch (4 kernels) at the step's shape, beside
+            # its bound: 3xTF32 on the tensor cores, as phase 8's
+            BH, Dh = B * cfg.n_heads, 2 * cfg.d_model // cfg.n_heads
+            L = min(cfg.mlstm_chunk, S)
+            per = 4 * prof["mlstm_kernel_s"] / prof["mlstm_kernels"] * 1e3
+            b_ms = (4 * 4 * BH * S * Dh + 2 * 4 * BH * S) / peaks[0] * 1e3
+            o_ms = 3 * _mlstm_flops(BH, S, Dh, L) / peaks[5] * 1e3
+            prof.update(mlstm_launch_ms=per, mlstm_bound_ms=max(b_ms, o_ms),
+                        mlstm_bound_by="bytes" if b_ms >= o_ms
+                        else "operations")
+        report["profile"] = prof
+        tlog("train step profile: " + ", ".join(
+            f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in prof.items()))
+    split = _train_split(run, cfg, dev)
+    split["step_no_remat_s"] = _step_without_remat(run, cfg, dev)
+    split["part_s"] = time.perf_counter() - t_part
+    report["split"] = split
+    tlog("train step split (each layer timed alone): " + ", ".join(
+        f"{k} {v:.6g}" for k, v in split.items()))
+
+    # 3. the loss at train_4k's length, no grad
+    data = synthetic.for_arch(cfg, batch=B, seq_len=S_loss,
+                              seed=TRAIN["seed"], device=dev)
+    b4 = data.peek(0)
+    _reset_counts()
+    with torch.no_grad():
+        _dev_sync(dev)
+        t0 = time.perf_counter()
+        loss4 = float(run["model"].loss(run["params"], b4))
+        _dev_sync(dev)
+        loss4_s = time.perf_counter() - t0
+    c4 = _counts()
+    del b4
+    tlog(f"train: loss at B {B}, S {S_loss} (no grad) {loss4:.6f} in "
+         f"{loss4_s:.3f} s; launches mlstm_scan {c4['mlstm_scan']}, plain "
+         f"calls {c4['plain']}")
+    if not math.isfinite(loss4) or c4["mlstm_scan"] != (
+            n_mlstm if on_card else 0) or (on_card and c4["plain"]):
+        fail(f"train: the S {S_loss} loss ({loss4}) or its launches "
+             f"({c4}) are wrong")
+    report["loss_long"] = {"loss": loss4, "s": loss4_s, "launches": c4}
+
+    # 4. the kernel against its plain version; the backward against
+    #    autograd
+    t_part = time.perf_counter()
+    chk = _train_kernel_checks(run, cfg, dev)
+    chk["part_s"] = time.perf_counter() - t_part
+    report["kernel_checks"] = chk
+    tlog(f"train: layer 0 mLSTM h, kernel vs plain: max abs "
+         f"{chk['h']['max_abs_err']:.3e}, frob {chk['h']['frob']:.3e} "
+         f"(gate {ZOO_TOL['mlstm_scan']}); the block's y frob "
+         f"{chk['block_y_frob']:.3e}; MLSTMScan gradients vs autograd "
+         f"through the chunk scan (frob): " + ", ".join(
+             f"{k} {v:.3e}" for k, v in chk["bwd_frob"].items())
+         + f" (gate {TRAIN_BWD_TOL:g}); {chk['part_s']:.1f} s")
+    if not chk["h"]["ok"]:
+        fail("train: layer 0's mLSTM h through the kernel disagrees with "
+             "the plain version")
+    if max(chk["bwd_frob"].values()) > TRAIN_BWD_TOL:
+        fail("train: MLSTMScan's gradients disagree with autograd through "
+             "the chunk scan")
+
+    # 5. the card's loss against the port's CPU loss, same params
+    cpu = torch.device("cpu")
+    small = lambda d: synthetic.for_arch(
+        cfg, batch=TRAIN["cpu_B"], seq_len=TRAIN["cpu_S"],
+        seed=TRAIN["seed"], device=d).peek(0)
+    with torch.no_grad():
+        l_card = float(run["model"].loss(run["params0"], small(dev)))
+        p_cpu = tree_map(lambda x: x.to(cpu), run["params0"])
+        t0 = time.perf_counter()
+        l_cpu = float(run["model"].loss(p_cpu, small(cpu)))
+        cpu_s = time.perf_counter() - t0
+    del p_cpu
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    report["card_vs_cpu"] = {"card": l_card, "cpu": l_cpu, "rel": rel,
+                             "cpu_s": cpu_s}
+    tlog(f"train: loss at B {TRAIN['cpu_B']}, S {TRAIN['cpu_S']}: card "
+         f"{l_card:.6f}, CPU {l_cpu:.6f} ({cpu_s:.2f} s), rel {rel:.3e} "
+         f"(gate {TRAIN_CPU_TOL:g})")
+    if not rel <= TRAIN_CPU_TOL:
+        fail("train: the card's loss differs from the CPU's")
+
+    # 6. gradient compression on the step's gradients, then steps with it
+    t_part = time.perf_counter()
+    comp = _train_compress(run, dev)
+    comp["part_s"] = time.perf_counter() - t_part
+    report["compress"] = comp
+    qc, sc = comp["counts"], comp["steps_counts"]
+    tlog(f"train: compress_grads {comp['compress_s']:.4f} s, stats "
+         f"{comp['stats']}, launches quantize_leaves "
+         f"{qc['quantize_leaves']}, dequantize_leaves "
+         f"{qc['dequantize_leaves']}, one-leaf {qc['quantize']} / "
+         f"{qc['dequantize']}, plain {qc['plain']}; {comp['bitwise_leaves']}"
+         f" of {comp['leaves']} leaves bitwise the one-leaf round trip "
+         f"({comp['compressed_leaves']} compressed); compressed steps at S "
+         f"{min(S, TRAIN['compress_S'])}: "
+         f"losses {comp['losses']}, ratios {comp['ratios']}, launches "
+         f"{sc['quantize_leaves']} / {sc['dequantize_leaves']}; "
+         f"{comp['part_s']:.1f} s")
+    keys = ("quantize_leaves", "dequantize_leaves", "quantize",
+            "dequantize", "plain")
+    if on_card and tuple(qc[k] for k in keys) != (1, 1, 0, 0, 0):
+        fail(f"train: compress_grads did not make one quantize and one "
+             f"dequantize launch over its leaves: {qc}")
+    if comp["bitwise_leaves"] != comp["leaves"]:
+        fail("train: compressed gradients differ from the one-leaf round "
+             "trip")
+    if not comp["stats"]["ratio"] < 0.3:
+        fail(f"train: wire ratio {comp['stats']['ratio']}")
+    cl = comp["losses"]
+    if not (all(math.isfinite(x) for x in cl) and cl[-1] < cl[0]):
+        fail(f"train: the loss did not fall with compression: {cl}")
+    if on_card and (sc["quantize_leaves"], sc["dequantize_leaves"]) != (
+            TRAIN["steps"], TRAIN["steps"]):
+        fail(f"train: the compressed steps' launches {sc}")
+
+    # 7. the architecture table (the arch scenarios' one sweep)
+    t0 = time.perf_counter()
+    _, big, rows = table_arch_periods.run(dev)
+    tap_s = time.perf_counter() - t0
+    _, _, rows_cpu = table_arch_periods.run(cpu)
+    worst = max(abs(a - b) / max(abs(b), 1e-300) for r, rc in
+                zip(rows, rows_cpu) for a, b in zip(r[1:], rc[1:]))
+    report["table_arch_periods"] = {"s": tap_s, "max_rel_vs_cpu": worst,
+                                    "largest_C": big[:4]}
+    tlog(f"train: table_arch_periods on {dev.type} {tap_s:.4f} s, within "
+         f"{worst:.3e} of the CPU; largest C {big[0]} {big[3]:.3f} s")
+    if worst > 1e-12:
+        fail("train: table_arch_periods on the card differs from the CPU")
+
+    report["phase_s"] = time.perf_counter() - t_phase
+    tlog(f"train phase {report['phase_s']:.1f} s")
+    return report
+
+
 def _kernel_modules():
     from repro_torch.kernels import (decode_attention, event_sweep,
                                      flash_attention, mlstm_scan,
@@ -3718,6 +4257,14 @@ def main() -> None:
     report["advisor"] = phase_advisor(dev, card)
     torch.cuda.empty_cache()
 
+    # xLSTM-125M trains (phase 12), each part's counts read around it
+    report["train"] = phase_train(dev, card, peaks)
+    torch.cuda.empty_cache()
+    train_ml = report["train"]["launches"]["mlstm_scan"]
+    train_q = {k: (report["train"]["compress"]["counts"][k]
+                   + report["train"]["compress"]["steps_counts"][k])
+               for k in ("quantize_leaves", "dequantize_leaves")}
+
     # the checkpoint runtime path, its counts read around it
     root = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(root, ignore_errors=True)
@@ -3828,7 +4375,11 @@ def main() -> None:
             "sources": [f"src/repro_torch/csrc/{f}"
                         for f in KERNEL_FILES["quant_blockwise"]],
             "replaces": f"src/repro/kernels/quant_blockwise.py:{line}",
-            "launches": ck_counts[f"{name}_leaves"], "max_abs_err": err,
+            "launches": ck_counts[f"{name}_leaves"]
+            + train_q[f"{name}_leaves"],
+            "launches_by_path": {"checkpoint": ck_counts[f"{name}_leaves"],
+                                 "train": train_q[f"{name}_leaves"]},
+            "max_abs_err": err,
             "parity": "bitwise", "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
@@ -3847,6 +4398,8 @@ def main() -> None:
         parts = t if isinstance(t, list) else [t]
         full = [report["zoo"][k]["max_abs_err"]
                 for k in full_width_keys[name]]
+        if name == "mlstm_scan":
+            full.append(report["train"]["kernel_checks"]["h"]["max_abs_err"])
         lib = [v["library_ms"] for v in parts]
         kernels.append({
             "name": name, "route": "cuda",
@@ -3854,7 +4407,16 @@ def main() -> None:
             "sources": [f"src/repro_torch/csrc/{f}"
                         for f in KERNEL_FILES.get(name, (f"{name}.cu",))],
             "replaces": f"src/repro/kernels/{name}.py:{line}",
-            "launches": zoo_counts[name],
+            "launches": zoo_counts[name] + (train_ml if name == "mlstm_scan"
+                                            else 0),
+            "launches_by_path": ({"zoo": zoo_counts[name],
+                                  "train": train_ml}
+                                 if name == "mlstm_scan" else
+                                 {"zoo": zoo_counts[name]}),
+            **({"on_train_step": {
+                k: report["train"]["profile"].get(k) for k in (
+                    "mlstm_launch_ms", "mlstm_bound_ms", "mlstm_bound_by",
+                    "mlstm_kernels")}} if name == "mlstm_scan" else {}),
             "max_abs_err": max([zoo_err[name]] + full),
             "parity": parity,
             "ms": sum(v["kernel_ms"] for v in parts),

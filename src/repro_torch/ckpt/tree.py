@@ -45,11 +45,16 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(type(x), "_fields")
 
 
-def tree_flatten(tree: Any) -> Tuple[List[Any], TreeDef]:
-    """(leaves in the reference's order, structure)."""
+def tree_flatten(tree: Any, is_leaf: Callable[[Any], bool] = None
+                 ) -> Tuple[List[Any], TreeDef]:
+    """(leaves in the reference's order, structure).  ``is_leaf`` names
+    nodes to keep whole as leaves (``jax.tree.flatten``'s argument)."""
     leaves: list = []
 
     def walk(node) -> TreeDef:
+        if is_leaf is not None and is_leaf(node):
+            leaves.append(node)
+            return TreeDef("leaf")
         if node is None:
             return TreeDef("none")
         if isinstance(node, dict):
@@ -96,8 +101,8 @@ def tree_unflatten(treedef: TreeDef, leaves) -> Any:
     return out
 
 
-def tree_leaves(tree: Any) -> list:
-    return tree_flatten(tree)[0]
+def tree_leaves(tree: Any, is_leaf: Callable[[Any], bool] = None) -> list:
+    return tree_flatten(tree, is_leaf)[0]
 
 
 def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:

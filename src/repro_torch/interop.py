@@ -2,8 +2,9 @@
 
 This system's counterpart of carrying a model's weights across: the
 reference's parameter grids, parameter dataclasses (single-level and
-multilevel), failure schedules, state trees and advisor requests become
-the port's tensors and dataclasses.  Everything here works by duck typing on plain mappings,
+multilevel), failure schedules, state trees, advisor requests, and a
+model's initialised parameters and AdamW state (the weights themselves,
+here) become the port's tensors and dataclasses.  Everything here works by duck typing on plain mappings,
 arrays and containers, so the port never imports the reference package.
 """
 from __future__ import annotations
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from ._device import F64, resolve_device
-from .ckpt.tree import tree_map
+from .ckpt.tree import tree_flatten, tree_map, tree_unflatten
 from .core.params import (CheckpointParams, MultilevelCheckpointParams,
                           MultilevelPowerParams, PowerParams)
 from .serve.schema import AdviceRequest, StoreTier
@@ -133,3 +134,52 @@ def advice_request_from_fields(fields: Mapping[str, Any]) -> AdviceRequest:
     f = dict(fields)
     f["tiers"] = tuple(StoreTier(**dict(t)) for t in f["tiers"])
     return AdviceRequest(**f)
+
+
+def params_from_numpy(tree: Any, cfg, device="cuda") -> Any:
+    """The reference's model parameters (``jax.device_get`` of its
+    ``Model.init``: numpy leaves, dicts, the ``stages`` tuple of stacked
+    dicts) as the port's parameter tree on ``device``.  Every leaf is held
+    against the port's ``model_spec(cfg)``: the same structure, shapes and
+    dtypes, or this raises."""
+    from .models.spec import torch_dtype
+    from .models.transformer import model_spec
+    dev = resolve_device(device)
+    leaves, treedef = tree_flatten(tree)
+    specs, spec_def = tree_flatten(model_spec(cfg))
+    if treedef != spec_def:
+        raise ValueError(f"the tree is not {cfg.name}'s parameter tree: "
+                         f"{treedef} against {spec_def}")
+    out = []
+    for x, s in zip(leaves, specs):
+        t = tensor_from_array(x, dev)
+        if tuple(t.shape) != tuple(s.shape) or t.dtype != torch_dtype(
+                s.dtype):
+            raise ValueError(f"a leaf of {tuple(t.shape)} {t.dtype} where "
+                             f"{cfg.name} has {s.shape} {s.dtype}")
+        out.append(t)
+    return tree_unflatten(treedef, out)
+
+
+def opt_state_from_numpy(state: Any, device="cuda"):
+    """The reference's ``AdamWState`` (numpy leaves; ``v`` leaves may be
+    its ``FactoredV``; ``master`` may be None) as the port's
+    :class:`~repro_torch.optim.adamw.AdamWState` on ``device``."""
+    from .optim.adamw import AdamWState, FactoredV
+    dev = resolve_device(device)
+
+    def conv(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, tuple) and getattr(node, "_fields", None) == (
+                "row", "col"):
+            return FactoredV(row=conv(node.row), col=conv(node.col))
+        if isinstance(node, (list, tuple)):
+            return type(node)(conv(v) for v in node)
+        return tensor_from_array(node, dev)
+    return AdamWState(step=tensor_from_array(state.step, dev,
+                                             torch.int32),
+                      m=conv(state.m), v=conv(state.v),
+                      master=conv(state.master))

@@ -33,7 +33,13 @@ sum_j w_j k_j^T v_j`` and ``n'`` alike.  All math in f32; the output has
 * :func:`mlstm_scan_plain` is the chunkwise algorithm above in PyTorch,
   batched over ``BH``.  The kernels are held to it within 1e-4 absolute
   plus 1e-3 relative (the reference's kernel-vs-oracle tolerance).
-  ``.calls`` counts its calls.
+  ``.calls`` counts its calls.  With ``states=True`` it also returns
+  every chunk's starting (C, n, m), what the state pass leaves in the
+  kernel's scratch.
+* :class:`MLSTMScan` is the models' mLSTM with a gradient: the kernel
+  forward (or the plain one on the CPU), keeping those starting states,
+  and a backward that replays the model's ``_mlstm_chunk`` chunk by
+  chunk in reverse.  The reference has no backward kernel.
 """
 from __future__ import annotations
 
@@ -197,8 +203,11 @@ mlstm_scan.launches = 0
 
 def mlstm_scan_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      li: torch.Tensor, lf: torch.Tensor, *,
-                     chunk: int = 256) -> torch.Tensor:
-    """The chunkwise algorithm in PyTorch (any device)."""
+                     chunk: int = 256, states: bool = False):
+    """The chunkwise algorithm in PyTorch (any device).  With ``states``
+    it returns ``(h, (C, n, m))`` with every chunk's starting state, f32:
+    C ``(BH, S/L, Dh, Dh)``, n ``(BH, S/L, Dh)``, m ``(BH, S/L)`` (what the
+    kernel's state pass leaves in its scratch, C there as C^T)."""
     mlstm_scan_plain.calls += 1
     L = _check(q, k, v, li, lf, chunk)
     BH, S, Dh = q.shape
@@ -209,7 +218,10 @@ def mlstm_scan_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = q.new_zeros((BH,))
     causal = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
     out = torch.empty((BH, S, Dh), dtype=f32, device=q.device)
+    starts = []
     for c0 in range(0, S, L):
+        if states:
+            starts.append((C, n, m))
         sl = slice(c0, c0 + L)
         qc, kc, vc, lic = q[:, sl], k[:, sl], v[:, sl], li[:, sl]
         b = torch.cumsum(lf[:, sl], dim=1)                  # (BH, L)
@@ -235,7 +247,83 @@ def mlstm_scan_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         C = decay[:, None, None] * C + torch.matmul(kw.transpose(1, 2), vc)
         n = decay[:, None] * n + kw.sum(1)
         m = m_next
+    if states:
+        return out.to(dtype), tuple(torch.stack(x, dim=1)
+                                    for x in zip(*starts))
     return out.to(dtype)
 
 
 mlstm_scan_plain.calls = 0
+
+
+class MLSTMScan(torch.autograd.Function):
+    """The mLSTM from zero state with a gradient, in the model layout: q,
+    k, v ``(B, H, S, Dh)``, li, lf ``(B, H, S)``, all f32.
+
+    Forward: on CUDA the kernel's three passes (``launch_passes``, counted
+    in ``mlstm_scan.launches``), keeping from its scratch every chunk's
+    starting C (stored as C^T; transposed back as a view), n and m; on the
+    CPU :func:`mlstm_scan_plain` with ``states=True``.  Returns ``h`` and,
+    as outputs without a gradient, the last chunk's starting ``(C, n,
+    m)``.
+
+    Backward: a reverse loop over chunks.  At chunk c it replays the
+    model's ``_mlstm_chunk`` from the saved state_c and takes its
+    vector-Jacobian product with the cotangents (dh_c, dstate_{c+1}); the
+    last chunk's dstate is zero.  That yields the chunk's input gradients
+    and dstate_c: the recompute of the reference's
+    ``jax.checkpoint(_mlstm_chunk)`` under ``lax.scan``, started from the
+    forward's states instead of a rerun of the scan.  The reference has no
+    backward kernel, and neither does this (ROADMAP Queue B)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, li, lf, chunk: int):
+        B, H, S, Dh = q.shape
+        fold = lambda t: t.reshape(B * H, *t.shape[2:])
+        L = _check(fold(q), fold(k), fold(v), fold(li), fold(lf), chunk)
+        nc = S // L
+        if q.device.type == "cpu":
+            h, (C, n, m) = mlstm_scan_plain(fold(q), fold(k), fold(v),
+                                            fold(li), fold(lf), chunk=L,
+                                            states=True)
+        else:
+            h, scratch = launch_passes(fold(q), fold(k), fold(v), fold(li),
+                                       fold(lf), L, ALL_PASSES)
+            mlstm_scan.launches += 1
+            C = scratch["C"].transpose(-1, -2)
+            n, m = scratch["n"], scratch["m"][:, :nc]
+        C, n, m = (C.reshape(B, H, nc, Dh, Dh), n.reshape(B, H, nc, Dh),
+                   m.reshape(B, H, nc))
+        ctx.save_for_backward(q, k, v, li, lf, C, n, m)
+        ctx.L = L
+        last = (C[:, :, -1], n[:, :, -1], m[:, :, -1])
+        ctx.mark_non_differentiable(*last)
+        return (h.reshape(B, H, S, Dh),) + last
+
+    @staticmethod
+    def backward(ctx, dh, *_):
+        from ..models.recurrent import MLSTMState, _mlstm_chunk
+        q, k, v, li, lf, C, n, m = ctx.saved_tensors
+        L = ctx.L
+        grads = [torch.zeros_like(x) for x in (q, k, v, li, lf)]
+        dstate = None
+        for c in reversed(range(q.shape[2] // L)):
+            sl = slice(c * L, (c + 1) * L)
+            with torch.enable_grad():
+                ins = [x[:, :, sl].detach().requires_grad_()
+                       for x in (q, k, v, li, lf)]
+                st = [x[:, :, c].detach().requires_grad_(c > 0)
+                      for x in (C, n, m)]
+                h, new = _mlstm_chunk(*ins, MLSTMState(*st))
+                outs, cots = [h], [dh[:, :, sl]]
+                if dstate is not None:
+                    outs += list(new)
+                    cots += dstate
+                wrt = ins + (st if c > 0 else [])
+                got = torch.autograd.grad(outs, wrt, cots, allow_unused=True)
+            got = [torch.zeros_like(w) if g is None else g
+                   for g, w in zip(got, wrt)]
+            for g_all, g in zip(grads, got[:5]):
+                g_all[:, :, sl] = g
+            dstate = got[5:]
+        return (*grads, None)

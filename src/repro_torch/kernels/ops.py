@@ -7,7 +7,9 @@ device of its input: the kernel on CUDA, its plain version on the CPU.
   kernel's flat-head ``(B*H, S, Dh)`` and back; :func:`mlstm_scan` folds
   ``(B, H, S, Dh)`` and ``(B, H, S)`` gates to ``B*H`` rows;
   :func:`rglru_scan` is the kernel's own wrapper, whose layout
-  ``(B, S, W)`` is the model's.  The TPU tiling arguments of the
+  ``(B, S, W)`` is the model's.  :func:`mlstm_scan_trainable` is the
+  mLSTM with a gradient (``mlstm_scan.MLSTMScan``), the models' path.
+  The TPU tiling arguments of the
   reference (``qb``, ``kb``, ``bb``, ``sb``, ``wb``) have no counterpart.
 * :func:`quantize_array` and :func:`dequantize_array` take arrays of any
   shape to the quantize kernel's ``(rows, D)`` layout and back, with the
@@ -52,6 +54,17 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = _ml.mlstm_scan(fold(q), fold(k), fold(v), fold2(li), fold2(lf),
                          chunk=chunk)
     return out.reshape(B, H, S, Dh)
+
+
+def mlstm_scan_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         li: torch.Tensor, lf: torch.Tensor, *,
+                         chunk: int = 256):
+    """The mLSTM from zero state with a gradient, in the model layout: q/k/v
+    (B, H, S, Dh), li/lf (B, H, S), f32.  Returns ``(h, (C, n, m))``: h
+    (B, H, S, Dh) and the last chunk's starting state (no gradient flows
+    through it), from which one ``_mlstm_chunk`` gives the final state."""
+    h, C, n, m = _ml.MLSTMScan.apply(q, k, v, li, lf, chunk)
+    return h, (C, n, m)
 
 
 def quantize_array(x: torch.Tensor):

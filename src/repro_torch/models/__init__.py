@@ -1,0 +1,116 @@
+"""Model zoo public API.
+
+Counterpart of the reference's ``repro/models/__init__.py``: ``Model``
+bundles an :class:`~repro_torch.configs.ArchConfig` with its parameter
+tree, init, loss, forward and an AdamW train step.  Parameters are plain
+trees of tensors (dicts and tuples, leaves in the reference's order);
+gradients come from ``torch.autograd``.  Prefill and decoding wait for
+ROADMAP A9c, and ``input_specs`` (its shardings) for A11.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..ckpt.tree import tree_flatten, tree_unflatten
+from ..configs.base import ArchConfig, ShapeConfig
+from ..optim import adamw
+from . import transformer as tfm
+from .spec import ParamSpec, init_tree, is_spec, torch_dtype, tree_size
+
+__all__ = ["Model", "build", "batch_spec", "ParamSpec", "init_tree",
+           "is_spec", "tree_size"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ArchConfig
+
+    # ---- parameters --------------------------------------------------------
+    def param_spec(self):
+        return tfm.model_spec(self.cfg)
+
+    def init(self, generator: torch.Generator, device="cuda"):
+        """Parameters on ``device``, drawn from ``generator`` (a
+        ``torch.Generator`` on that device's type)."""
+        return init_tree(self.param_spec(), generator, device)
+
+    def param_count(self) -> int:
+        return tree_size(self.param_spec())
+
+    # ---- pure model fns ----------------------------------------------------
+    def loss(self, params, batch):
+        return tfm.loss_fn(self.cfg, params, batch)
+
+    def forward(self, params, tokens, **kw):
+        return tfm.forward(self.cfg, params, tokens, **kw)
+
+    def cache_spec(self, batch: int, max_seq: int):
+        return tfm.cache_spec(self.cfg, batch, max_seq)
+
+    # ---- training step (with AdamW) ----------------------------------------
+    def make_train_step(self, opt_cfg: adamw.AdamWConfig,
+                        microbatches: int = 1,
+                        accum_dtype: str = "float32"):
+        """``train_step(params, opt_state, batch) -> (params, opt_state,
+        metrics)``.  With ``microbatches = k`` the batch's rows are split
+        into k sequential micro-steps whose gradients are summed in
+        ``accum_dtype`` and divided by k (the reference's accumulation);
+        the loss is the micro-steps' mean."""
+        cfg = self.cfg
+        k = microbatches
+        adt = torch_dtype(accum_dtype)
+
+        def value_and_grad(params, batch):
+            leaves, td = tree_flatten(params)
+            leaves = [x.detach().requires_grad_() for x in leaves]
+            with torch.enable_grad():
+                loss = tfm.loss_fn(cfg, tree_unflatten(td, leaves), batch)
+                grads = torch.autograd.grad(loss, leaves)
+            return loss.detach(), grads, td
+
+        def train_step(params, opt_state, batch):
+            if k == 1:
+                loss, grads, td = value_and_grad(params, batch)
+            else:
+                mbs = [{key: x.chunk(k, dim=0)[i] for key, x in
+                        batch.items()} for i in range(k)]
+                acc, losses = None, []
+                for mb in mbs:
+                    l, g, td = value_and_grad(params, mb)
+                    g = [gi.to(adt) for gi in g]
+                    acc = g if acc is None else [a + gi for a, gi in
+                                                 zip(acc, g)]
+                    losses.append(l)
+                # stay in the accumulation dtype; the optimizer casts per
+                # leaf
+                grads = [a / k for a in acc]
+                loss = torch.stack(losses).mean()
+            new_params, new_state, metrics = adamw.apply_updates(
+                opt_cfg, params, tree_unflatten(td, list(grads)), opt_state)
+            return new_params, new_state, dict(metrics, loss=loss)
+
+        return train_step
+
+
+def build(cfg: ArchConfig) -> Model:
+    return Model(cfg)
+
+
+def batch_spec(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """ParamSpec tree for one data batch of the given workload shape."""
+    B, S = shape.global_batch, shape.seq_len
+    out = {
+        "tokens": ParamSpec((B, S), ("batch", "seq_sp" if B == 1 else "seq"),
+                            "int32"),
+        "labels": ParamSpec((B, S), ("batch", "seq_sp" if B == 1 else "seq"),
+                            "int32"),
+    }
+    if cfg.n_prefix_tokens:
+        out["prefix"] = ParamSpec((B, cfg.n_prefix_tokens, cfg.d_model),
+                                  ("batch", None, "act_embed"), "float32")
+    if cfg.is_encoder_decoder:
+        out["frames"] = ParamSpec((B, cfg.encoder_seq, cfg.d_model),
+                                  ("batch", None, "act_embed"), "float32")
+    return out

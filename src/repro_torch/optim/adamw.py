@@ -1,0 +1,189 @@
+"""AdamW with decoupled weight decay, global-norm clipping and schedules.
+
+Counterpart of the reference's ``repro/optim/adamw.py``: functional over
+the models' parameter trees (dicts, tuples; leaves in the reference's
+order), the same arithmetic in f32, an f32 master copy when the params are
+not f32, the optional Adafactor-style factored second moment and
+reduced-precision momentum.  Like the reference it decays every leaf of
+two or more dimensions, the stacked (layers, d) norms included.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple
+
+import torch
+
+from .._device import resolve_device
+from ..ckpt.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+
+F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+    # at-scale memory options
+    factored_second_moment: bool = False   # Adafactor-style row/col v (>=2D)
+    momentum_dtype: str = "float32"        # "bfloat16" halves m
+    master_weights: bool = True            # f32 master when params are bf16
+
+
+class FactoredV(NamedTuple):
+    """Adafactor-style factored second moment for a >=2D tensor: row/col
+    means over the trailing two axes (leading stack axes kept)."""
+    row: torch.Tensor    # shape[:-1]           (mean over last axis)
+    col: torch.Tensor    # shape[:-2] + last    (mean over second-to-last)
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor   # int32 scalar
+    m: object            # tree like params (momentum_dtype)
+    v: object            # tree: f32 like params, or FactoredV
+    master: object       # f32 master weights when params are not f32
+
+
+def _wants_factored(shape) -> bool:
+    return len(shape) >= 2 and shape[-1] >= 8 and shape[-2] >= 8
+
+
+def _is_v_leaf(x) -> bool:
+    return isinstance(x, FactoredV)
+
+
+def init_state(params, cfg: AdamWConfig = None, device="cuda") -> AdamWState:
+    """Zero moments on ``device`` (and the f32 master copy when a param is
+    not f32)."""
+    cfg = cfg or AdamWConfig()
+    dev = resolve_device(device)
+    mdt = getattr(torch, cfg.momentum_dtype)
+    zeros = lambda shape, dt: torch.zeros(tuple(shape), dtype=dt, device=dev)
+    m = tree_map(lambda p: zeros(p.shape, mdt), params)
+
+    def mk_v(p):
+        if cfg.factored_second_moment and _wants_factored(p.shape):
+            return FactoredV(row=zeros(p.shape[:-1], F32),
+                             col=zeros(p.shape[:-2] + p.shape[-1:], F32))
+        return zeros(p.shape, F32)
+    v = tree_map(mk_v, params)
+    needs_master = cfg.master_weights and any(
+        x.dtype != F32 for x in tree_leaves(params))
+    master = (tree_map(lambda p: p.to(device=dev, dtype=F32).clone(),
+                       params) if needs_master else None)
+    return AdamWState(step=zeros((), torch.int32), m=m, v=v, master=master)
+
+
+def state_spec(param_spec_tree, cfg: AdamWConfig = None):
+    """ParamSpec tree for the optimizer state (mirrors the parameters')."""
+    from ..models.spec import ParamSpec
+    cfg = cfg or AdamWConfig()
+
+    def clone(s, dtype="float32"):
+        return ParamSpec(s.shape, s.logical, dtype, init="zeros")
+    m = tree_map(lambda s: clone(s, cfg.momentum_dtype), param_spec_tree)
+
+    def mk_v(s):
+        if cfg.factored_second_moment and _wants_factored(s.shape):
+            return FactoredV(
+                row=ParamSpec(s.shape[:-1], s.logical[:-1], "float32",
+                              init="zeros"),
+                col=ParamSpec(s.shape[:-2] + s.shape[-1:],
+                              s.logical[:-2] + s.logical[-1:], "float32",
+                              init="zeros"))
+        return clone(s)
+    v = tree_map(mk_v, param_spec_tree)
+    needs_master = cfg.master_weights and any(
+        s.dtype != "float32" for s in tree_leaves(param_spec_tree))
+    master = tree_map(clone, param_spec_tree) if needs_master else None
+    return AdamWState(step=ParamSpec((), (), "int32", init="zeros"), m=m,
+                      v=v, master=master)
+
+
+def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup + cosine decay to min_lr_ratio (f32)."""
+    s = step.to(F32)
+    warm = torch.clamp_max(s / max(cfg.warmup_steps, 1), 1.0)
+    prog = torch.clamp((s - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1),
+                       0.0, 1.0)
+    cos = 0.5 * (1.0 + torch.cos(math.pi * prog))
+    decay = cfg.min_lr_ratio + (1.0 - cfg.min_lr_ratio) * cos
+    return cfg.lr * warm * decay
+
+
+def global_norm(tree) -> torch.Tensor:
+    leaves = [x.to(F32).square().sum() for x in tree_leaves(tree)]
+    return torch.sqrt(torch.stack(leaves).sum())
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    norm = global_norm(grads)
+    scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
+    return tree_map(lambda g: (g.to(F32) * scale).to(g.dtype), grads), norm
+
+
+@torch.no_grad()
+def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState):
+    """One AdamW step.  Returns (new_params, new_state, metrics).
+
+    Global-norm clipping is folded into the per-leaf update as a scalar
+    multiply (no whole-tree clipped-gradient copy)."""
+    gnorm = global_norm(grads)
+    clip_scale = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9),
+                                 1.0)
+    step = state.step + 1
+    lr = schedule(cfg, step)
+    b1, b2 = cfg.b1, cfg.b2
+    bc1 = 1.0 - torch.pow(b1, step.to(F32))
+    bc2 = 1.0 - torch.pow(b2, step.to(F32))
+
+    def upd(p, g, m, v, w):
+        """w = the f32 master (or the f32 param itself)."""
+        gf = g.to(F32) * clip_scale
+        m_new = b1 * m.to(F32) + (1 - b1) * gf
+        if isinstance(v, FactoredV):
+            g2 = gf * gf
+            row_new = b2 * v.row + (1 - b2) * g2.mean(-1)
+            col_new = b2 * v.col + (1 - b2) * g2.mean(-2)
+            # rank-1 reconstruction (Adafactor): V ~ row x col / mean(row)
+            denom = torch.clamp_min(row_new.mean(-1, keepdim=True), 1e-30)
+            vh = (row_new[..., None] * col_new[..., None, :]
+                  / denom[..., None]) / bc2
+            v_new = FactoredV(row=row_new, col=col_new)
+        else:
+            v_full = b2 * v.to(F32) + (1 - b2) * gf * gf
+            vh = v_full / bc2
+            v_new = v_full
+        mh = m_new / bc1
+        delta = mh / (torch.sqrt(vh) + cfg.eps)
+        if p.ndim >= 2:   # decay matrices only (1-D norms/biases exempt)
+            delta = delta + cfg.weight_decay * w
+        w_new = w - lr * delta
+        return w_new.to(p.dtype), m_new.to(m.dtype), v_new, w_new
+
+    flat_p, treedef = tree_flatten(params)
+    flat_g = tree_leaves(grads)
+    flat_m = tree_leaves(state.m)
+    flat_v = tree_leaves(state.v, _is_v_leaf)
+    has_master = state.master is not None
+    flat_w = (tree_leaves(state.master) if has_master
+              else [p.to(F32) for p in flat_p])
+    out = [upd(p, g, m, v, w) for p, g, m, v, w in
+           zip(flat_p, flat_g, flat_m, flat_v, flat_w)]
+    new_p = tree_unflatten(treedef, [o[0] for o in out])
+    new_m = tree_unflatten(treedef, [o[1] for o in out])
+    new_v = tree_unflatten(treedef, [o[2] for o in out])
+    new_master = (tree_unflatten(treedef, [o[3] for o in out])
+                  if has_master else None)
+    metrics = {"grad_norm": gnorm, "lr": lr}
+    return new_p, AdamWState(step=step, m=new_m, v=new_v,
+                             master=new_master), metrics

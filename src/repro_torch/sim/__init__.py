@@ -32,8 +32,9 @@ from .precision import PrecisionPolicy, F64, COMPENSATED_F32
 from .scenarios import (ParamGrid, Scenario, get_scenario, list_scenarios,
                         register_scenario, mu_rho_grid, nodes_grid,
                         product_grid, grid_from_scenarios, robustness_grid,
-                        MultilevelScenario, MultilevelParamGrid,
-                        multilevel_grid_from_scenarios, buddy_ratio_grid)
+                        arch_grid, MultilevelScenario, MultilevelParamGrid,
+                        multilevel_grid_from_scenarios, buddy_ratio_grid,
+                        multilevel_arch_grid)
 from .engine import (TrajectoryBatch, ScheduledRNG, ScheduleBlock,
                      simulate_trajectories, simulate_grid,
                      simulate_candidates, sampled_schedules,

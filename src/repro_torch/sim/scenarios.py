@@ -143,6 +143,35 @@ def robustness(base: str = "exascale_rho55", process: str = "weibull",
                                 f"{tag} failures")
 
 
+# -- per-architecture instantiation (production mesh) ------------------------
+
+#: optimizer state = bf16 params + bf16 momentum + f32 master copy.
+STATE_BYTES_PER_PARAM = 2 + 2 + 4
+
+
+def _arch_checkpoint_seconds(arch: str, hosts: int, bw: float) -> float:
+    from ..configs import get_config
+    from ..models import build
+    n = build(get_config(arch)).param_count()
+    return n * STATE_BYTES_PER_PARAM / (hosts * bw)
+
+
+@register_scenario("arch")
+def arch(arch: str = "dbrx-132b", hosts: int = 64, bw: float = 8e9,
+         n_nodes: int = 256, D_s: float = 60.0, omega: float = 0.5,
+         profile: str = "paper") -> Scenario:
+    """One production architecture: C from checkpoint bytes / host I/O bw."""
+    from ..energy import PAPER_EXASCALE_PROFILE, TPU_V5E_HOST_PROFILE
+    mu_ind_s = 125.0 * 365 * 24 * 3600          # Jaguar-derived per-unit MTBF
+    C = _arch_checkpoint_seconds(arch, hosts, bw)
+    ck = CheckpointParams(C=C, R=C, D=D_s, mu=mu_ind_s / n_nodes, omega=omega)
+    pw = (PAPER_EXASCALE_PROFILE if profile == "paper"
+          else TPU_V5E_HOST_PROFILE).power_params()
+    return Scenario(name=f"arch({arch})", ckpt=ck, power=pw,
+                    description=f"{arch} on the production mesh "
+                                f"({hosts} hosts @ {bw:g} B/s)")
+
+
 # ---------------------------------------------------------------------------
 # ParamGrid: struct-of-tensors parameter batches
 # ---------------------------------------------------------------------------
@@ -309,6 +338,16 @@ def nodes_grid(n_nodes: Sequence[float], power: PowerParams,
     return product_grid(ckpts, [power], device).reshape((len(ckpts),))
 
 
+def arch_grid(archs: Optional[Sequence[str]] = None, device="cuda",
+              **kwargs) -> ParamGrid:
+    """All (or the named) production architectures as one 1-D grid."""
+    if archs is None:
+        from ..configs import ALL_ARCHS
+        archs = [c.name for c in ALL_ARCHS]
+    return grid_from_scenarios((get_scenario("arch", arch=a, **kwargs)
+                                for a in archs), device)
+
+
 def robustness_grid(shapes: Sequence[float], mu_mins: Sequence[float],
                     base: str = "exascale_rho55", device="cuda",
                     ) -> Tuple[ParamGrid, Weibull]:
@@ -368,6 +407,31 @@ def multilevel_fig12(mu_min: float = 300.0, buddy_ratio: float = 0.1,
         name=f"multilevel_fig12(mu={mu_min:g})", ckpt=ck,
         power=EXASCALE_ML_POWER,
         description="paper Fig. 1-2 setup with a buddy fast level")
+
+
+@register_scenario("multilevel_arch")
+def multilevel_arch(arch: str = "dbrx-132b", hosts: int = 64,
+                    pfs_bw: float = 8e9, buddy_bw: float = 80e9,
+                    n_nodes: int = 256, D_s: float = 60.0,
+                    omega: float = 0.5, q: float = 0.05,
+                    ) -> MultilevelScenario:
+    """One production architecture, two-level: C1 from NIC RAM-to-RAM buddy
+    bandwidth, C2 from PFS bandwidth; hard failures need a node swap-in."""
+    mu_ind_s = 125.0 * 365 * 24 * 3600
+    C2 = _arch_checkpoint_seconds(arch, hosts, pfs_bw)
+    C1 = _arch_checkpoint_seconds(arch, hosts, buddy_bw)
+    ck = MultilevelCheckpointParams(C1=C1, R1=C1, C2=C2, R2=C2,
+                                    D1=D_s / 10.0, D2=D_s,
+                                    mu=mu_ind_s / n_nodes, q=q, omega=omega)
+    from ..energy import PAPER_EXASCALE_PROFILE
+    base = PAPER_EXASCALE_PROFILE.power_params()
+    pw = MultilevelPowerParams(P_static=base.P_static, P_cal=base.P_cal,
+                               P_io1=0.2 * base.P_io, P_io2=base.P_io,
+                               P_down=base.P_down)
+    return MultilevelScenario(
+        name=f"multilevel_arch({arch})", ckpt=ck, power=pw,
+        description=f"{arch} with buddy NIC level ({buddy_bw:g} B/s) over "
+                    f"PFS ({pfs_bw:g} B/s)")
 
 
 _ML_FIELDS = ("C1", "R1", "D1", "C2", "R2", "D2", "mu", "omega", "q",
@@ -562,3 +626,14 @@ def buddy_ratio_grid(ratios: Sequence[float], qs: Sequence[float],
              for r in ratios for q in qs]
     return multilevel_grid_from_scenarios(scens, device).reshape(
         (len(ratios), len(qs)))
+
+
+def multilevel_arch_grid(archs: Optional[Sequence[str]] = None,
+                         device="cuda", **kwargs) -> MultilevelParamGrid:
+    """All (or the named) production architectures, two-level, 1-D."""
+    if archs is None:
+        from ..configs import ALL_ARCHS
+        archs = [c.name for c in ALL_ARCHS]
+    return multilevel_grid_from_scenarios(
+        (get_scenario("multilevel_arch", arch=a, **kwargs) for a in archs),
+        device)

@@ -323,7 +323,8 @@ class TestScripts:
         names = [r.split(",")[0] for r in rows]
         assert names == ["fig1_rho_sweep", "fig2_mu_rho", "fig3_scalability",
                          "fig4_multilevel", "fig5_robustness",
-                         "table_baselines", "table_simulation"]
+                         "table_baselines", "table_simulation",
+                         "table_arch_periods"]
         assert "best energy 41% below PFS-only (ratio=0.02, q=0.01, m*=12)" \
             in rows[3]
         assert "energy penalty 8.1% at k=0.5 mu=120min" in rows[4]

@@ -117,7 +117,11 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
             "repro_torch.benchmarks.fig4_multilevel, "
             "repro_torch.benchmarks.energy_study, repro_torch.serve, "
             "repro_torch.launch.serve, "
-            "repro_torch.benchmarks.bench_advisor, repro_torch.sim.cache\n"
+            "repro_torch.benchmarks.bench_advisor, repro_torch.sim.cache, "
+            "repro_torch.configs, repro_torch.models, repro_torch.optim, "
+            "repro_torch.data, repro_torch.data.synthetic, "
+            "repro_torch.optim.grad_compress, "
+            "repro_torch.benchmarks.table_arch_periods\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(','.join(bad))\n")

@@ -186,9 +186,8 @@ def test_figure_conveniences(fig):
 class TestScenarios:
     def test_registry_matches_reference(self):
         names = set(TS.list_scenarios())
-        # the arch scenarios wait for configs/ (ROADMAP A9)
-        assert names == set(RS.list_scenarios()) - {"arch",
-                                                    "multilevel_arch"}
+        assert names == set(RS.list_scenarios())
+        assert {"arch", "multilevel_arch"} <= names
         for name, kw in (("fig12", dict(mu_min=120.0, rho=7.0)),
                          ("fig3", dict(n_nodes=2e5)),
                          ("exascale_rho55", {}), ("exascale_rho7", {}),
