@@ -223,12 +223,41 @@ Phases (any failure exits non-zero; no result line is printed then):
    ``apply_updates`` (S 256) whose loss falls; and
    ``table_arch_periods`` on the card within 1e-12 of the CPU.
 
+13. the fault-tolerant runtime (after phase 12), every line with the
+   card's name and power limit, each part's counts set to 0 just before
+   it and read just after.  (a) the ft-xlstm-125m cell: ``ft.run.build``
+   and ``run`` (``execute``'s two halves, the train-step calls counted) of
+   ``FT_RUN``: xLSTM-125M at full width, B 8, S 256, measured time,
+   ``algo_e_ml`` with a buddy level, q = 1, the compressed store, mu
+   25 s, seed 18, 10 steps.  Gates: all steps done; at least one failure,
+   every rollback a deep restore; losses finite; ``mlstm_scan`` launched
+   12 times for each train step run (replays and interrupted steps
+   included), no plain version; one quantize launch for each deep
+   checkpoint written and one dequantize launch for each deep restore;
+   layer 0's mLSTM on the run's input at its shape within ``ZOO_TOL`` of
+   the plain version.  Prints the step times, C2 with its split, C1, the
+   restore times, the policy's solved and realized T, m and k, the
+   energy report and the run's wall.  (b) ``launch.train``'s ``--smoke``
+   on the card (its gates: 120 steps, measured/predicted wall and
+   energy within [0.7, 1.3], a non-degenerate operating point; reduced
+   xLSTM-125M, one mLSTM head of 128), then the same spec on the CPU from
+   the same params: wall and energy equal, the counts and checkpoints
+   equal, the operating point and predictions within 1e-12, losses within
+   3e-2, the mLSTM launched once a train step run; the kernel at the
+   smoke's shape (chunk 16) within ``ZOO_TOL``.  (c) the rollback
+   identity: ``FT_IDENTITY``, xLSTM-125M's widths at 2 layers, B 8, S
+   256, 10 steps in scaled time, a failure-free run and one with failures
+   (at least 2, one hard) from the same params: the final params and
+   AdamW state bitwise equal, in-process with PyTorch's default
+   algorithms (no order-dependent atomics on the path).
+
 Near the end it prints one JSON line ``{"gates": {...}}`` with every
 gate's numbers, then one ``{"kernels": [...]}`` line, then the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import math
@@ -4115,6 +4144,456 @@ def phase_train(dev, card: str, peaks=None, cfg=None, B=None, S=None,
     return report
 
 
+# ---------------------------------------------------------------------------
+# 13. ft: the fault-tolerant training runtime on xLSTM-125M
+# ---------------------------------------------------------------------------
+
+#: part (a), the ft-xlstm-125m cell: a ``RunSpec`` of xLSTM-125M at full
+#: width (B 8; S 256, one mLSTM chunk, as phase 12's compressed steps: the
+#: sLSTM's host-bound loop sets a step's time) in measured time (the step,
+#: C and R on the host clock feed the policy), the joint energy solver
+#: with a buddy level, q = 1 (every failure drops the buddy and restores
+#: deep), the compressed store.  mu 25 s at seed 18: numpy's exponential
+#: stream draws 15.94, 13.74 and 14.61 s, so the first two failures land
+#: near steps 5 and 8 of 10 on the run's clock.  The priors C, R, D (s)
+#: stand until the first measurements replace them.
+FT_RUN = dict(arch="xlstm-125m", reduce=False, batch=8, seq=256,
+              step_s=None, strategy="algo_e_ml", use_buddy=True, q=1.0,
+              compress=True, profile="paper_ml", mu_s=25.0, seed=18,
+              total_steps=10, C_s=3.0, R_s=2.5, D_s=1.0, C1_s=1.0,
+              R1_s=1.0)
+#: part (a) rehearsed on the CPU: the same spec at the smoke's widths,
+#: whose steps take ~20 ms there, so more of them at a shorter mu.
+FT_RUN_SMALL = dict(reduce=True, layers=2, d_model=64, n_heads=1, batch=2,
+                    seq=16, total_steps=60, mu_s=3.0, C_s=0.6, R_s=0.5,
+                    D_s=0.2, C1_s=0.2, R1_s=0.2)
+#: part (c): xLSTM-125M's widths cut to 2 layers (one mLSTM, one sLSTM),
+#: B 8, S 256, 10 steps in scaled time (1 s a step; C1 = C2 = R1 = R2 =
+#: 0.5 s, D 0.1 s, omega 0.5, so each write stays in flight for half its
+#: cost), the deep level every 2nd checkpoint, q = 0.5, mu 6 s.  In scaled
+#: time the schedule does not depend on the model: at seed 0 a CPU
+#: rehearsal at reduced width gives 5 failures (2 hard), one flush
+#: aborted and restores from both levels, in 16 steps run.
+FT_IDENTITY = dict(layers=2, B=8, S=256, steps=10, mu_s=6.0, seed=0,
+                   q=0.5, pfs_every=2, cost_s=0.5, D_s=0.1, omega=0.5)
+#: the card's smoke against the port's CPU run of it from the same
+#: params: losses as |a - b| / |b| (the reference's bf16 tolerance); the
+#: operating point's floats (each device solves in f64) relative.
+FT_LOSS_TOL = 3e-2
+FT_OP_RTOL = 1e-12
+
+
+def _ft_cfg(spec):
+    """The ``ArchConfig`` that ``ft.run.build`` builds for ``spec``."""
+    from repro_torch.configs import get_config, reduced
+    cfg = get_config(spec.arch)
+    return reduced(cfg, n_layers=spec.layers, d_model=spec.d_model,
+                   n_heads=spec.n_heads) if spec.reduce else cfg
+
+
+def _mlstm_per_step(cfg) -> int:
+    """mLSTM launches a training step: a forward per mLSTM layer, and its
+    recompute under ``remat="full"``."""
+    return cfg.layer_kinds().count("mlstm") * (2 if cfg.remat == "full"
+                                               else 1)
+
+
+def _ft_mlstm_check(params, cfg, batch) -> dict:
+    """Layer 0's mLSTM on a run's own input (its params' embedding of
+    ``batch`` through ln1): h through the kernel against
+    ``mlstm_scan_plain`` within ``ZOO_TOL``, at the path's shape."""
+    import torch
+    from repro_torch.kernels import mlstm_scan as ml
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+    from repro_torch.models import recurrent as rec
+    from repro_torch.models.spec import torch_dtype
+    cd = torch_dtype(cfg.compute_dtype)
+    p0 = {k: v[0] for k, v in params["stages"][0]["ln1"].items()}
+    pm = {k: v[0] for k, v in params["stages"][0]["mlstm"].items()}
+    with torch.no_grad():
+        x = layers.embed_lookup(params["embed"], batch["tokens"], cd)
+        q, k, v, li, lf, L = rec.mlstm_inputs(
+            cfg, pm, layers.apply_norm(p0, x, cfg.norm), cd)
+        Bq, H, S, Dh = q.shape
+        fold = lambda t: t.reshape(Bq * H, *t.shape[2:])
+        h_k = ops.mlstm_scan_trainable(q, k, v, li, lf, chunk=L)[0]
+        h_p = ml.mlstm_scan_plain(fold(q), fold(k), fold(v), fold(li),
+                                  fold(lf), chunk=L).reshape(h_k.shape)
+    ok, err, frob = _close(h_k, h_p, ZOO_TOL["mlstm_scan"])
+    return {"shape": [Bq * H, S, Dh], "chunk": L, "ok": ok,
+            "max_abs_err": err, "frob": frob}
+
+
+def _count_steps(trainer) -> list:
+    """Wrap ``trainer.train_step`` to count its calls (replays and the
+    steps a failure interrupts included); returns the counter."""
+    calls = [0]
+    step = trainer.train_step
+
+    def counted(*args):
+        calls[0] += 1
+        return step(*args)
+    trainer.train_step = counted
+    return calls
+
+
+def run_ft_path(dev, root: Path, spec_kw: dict) -> dict:
+    """Part (a)'s main path: ``ft.run.build`` and ``run`` of a
+    ``RunSpec`` (``execute`` is the two and ``predictions``) with a
+    ``MemoryTracker``, the train-step calls counted, on the host clock."""
+    from repro_torch.ft import MemoryTracker
+    from repro_torch.ft import run as ft_run
+    spec = ft_run.RunSpec(ckpt_dir=str(root), **spec_kw)
+    mem = MemoryTracker()
+    t0 = time.perf_counter()
+    trainer = ft_run.build(spec, tracker=mem, device=dev)
+    _dev_sync(dev)
+    build_s = time.perf_counter() - t0
+    calls = _count_steps(trainer)
+    t0 = time.perf_counter()
+    rep = trainer.run()
+    _dev_sync(dev)
+    run_s = time.perf_counter() - t0
+    rep["predicted"] = ft_run.predictions(spec, rep, device=dev)
+    return {"spec": spec, "report": rep, "tracker": mem,
+            "trainer": trainer, "steps_run": calls[0], "build_s": build_s,
+            "run_s": run_s}
+
+
+def _ft_part_run(dev, root: Path, tlog, rehearse: bool) -> dict:
+    """Part (a): xLSTM-125M at full width through failures, measured."""
+    on_card = dev.type == "cuda"
+    spec_kw = dict(FT_RUN, **(FT_RUN_SMALL if rehearse else {}))
+    _reset_counts()
+    run = run_ft_path(dev, root, spec_kw)
+    c = _counts()
+    rep, mem, tr = run["report"], run["tracker"], run["trainer"]
+    cfg = _ft_cfg(run["spec"])
+    steps = [r["step_s"] for r in mem.of_kind("step")]
+    deep = [s for s in rep["checkpoints"] if s["level"] == 2]
+    buddy = [s for s in rep["checkpoints"] if s["level"] == 1]
+    fails = mem.of_kind("failure")
+    store_restores = sum(1 for e in tr.log if e["source"] == "store")
+    op, e = rep["operating_point"], rep["energy"]
+    out = {
+        "spec": dict(spec_kw),
+        "final_step": rep["final_step"], "steps_run": run["steps_run"],
+        "n_failures": rep["n_failures"],
+        "n_hard_failures": rep["n_hard_failures"],
+        "n_rollbacks": rep["n_rollbacks"], "losses": rep["losses"],
+        "step_s": steps,
+        "C2_s": [s["C_s"] for s in deep],
+        "C2_split": [{k: s[k] for k in ("snapshot_s", "write_s", "bytes")}
+                     for s in deep],
+        "C1_s": [s["C_s"] for s in buddy],
+        "restore_s": [r["recovery_s"] for r in fails],
+        "failure_t": list(tr.failures.failure_times),
+        "downtime_s": [r["downtime_s"] for r in fails],
+        "rollbacks": [(r["to_step"], r["source"]) for r in fails],
+        "store_save_split": tr.manager.store.last_save,
+        "store_restore_split": tr.manager.store.last_restore,
+        "operating_point": op, "policy": rep["policy"],
+        "energy": e, "wall_s": rep["wall_s"], "predicted": rep["predicted"],
+        "build_s": run["build_s"], "run_s": run["run_s"], "launches": c}
+    tlog(f"ft run: {cfg.name} B {spec_kw['batch']} S {spec_kw['seq']}, "
+         f"{spec_kw['total_steps']} steps, measured time, "
+         f"{spec_kw['strategy']}, q {spec_kw['q']}, compressed store, mu "
+         f"{spec_kw['mu_s']} s, seed {spec_kw['seed']}: final step "
+         f"{rep['final_step']}, {run['steps_run']} train steps run, "
+         f"failures {rep['n_failures']} (hard {rep['n_hard_failures']}) at "
+         f"t {out['failure_t']}, rollbacks {out['rollbacks']}; losses "
+         f"{rep['losses']}")
+    tlog(f"ft run: step s {steps}; C2 s {out['C2_s']} (splits "
+         f"{out['C2_split']}); C1 s {out['C1_s']}; restore s "
+         f"{out['restore_s']}; last save {out['store_save_split']}, last "
+         f"restore {out['store_restore_split']}")
+    tlog(f"ft run: policy T solved {op['period_solved_s']:.6g} s, realized "
+         f"{op['period_realized_s']:.6g} s, m {op['deep_every']}, k "
+         f"{op['period_steps']} steps (step {op['step_s']:.6g} s); energy "
+         f"E_total {e['E_total_j']:.6g} J over T_wall {e['T_wall_s']:.6g} s "
+         f"({', '.join(f'{k} {v:.6g}' for k, v in e.items())}); run wall "
+         f"{rep['wall_s']:.6g} s on its clock, build {run['build_s']:.3f} "
+         f"s, run {run['run_s']:.3f} s on the host clock; launches "
+         f"mlstm_scan {c['mlstm_scan']}, quantize_leaves "
+         f"{c['quantize_leaves']}, dequantize_leaves "
+         f"{c['dequantize_leaves']}, one-leaf {c['quantize']} / "
+         f"{c['dequantize']}, plain calls {c['plain']}")
+    if rep["final_step"] != spec_kw["total_steps"]:
+        fail(f"ft run: stopped at step {rep['final_step']}")
+    if not (rep["n_failures"] >= 1
+            and rep["n_rollbacks"] == rep["n_failures"]
+            and store_restores == rep["n_rollbacks"]):
+        fail(f"ft run: {rep['n_failures']} failures, "
+             f"{rep['n_rollbacks']} rollbacks, {store_restores} from the "
+             f"store (want at least one failure, each restored deep)")
+    if not all(math.isfinite(x) for x in rep["losses"]):
+        fail(f"ft run: a loss is not finite: {rep['losses']}")
+    want_ml = _mlstm_per_step(cfg) * run["steps_run"] if on_card else 0
+    want_q = (len(deep), store_restores) if on_card else (0, 0)
+    if c["mlstm_scan"] != want_ml or (on_card and c["plain"]):
+        fail(f"ft run: mlstm_scan launched {c['mlstm_scan']} times (want "
+             f"{want_ml}: {_mlstm_per_step(cfg)} for each of "
+             f"{run['steps_run']} steps run) with {c['plain']} plain calls")
+    if (c["quantize_leaves"], c["dequantize_leaves"]) != want_q or (
+            c["quantize"] or c["dequantize"]):
+        fail(f"ft run: quant launches {c} against {len(deep)} deep "
+             f"checkpoints and {store_restores} deep restores")
+    t0 = time.perf_counter()
+    out["mlstm_check"] = _ft_mlstm_check(tr.state[0], cfg, tr.data.peek(0))
+    tlog(f"ft run: layer 0 mLSTM h at {out['mlstm_check']['shape']} chunk "
+         f"{out['mlstm_check']['chunk']}, kernel vs plain: max abs "
+         f"{out['mlstm_check']['max_abs_err']:.3e} (gate "
+         f"{ZOO_TOL['mlstm_scan']}) in {time.perf_counter() - t0:.2f} s")
+    if not out["mlstm_check"]["ok"]:
+        fail("ft run: the mLSTM kernel disagrees with its plain version at "
+             "the ft path's shape")
+    return out
+
+
+def _ft_part_smoke(dev, root: Path, tlog) -> dict:
+    """Part (b): ``repro_torch.launch.train``'s smoke on ``dev`` (its
+    gates), then the same spec on the CPU from the same params, equal."""
+    import torch
+    from repro_torch.ckpt.tree import tree_map
+    from repro_torch.ft import run as ft_run
+    from repro_torch.launch import train as ft_train
+    spec = ft_run.RunSpec(**ft_train.SMOKE_SPEC)
+    cfg = _ft_cfg(spec)
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        card = ft_train._smoke(str(dev), str(root / "card"))
+    except SystemExit as e:
+        fail(f"ft smoke on {dev}: {e}")
+    _dev_sync(dev)
+    card_s = time.perf_counter() - t0
+    c = _counts()
+
+    # the CPU run of the spec from the card's initial state (the same
+    # seeded generator draws it again), one intra-op thread
+    init_tr = ft_run.build(dataclasses.replace(spec,
+                                               ckpt_dir=str(root / "i")),
+                           device=dev)
+    init = init_tr.state
+    cpu_tr = ft_run.build(dataclasses.replace(spec,
+                                              ckpt_dir=str(root / "cpu")),
+                          device="cpu")
+    cpu_tr.state = tree_map(lambda x: x.to("cpu"), init)
+    calls = _count_steps(cpu_tr)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    try:
+        cpu = cpu_tr.run()
+    finally:
+        torch.set_num_threads(threads)
+    cpu_s = time.perf_counter() - t0
+    cpu["predicted"] = ft_run.predictions(spec, cpu, device="cpu")
+    op_c, op_h = card["operating_point"], cpu["operating_point"]
+    op_rel = max((abs(op_c[k] - op_h[k]) / abs(op_h[k])
+                  for k in op_h if isinstance(op_h[k], float) and op_h[k]),
+                 default=0.0)
+    pred_rel = max(abs(card["predicted"][k] - cpu["predicted"][k])
+                   / abs(cpu["predicted"][k]) for k in cpu["predicted"]
+                   if cpu["predicted"][k])
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(card["losses"], cpu["losses"]))
+    ck = lambda rep: sorted((s["step"], s["level"])
+                            for s in rep["checkpoints"])
+    counts = ("final_step", "n_failures", "n_hard_failures", "n_rollbacks",
+              "flush_aborts")
+    want_ml = _mlstm_per_step(cfg) * calls[0] if dev.type == "cuda" else 0
+    out = {"card_s": card_s, "cpu_s": cpu_s, "launches": c,
+           "steps_run": calls[0], "wall_s": card["wall_s"],
+           "energy_j": card["energy"]["E_total_j"],
+           "predicted": card["predicted"], "operating_point": op_c,
+           "counts": {k: card[k] for k in counts},
+           "checkpoints": len(card["checkpoints"]),
+           "wall_equal": card["wall_s"] == cpu["wall_s"],
+           "energy_equal": card["energy"] == cpu["energy"],
+           "op_max_rel": op_rel, "predicted_max_rel": pred_rel,
+           "loss_max_rel": loss_rel}
+    tlog(f"ft smoke: {cfg.name} (layers 2, d 64, one mLSTM head of 128), "
+         f"{spec.total_steps} steps of {spec.strategy} at mu {spec.mu_s} s, "
+         f"seed {spec.seed}: on {dev} {card_s:.2f} s, on the CPU "
+         f"{cpu_s:.2f} s ({calls[0]} train steps run); failures "
+         f"{card['n_failures']}, rollbacks {card['n_rollbacks']}, "
+         f"checkpoints {len(card['checkpoints'])}; wall {card['wall_s']!r} "
+         f"s, energy {card['energy']['E_total_j']!r} J, measured/predicted "
+         f"wall {card['predicted']['wall_ratio']:.6f}, energy "
+         f"{card['predicted']['energy_ratio']:.6f}; T {op_c['period_solved_s']!r}"
+         f" s, m {op_c['deep_every']}, k {op_c['period_steps']}; card vs "
+         f"CPU: wall equal {out['wall_equal']}, energy equal "
+         f"{out['energy_equal']}, operating point {op_rel:.3e}, predicted "
+         f"{pred_rel:.3e}, losses {loss_rel:.3e} (gate {FT_LOSS_TOL:g}); "
+         f"launches mlstm_scan {c['mlstm_scan']} (want {want_ml}), plain "
+         f"calls {c['plain']}")
+    if not (out["wall_equal"] and out["energy_equal"]
+            and all(card[k] == cpu[k] for k in counts)
+            and ck(card) == ck(cpu)
+            and all(op_c[k] == op_h[k] for k in op_h
+                    if not isinstance(op_h[k], float))
+            and op_rel <= FT_OP_RTOL and pred_rel <= FT_OP_RTOL):
+        fail("ft smoke: the card's report differs from the CPU's")
+    if not loss_rel <= FT_LOSS_TOL:
+        fail(f"ft smoke: the card's losses differ from the CPU's by "
+             f"{loss_rel:.3e}")
+    if c["mlstm_scan"] != want_ml or (dev.type == "cuda" and c["plain"]):
+        fail(f"ft smoke: launches {c}")
+    out["mlstm_check"] = _ft_mlstm_check(init[0], cfg, init_tr.data.peek(0))
+    tlog(f"ft smoke: layer 0 mLSTM h at {out['mlstm_check']['shape']} "
+         f"chunk {out['mlstm_check']['chunk']}, kernel vs plain: max abs "
+         f"{out['mlstm_check']['max_abs_err']:.3e} (gate "
+         f"{ZOO_TOL['mlstm_scan']})")
+    if not out["mlstm_check"]["ok"]:
+        fail("ft smoke: the mLSTM kernel disagrees with its plain version "
+             "at the smoke's shape")
+    return out
+
+
+def _ft_identity_trainer(cfg, params, dev, root: Path, mu_s: float):
+    """Part (c)'s trainer: the port's classes, scaled time, every cost
+    virtual (``FT_IDENTITY``), on ``params``."""
+    from repro_torch.ckpt import (CheckpointManager, ManagerConfig,
+                                  ShardedStore, StoreConfig)
+    from repro_torch.core.policy import CheckpointPolicy, PolicyConfig
+    from repro_torch.data import synthetic
+    from repro_torch.energy import EnergyMeter, PAPER_EXASCALE_PROFILE
+    from repro_torch.ft import (FailureInjector, FailureModel,
+                                FaultTolerantTrainer, TrainerConfig)
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+    I = FT_IDENTITY
+    c, D = I["cost_s"], I["D_s"]
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1)
+    pol = CheckpointPolicy(
+        PolicyConfig(strategy="algo_t", C_s=c, R_s=c, D_s=D, mu_s=mu_s,
+                     omega=I["omega"], mu_from_observations=False),
+        PAPER_EXASCALE_PROFILE.power_params(), device=dev)
+    mgr = CheckpointManager(
+        ShardedStore(StoreConfig(root=str(root), device=dev)), pol,
+        ManagerConfig(pfs_every=I["pfs_every"], virtual_C1_s=c,
+                      virtual_C2_s=c))
+    inj = FailureInjector(FailureModel(
+        mu_s=mu_s, downtime_s=D, seed=I["seed"], buddy_loss_prob=I["q"],
+        recovery_buddy_s=c, recovery_deep_s=c))
+    return FaultTolerantTrainer(
+        train_step=build(cfg).make_train_step(ocfg),
+        state=(params, adamw.init_state(params, ocfg, device=dev)),
+        data=synthetic.for_arch(cfg, batch=I["B"], seq_len=I["S"], seed=0,
+                                device=dev),
+        policy=pol, manager=mgr, meter=EnergyMeter(PAPER_EXASCALE_PROFILE),
+        failures=inj,
+        config=TrainerConfig(total_steps=I["steps"],
+                             sim_seconds_per_step=1.0))
+
+
+def run_ft_identity(dev, root: Path, rehearse: bool = False) -> dict:
+    """Part (c): a failure-free run and one with failures from the same
+    params; whether their final params and AdamW state are bitwise equal,
+    leaf by leaf."""
+    import torch
+    from repro_torch.ckpt.tree import tree_leaves
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build
+    I = FT_IDENTITY
+    cfg = get_config("xlstm-125m")
+    cfg = (reduced(cfg, n_layers=I["layers"], d_model=64, n_heads=1)
+           if rehearse else dataclasses.replace(cfg, n_layers=I["layers"]))
+    params = build(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    out = {"cfg": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model}
+    _reset_counts()
+    runs = {}
+    for name, mu in (("clean", float("inf")), ("fail", I["mu_s"])):
+        tr = _ft_identity_trainer(cfg, params, dev, root / name, mu)
+        calls = _count_steps(tr)
+        t0 = time.perf_counter()
+        rep = tr.run()
+        _dev_sync(dev)
+        out[f"{name}_s"] = time.perf_counter() - t0
+        out[f"{name}_steps_run"] = calls[0]
+        runs[name] = (tr, rep)
+    out["launches"] = _counts()
+    (tc, rc), (tf, rf) = runs["clean"], runs["fail"]
+    leaves_c, leaves_f = tree_leaves(tc.state), tree_leaves(tf.state)
+    differ = [i for i, (a, b) in enumerate(zip(leaves_c, leaves_f))
+              if not torch.equal(a, b)]
+    out.update(leaves=len(leaves_c), differ=differ,
+               equal=not differ and len(leaves_c) == len(leaves_f),
+               final_steps=[rc["final_step"], rf["final_step"]],
+               n_failures=rf["n_failures"],
+               n_hard_failures=rf["n_hard_failures"],
+               flush_aborts=rf["flush_aborts"],
+               sources=[e["source"] for e in tf.log],
+               levels=sorted({s["level"] for s in rf["checkpoints"]}),
+               per_step=_mlstm_per_step(cfg))
+    return out
+
+
+def _ft_part_identity(dev, root: Path, tlog, rehearse: bool) -> dict:
+    """Part (c): the rollback identity on ``dev``, bitwise."""
+    out = run_ft_identity(dev, root, rehearse)
+    c = out["launches"]
+    on_card = dev.type == "cuda"
+    want = (out["per_step"] * (out["clean_steps_run"] + out["fail_steps_run"])
+            if on_card else 0)
+    tlog(f"ft identity: {out['cfg']} at {out['layers']} layers, d "
+         f"{out['d_model']}, B {FT_IDENTITY['B']}, S {FT_IDENTITY['S']}, "
+         f"{FT_IDENTITY['steps']} steps: clean {out['clean_s']:.2f} s "
+         f"({out['clean_steps_run']} steps run), with failures "
+         f"{out['fail_s']:.2f} s ({out['fail_steps_run']} steps run, "
+         f"{out['n_failures']} failures, {out['n_hard_failures']} hard, "
+         f"{out['flush_aborts']} flushes aborted, restores from "
+         f"{out['sources']}, levels {out['levels']}); final params and "
+         f"AdamW state bitwise equal: {out['equal']} ({len(out['differ'])} "
+         f"of {out['leaves']} leaves differ); launches mlstm_scan "
+         f"{c['mlstm_scan']} (want {want}), plain calls {c['plain']}")
+    if out["final_steps"] != [FT_IDENTITY["steps"]] * 2:
+        fail(f"ft identity: final steps {out['final_steps']}")
+    if out["n_failures"] < 2 or out["n_hard_failures"] < 1:
+        fail(f"ft identity: {out['n_failures']} failures "
+             f"({out['n_hard_failures']} hard); want 2, one hard")
+    if c["mlstm_scan"] != want or (on_card and c["plain"]):
+        fail(f"ft identity: launches {c}")
+    if not out["equal"]:
+        fail(f"ft identity: the final states differ (leaves "
+             f"{out['differ']})")
+    return out
+
+
+def phase_ft(dev, card: str, rehearse: bool = False) -> dict:
+    """Phase 13: the fault-tolerant runtime (see the module docstring),
+    every line with the card's name and power limit, each part's counts
+    set to 0 just before it and read just after.  ``rehearse`` runs it on
+    the CPU at reduced widths, where no kernel launches."""
+    import shutil
+    tlog = lambda msg: log(f"{msg} [{card}]")
+    root = ROOT / "build" / "chip_smoke_ft"
+    shutil.rmtree(root, ignore_errors=True)
+    report = {}
+    t_phase = time.perf_counter()
+    try:
+        for key, part in (("run", lambda r: _ft_part_run(dev, r, tlog,
+                                                         rehearse)),
+                          ("smoke", lambda r: _ft_part_smoke(dev, r, tlog)),
+                          ("identity", lambda r: _ft_part_identity(
+                              dev, r, tlog, rehearse))):
+            t0 = time.perf_counter()
+            report[key] = part(root / key)
+            report[key]["part_s"] = time.perf_counter() - t0
+            shutil.rmtree(root / key, ignore_errors=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    report["phase_s"] = time.perf_counter() - t_phase
+    tlog(f"ft phase {report['phase_s']:.1f} s (run "
+         f"{report['run']['part_s']:.1f}, smoke "
+         f"{report['smoke']['part_s']:.1f}, identity "
+         f"{report['identity']['part_s']:.1f})")
+    return report
+
+
 def _kernel_modules():
     from repro_torch.kernels import (decode_attention, event_sweep,
                                      flash_attention, mlstm_scan,
@@ -4265,6 +4744,16 @@ def main() -> None:
                    + report["train"]["compress"]["steps_counts"][k])
                for k in ("quantize_leaves", "dequantize_leaves")}
 
+    # the fault-tolerant runtime (phase 13), each part's counts read around
+    # it
+    report["ft"] = phase_ft(dev, card)
+    torch.cuda.empty_cache()
+    ft_parts = [report["ft"][k]["launches"] for k in ("run", "smoke",
+                                                      "identity")]
+    ft_ml = sum(c["mlstm_scan"] for c in ft_parts)
+    ft_q = {k: report["ft"]["run"]["launches"][k]
+            for k in ("quantize_leaves", "dequantize_leaves")}
+
     # the checkpoint runtime path, its counts read around it
     root = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(root, ignore_errors=True)
@@ -4376,9 +4865,10 @@ def main() -> None:
                         for f in KERNEL_FILES["quant_blockwise"]],
             "replaces": f"src/repro/kernels/quant_blockwise.py:{line}",
             "launches": ck_counts[f"{name}_leaves"]
-            + train_q[f"{name}_leaves"],
+            + train_q[f"{name}_leaves"] + ft_q[f"{name}_leaves"],
             "launches_by_path": {"checkpoint": ck_counts[f"{name}_leaves"],
-                                 "train": train_q[f"{name}_leaves"]},
+                                 "train": train_q[f"{name}_leaves"],
+                                 "ft": ft_q[f"{name}_leaves"]},
             "max_abs_err": err,
             "parity": "bitwise", "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -4400,6 +4890,8 @@ def main() -> None:
                 for k in full_width_keys[name]]
         if name == "mlstm_scan":
             full.append(report["train"]["kernel_checks"]["h"]["max_abs_err"])
+            full += [report["ft"][k]["mlstm_check"]["max_abs_err"]
+                     for k in ("run", "smoke")]
         lib = [v["library_ms"] for v in parts]
         kernels.append({
             "name": name, "route": "cuda",
@@ -4407,10 +4899,10 @@ def main() -> None:
             "sources": [f"src/repro_torch/csrc/{f}"
                         for f in KERNEL_FILES.get(name, (f"{name}.cu",))],
             "replaces": f"src/repro/kernels/{name}.py:{line}",
-            "launches": zoo_counts[name] + (train_ml if name == "mlstm_scan"
-                                            else 0),
+            "launches": zoo_counts[name] + (train_ml + ft_ml
+                                            if name == "mlstm_scan" else 0),
             "launches_by_path": ({"zoo": zoo_counts[name],
-                                  "train": train_ml}
+                                  "train": train_ml, "ft": ft_ml}
                                  if name == "mlstm_scan" else
                                  {"zoo": zoo_counts[name]}),
             **({"on_train_step": {

@@ -121,7 +121,11 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
             "repro_torch.configs, repro_torch.models, repro_torch.optim, "
             "repro_torch.data, repro_torch.data.synthetic, "
             "repro_torch.optim.grad_compress, "
-            "repro_torch.benchmarks.table_arch_periods\n"
+            "repro_torch.benchmarks.table_arch_periods, repro_torch.ft, "
+            "repro_torch.ft.run, repro_torch.ft.trainer, "
+            "repro_torch.launch.train, "
+            "repro_torch.benchmarks.validate_runtime, "
+            "repro_torch.benchmarks.train_fault_tolerant\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(','.join(bad))\n")
