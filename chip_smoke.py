@@ -42,7 +42,14 @@ Phases (any failure exits non-zero; no result line is printed then):
    at S = 77),
    decode (Dh 128 and 256, f32 and bf16: S = 768, length 0, 1, 333, 768;
    S = 1000, length 999 and 1000; BH = 1), mLSTM (chunks 64/128/256 at
-   Dh 128/256/384, and bf16), within ``ZOO_TOL``.
+   Dh 128/256/384, and bf16), within ``ZOO_TOL``; and phase 14's shapes:
+   RG-LRU at (2, 1, 4096) and (2, 4096, 4096), flash bf16 at S 8192 under
+   a window of 4096 (Dh 128), decode bf16 at BH 192, S 4096, Dh 128
+   (lengths 1, 2048, 4096) and BH 32, S 2048, Dh 256; and
+   ``ops.decode_attention`` in the model layout on ``expand_kv``'s cache
+   (starcoder2-3b's 8 x 24 heads over 2 at 4096 slots, recurrentgemma-9b's
+   2 x 16 over 1 at 2048) against the plain version on heads repeated by
+   ``repeat_interleave``.
 4. model sweep: ``evaluate_grid`` on the 1,000,000-point
    ``mu_rho_grid(linspace(30,600,1000), linspace(1,10,1000))`` under both
    policies; the compensated periods, re-evaluated in f64, must be within
@@ -250,6 +257,30 @@ Phases (any failure exits non-zero; no result line is printed then):
    (at least 2, one hard) from the same params: the final params and
    AdamW state bitwise equal, in-process with PyTorch's default
    algorithms (no order-dependent atomics on the path).
+
+14. serving (after phase 13), every line with the card's name and power
+   limit, each part's counts set to 0 just before it and read just after,
+   each run through ``repro_torch.launch.serve.model_main`` with its decode
+   loop under ``torch.cuda.set_sync_debug_mode("error")``.  (a)
+   starcoder2-3b at full width, B 8, prompt 8192 (past its window of
+   4096: the sliding mask, the ring wraps), 32 new tokens, 2 waves; then
+   the int8 KV cache at prompt 2048, 16 new tokens.  (b) recurrentgemma-9b
+   at full width, B 2, prompt 4096, 16 new tokens.  Gates: the last logits
+   finite; flash launched once per attention layer a wave, decode once
+   per attention layer a step, the RG-LRU scan once per RG-LRU layer a
+   wave and a step (26 + 26 a step), no other kernel, no plain version.
+   Prints the prefill and per-step times, the peak device memory and, for
+   (a) and (b), one more decode step under ``torch.profiler`` (its CUDA
+   kernels, busy share, the ten kernels that take the most device time)
+   and that step's ``expand_kv`` copies timed alone (their share).  (c)
+   the card against the CPU from the same params (starcoder2-3b's widths
+   at 2 layers, recurrentgemma-9b's at one super-block with its vocab cut
+   to 4096; B 4, prompt 512, window 128, 4 teacher-forced steps), each
+   logits row (a sequence at a step) in relative Frobenius: in f32
+   compute every row within 1e-4; in bf16 compute the median row within
+   the reference's bf16 tolerance (5e-2 for these sliding archs).  (d)
+   xLSTM-125M at full width, B 2, prompt 1024 (6 mLSTM launches), 8
+   decode steps.
 
 Near the end it prints one JSON line ``{"gates": {...}}`` with every
 gate's numbers, then one ``{"kernels": [...]}`` line, then the card's name
@@ -2010,8 +2041,11 @@ def phase_zoo_parity(dev) -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
 
     # W = 200 and 4104: the ring route with a ragged last lane tile; S = 300,
-    # 77 and 1000 end on a ragged stage; W = 333 takes the direct route
-    for (B, S, W) in ((3, 300, 200), (5, 77, 333), (2, 1000, 4104)):
+    # 77 and 1000 end on a ragged stage; W = 333 takes the direct route;
+    # (2, 1, 4096) and (2, 4096, 4096) are recurrentgemma-9b's decode step
+    # and prefill (phase 14)
+    for (B, S, W) in ((3, 300, 200), (5, 77, 333), (2, 1000, 4104),
+                      (2, 1, 4096), (2, 4096, 4096)):
         for dt in (f32, bf16):
             a = torch.sigmoid(randn(B, S, W) - 1.0).to(dt)
             b = randn(B, S, W).to(dt)
@@ -2044,36 +2078,42 @@ def phase_zoo_parity(dev) -> dict:
         ("causal", 0, 0), ("sliding", 100, 0), ("sliding", 700, 0),
         ("chunked", 0, 64), ("bidir", 0, 0))))
     flash_cases.append((2, 77, bf16, (("causal", 0, 0), ("bidir", 0, 0))))
-    for Dh in fa.HEAD_DIMS:
-        for BH, S, dt, modes in flash_cases:
-            q, k, v = (randn(BH, S, Dh).to(dt) for _ in range(3))
-            for mode, w, c in modes:
-                out = fa.flash_attention(q, k, v, mode=mode, window=w,
-                                         chunk=c)
-                plain = fa.flash_attention_plain(q, k, v, mode=mode,
-                                                 window=w, chunk=c)
-                oracle = ref.attention_ref(
-                    q[None], k[None], v[None], causal=mode != "bidir",
-                    window=w, chunk=c)[0]
-                torch.cuda.synchronize()
-                tol = _tol("flash_attention", dt)
-                ok, err, frob = _close(out, plain, tol)
-                ok_ref, err_ref, frob_ref = _close(out, oracle, tol)
-                errs["flash_attention"] = max(errs["flash_attention"], err)
-                log(f"zoo parity flash_attention {mode:8s} {w or c:4d} Dh "
-                    f"{Dh} {dt} {(BH, S, Dh)}: max_abs_err={err} (rel "
-                    f"Frobenius {frob:.3e}); vs attention_ref "
-                    f"{err_ref:.3e} ({frob_ref:.3e})")
-                if not (ok and ok_ref):
-                    fail(f"flash_attention off at {mode} {w or c} Dh {Dh} "
-                         f"{dt} S {S}")
+    # starcoder2-3b's prefill (phase 14): S 8192 under its window of 4096
+    model_flash = [(128, (4, 8192, bf16, (("sliding", 4096, 0),)))]
+    for Dh, (BH, S, dt, modes) in [(Dh, case) for Dh in fa.HEAD_DIMS
+                                   for case in flash_cases] + model_flash:
+        q, k, v = (randn(BH, S, Dh).to(dt) for _ in range(3))
+        for mode, w, c in modes:
+            out = fa.flash_attention(q, k, v, mode=mode, window=w,
+                                     chunk=c)
+            plain = fa.flash_attention_plain(q, k, v, mode=mode,
+                                             window=w, chunk=c)
+            oracle = ref.attention_ref(
+                q[None], k[None], v[None], causal=mode != "bidir",
+                window=w, chunk=c)[0]
+            torch.cuda.synchronize()
+            tol = _tol("flash_attention", dt)
+            ok, err, frob = _close(out, plain, tol)
+            ok_ref, err_ref, frob_ref = _close(out, oracle, tol)
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+            log(f"zoo parity flash_attention {mode:8s} {w or c:4d} Dh "
+                f"{Dh} {dt} {(BH, S, Dh)}: max_abs_err={err} (rel "
+                f"Frobenius {frob:.3e}); vs attention_ref "
+                f"{err_ref:.3e} ({frob_ref:.3e})")
+            if not (ok and ok_ref):
+                fail(f"flash_attention off at {mode} {w or c} Dh {Dh} "
+                     f"{dt} S {S}")
 
     # lengths 999 and 1000 of S = 1000 end on a ragged ring stage; BH = 1
-    # leaves all SMs but one idle
+    # leaves all SMs but one idle; then phase 14's shapes in bf16:
+    # starcoder2-3b's 8 x 24 heads against its 4096-slot ring and
+    # recurrentgemma-9b's 2 x 16 heads against its 2048-slot one
     decode_cases = ((4, 768, (0, 1, 333, 768)), (4, 1000, (999, 1000)),
                     (1, 1000, (0, 500, 1000)))
-    for Dh, dt, (BH, S, lengths) in itertools.product(
-            da.HEAD_DIMS, (f32, bf16), decode_cases):
+    model_decode = [(128, bf16, (192, 4096, (1, 2048, 4096))),
+                    (256, bf16, (32, 2048, (1, 1000, 2048)))]
+    for Dh, dt, (BH, S, lengths) in list(itertools.product(
+            da.HEAD_DIMS, (f32, bf16), decode_cases)) + model_decode:
         q1 = randn(BH, 1, Dh).to(dt)
         k, v = (randn(BH, S, Dh).to(dt) for _ in range(2))
         for length in lengths:
@@ -2097,6 +2137,37 @@ def phase_zoo_parity(dev) -> dict:
             if not (ok and ok_ref):
                 fail(f"decode_attention off at Dh {Dh} {dt} BH {BH} S "
                      f"{S} length {length}")
+
+    # phase 14's layout: ``ops.decode_attention`` on a query (B, 1, H, Dh)
+    # against the ring (B, Sc, Hkv, Dh) expanded by ``expand_kv`` (folded
+    # without a copy), held against the plain version on the KV heads
+    # repeated by ``repeat_interleave`` and folded by hand
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import expand_kv
+    for arch, B, Sc, lengths in (("starcoder2-3b", 8, 4096, (1, 2048, 4096)),
+                                 ("recurrentgemma-9b", 2, 2048, (1, 2048))):
+        cfg = get_config(arch)
+        H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        q1 = randn(B, 1, H, Dh).to(bf16)
+        ck, cv = (randn(B, Sc, Hkv, Dh).to(bf16) for _ in range(2))
+        ke, ve = expand_kv(cfg, ck), expand_kv(cfg, cv)
+        fold = lambda t: t.permute(0, 2, 1, 3).reshape(B * H, t.shape[1], Dh)
+        rk, rv = (fold(t.repeat_interleave(H // Hkv, dim=2))
+                  for t in (ck, cv))
+        for length in lengths:
+            out = ops.decode_attention(q1, ke, ve, length)
+            plain = da.decode_attention_plain(fold(q1), rk, rv, length)
+            plain = plain.reshape(B, H, 1, Dh).permute(0, 2, 1, 3)
+            torch.cuda.synchronize()
+            ok, err, frob = _close(out, plain, _tol("decode_attention", bf16))
+            errs["decode_attention"] = max(errs["decode_attention"], err)
+            log(f"zoo parity decode_attention model layout {arch} B {B} "
+                f"{H} heads over {Hkv}, Dh {Dh}, Sc {Sc} length {length}: "
+                f"max_abs_err={err} (rel Frobenius {frob:.3e})")
+            if not (ok and out.shape == (B, 1, H, Dh)):
+                fail(f"ops.decode_attention off in the model layout at "
+                     f"{arch} length {length}")
 
     BH, S = 4, 512
     for Dh, chunk, dt in ((128, 64, f32), (256, 128, f32), (384, 256, f32),
@@ -4594,6 +4665,335 @@ def phase_ft(dev, card: str, rehearse: bool = False) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# 14. serving: prefill and greedy decode through launch.serve
+# ---------------------------------------------------------------------------
+
+#: part (a): starcoder2-3b at full width (30 layers, d 3072, 24 heads of 128
+#: over 2 KV heads, window 4096, vocab 49,152), a prompt longer than the
+#: window (the prefill runs the sliding mask and the ring wraps) in two
+#: waves; then the int8 KV cache.  Part (b): recurrentgemma-9b at full
+#: width (26 RG-LRU and 12 local-attention layers).  Part (d): xLSTM-125M
+#: (its prefill through the mLSTM kernel, 8 decode steps).
+SERVE_RUNS = {
+    "starcoder2-3b": ["--arch", "starcoder2-3b", "--no-reduce", "--batch",
+                      "8", "--prompt-len", "8192", "--new-tokens", "32",
+                      "--waves", "2", "--seed", "0"],
+    "starcoder2-3b-int8": ["--arch", "starcoder2-3b", "--no-reduce",
+                           "--batch", "8", "--prompt-len", "2048",
+                           "--new-tokens", "16", "--waves", "2",
+                           "--kv-cache", "int8", "--seed", "0"],
+    "recurrentgemma-9b": ["--arch", "recurrentgemma-9b", "--no-reduce",
+                          "--batch", "2", "--prompt-len", "4096",
+                          "--new-tokens", "16", "--seed", "0"],
+    "xlstm-125m": ["--arch", "xlstm-125m", "--no-reduce", "--batch", "2",
+                   "--prompt-len", "1024", "--new-tokens", "9", "--seed",
+                   "0"]}
+#: the same runs rehearsed on the CPU (``--reduce``, short prompts).
+SERVE_REHEARSAL = {"--prompt-len": "64", "--new-tokens": "5"}
+#: part (c): the card against the CPU from the same params, B 4, a prompt
+#: of 512 with the window cut to 128 (the ring wraps), 4 teacher-forced
+#: decode steps; starcoder2-3b's widths at 2 layers, recurrentgemma-9b's at
+#: one super-block (rglru, rglru, sliding) with its vocab cut to 4096 (the
+#: CPU's copy of the params stays near 2.4 GB).  In f32 compute the median
+#: logits row is held within ``f32_median_tol`` and every row within
+#: ``f32_row_tol`` (relative Frobenius; see ``_serve_vs_cpu``).
+SERVE_VS_CPU = dict(B=4, S=512, window=128, steps=4, seed=0,
+                    f32_median_tol=1e-4, f32_row_tol=1e-2,
+                    cuts={"starcoder2-3b": dict(n_layers=2),
+                          "recurrentgemma-9b": dict(n_layers=3,
+                                                    vocab_size=4096)})
+
+
+def _serve_expected(cfg, args) -> dict:
+    """Launches a model-path run makes: flash once per attention layer a
+    prefill wave, decode once per attention layer a step, the RG-LRU scan
+    once per RG-LRU layer a wave and a step, the mLSTM once per mLSTM
+    layer a wave (its decode runs the state form)."""
+    from repro_torch.models.transformer import RECURRENT_KINDS, super_block
+    pat, n, tail = super_block(cfg)
+    kinds = list(pat) * n + list(tail)
+    waves = args.waves if args.waves > 1 and args.batch % args.waves == 0 \
+        else 1
+    steps = args.new_tokens - 1
+    n_attn = sum(k not in RECURRENT_KINDS for k in kinds)
+    return {"flash_attention": n_attn * waves,
+            "decode_attention": n_attn * steps,
+            "rglru_scan": kinds.count("rglru") * (waves + steps),
+            "mlstm_scan": kinds.count("mlstm") * waves}
+
+
+def _profile_decode_step(run, dev) -> dict:
+    """One more decode step (after the run's last) under ``torch.profiler``:
+    its CUDA kernels, their busy time against the step's host clock, and
+    the ten kernels that take the most device time.  Then the
+    ``expand_kv`` copies of the step timed alone with CUDA events (the K
+    and V of every attention layer expanded to the q heads, back to back,
+    median of 5) and their share of the step's busy time."""
+    import collections
+    import torch
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    from repro_torch.models import attention as attn
+    from repro_torch.models.transformer import _kv_dequant
+    tok = run.tokens[:, -1:]
+    with torch.no_grad(), prof_ctx(activities=[ProfilerActivity.CUDA]) as \
+            prof:
+        _dev_sync(dev)
+        t0 = time.perf_counter()
+        run.model.decode_step(run.params, run.cache, tok)
+        _dev_sync(dev)
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    n = busy = 0
+    by_name = collections.defaultdict(lambda: [0, 0])
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
+            continue
+        ns = e.duration_ns()
+        n, busy = n + 1, busy + ns
+        by_name[e.name()][0] += 1
+        by_name[e.name()][1] += ns
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    cfg = run.cfg
+    cd = getattr(torch, cfg.compute_dtype)
+    entries = []
+    for e in run.cache["layers"]["stages"]:
+        if isinstance(e, dict):                    # stacked: leading (n,)
+            entries += [{k: v[i] for k, v in e.items()}
+                        for i in range(e["k"].shape[0])]
+    entries += [e for e in run.cache["layers"]["tail"]
+                if isinstance(e, dict)]
+
+    def kv(e, key):                        # what decode_attention expands
+        if cfg.kv_cache_dtype == "int8":
+            return _kv_dequant(e[key], e[key + "_scale"], cd)
+        return e[key]
+    with torch.no_grad():
+        layers = [(kv(e, "k"), kv(e, "v")) for e in entries]
+
+    def expand_all():
+        for k, v in layers:
+            attn.expand_kv(cfg, k)
+            attn.expand_kv(cfg, v)
+    with torch.no_grad():
+        expand_ms = _events_ms(expand_all)
+    return {"step_s": wall, "kernels": n, "busy_s": busy * 1e-9,
+            "busy_share": busy * 1e-9 / wall if wall else 0.0,
+            "top": [{"name": k[:96], "count": c, "ms": ns * 1e-6}
+                    for k, (c, ns) in top],
+            "expand_layers": len(layers), "expand_ms": expand_ms,
+            "expand_share": expand_ms * 1e-3 / (busy * 1e-9) if busy
+            else 0.0}
+
+
+def _serve_part(name, dev, tlog, rehearse: bool) -> dict:
+    """One ``launch.serve.model_main`` run of ``SERVE_RUNS[name]`` with its
+    counts set to 0 just before it and read just after; its decode loop
+    under ``torch.cuda.set_sync_debug_mode("error")`` on the card.  Gates:
+    the last logits finite, every kernel of the path launched as
+    ``_serve_expected`` says, no other kernel, no plain version."""
+    import torch
+    from repro_torch.ckpt.tree import tree_leaves
+    from repro_torch.launch import serve
+    argv = list(SERVE_RUNS[name])
+    if rehearse:
+        argv[argv.index("--no-reduce")] = "--reduce"
+        for k, v in SERVE_REHEARSAL.items():
+            argv[argv.index(k) + 1] = v
+    args = serve.build_parser().parse_args(argv + ["--device", dev.type])
+    on_card = dev.type == "cuda"
+    base = 0
+    if on_card:            # the run's own peak: earlier phases hold tensors
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    run = serve.model_main(args, sync_debug="error" if on_card else None)
+    _dev_sync(dev)
+    host_s = time.perf_counter() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated(dev) - base if on_card else 0
+    expected = _serve_expected(run.cfg, args)
+    got = {k: counts[k] for k in expected}
+    finite = bool(torch.isfinite(run.logits.float()).all())
+    steps = args.new_tokens - 1
+    tlog(f"serve {name}: {run.cfg.name}, B {args.batch}, prompt "
+         f"{args.prompt_len}, {args.new_tokens} new tokens, waves "
+         f"{args.waves}, kv {args.kv_cache}: prefill {run.prefill_s:.4f} "
+         f"s, decode {run.decode_s:.4f} s "
+         f"({run.decode_s / max(steps, 1) * 1e3:.3f} ms a step), run "
+         f"{host_s:.2f} s with the init; peak device memory "
+         f"{peak / 2**30:.2f} GiB over the {base / 2**30:.2f} GiB held "
+         f"before it; launches {got} (expected {expected}), "
+         f"plain-version calls {counts['plain']}")
+    others = {k: v for k, v in counts.items()
+              if k not in expected and k != "plain" and v}
+    if not finite:
+        fail(f"serve {name}: the logits are not finite")
+    plain = counts["plain"]
+    if not on_card:            # the plain versions stand in, call for call
+        ok = plain == sum(expected.values()) and not others
+    else:
+        ok = got == expected and not others and not plain
+    if not ok:
+        fail(f"serve {name}: launches {got} (others {others}, plain "
+             f"{plain}) where the path makes {expected}")
+    out = {"argv": argv, "prefill_s": run.prefill_s,
+           "decode_s": run.decode_s,
+           "decode_ms_per_step": run.decode_s / max(steps, 1) * 1e3,
+           "host_s": host_s, "peak_bytes": peak, "launches": got,
+           "params": sum(x.numel() for x in tree_leaves(run.params))}
+    if on_card and name != "xlstm-125m":
+        out["profile"] = prof = _profile_decode_step(run, dev)
+        tlog(f"serve {name}: one decode step {prof['step_s'] * 1e3:.3f} ms "
+             f"on the host clock, {prof['kernels']} CUDA kernels busy "
+             f"{prof['busy_s'] * 1e3:.3f} ms ({prof['busy_share']:.1%}); "
+             f"the expand_kv copies of its {prof['expand_layers']} "
+             f"attention layers {prof['expand_ms']:.3f} ms alone, "
+             f"{prof['expand_share']:.1%} of the busy time; by device time: "
+             + "; ".join(f"{t['name']} x{t['count']} {t['ms']:.3f} ms"
+                         for t in prof["top"]))
+    del run
+    return out
+
+
+def _row_errs(a, b) -> list:
+    """Relative Frobenius error of each logits row of ``a`` (B, 1, V)
+    against ``b``, in f64."""
+    import torch
+    a, b = a.double().flatten(0, -2), b.double().flatten(0, -2)
+    return (torch.linalg.vector_norm(a - b, dim=-1)
+            / torch.linalg.vector_norm(b, dim=-1)).tolist()
+
+
+def _serve_vs_cpu(dev, tlog, rehearse: bool) -> dict:
+    """Part (c): one model built on the card, its params copied to the CPU;
+    prefill and teacher-forced decode on both, in f32 and in bf16 compute;
+    each logits row (a sequence at a step) of the card against the CPU's,
+    in relative Frobenius.
+
+    The reference's fan-in rule for q/k/v (the head axis) makes these
+    random models' attention near one-hot (scores of std ~Dh after
+    the scale), so where two keys nearly tie a rounding difference moves
+    a row far: in bf16 whole, in f32 by orders more than the typical
+    row.  So each dtype holds the median row tightly and every row
+    loosely: f32 the median within ``f32_median_tol`` and every row
+    within ``f32_row_tol``; bf16 the median within the reference's bf16
+    tolerance (5e-2 for sliding archs, else 3e-2).  A wrong head fold,
+    mask or ring slot moves most rows by O(1).  Every row is printed."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch.ckpt.tree import tree_map
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build
+    c = SERVE_VS_CPU
+    S, steps = (64, 2) if rehearse else (c["S"], c["steps"])
+    window = 16 if rehearse else c["window"]
+    out = {}
+    for name, cut in c["cuts"].items():
+        cfg = get_config(name)
+        if rehearse:
+            cfg = reduced(cfg, d_model=128, n_heads=1)
+        cfg = dataclasses.replace(cfg, window=window, **cut)
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        params = build(cfg).init(
+            torch.Generator(device=dev).manual_seed(c["seed"]), device=dev)
+        host = tree_map(lambda t: t.cpu(), params)
+        toks = torch.randint(0, cfg.vocab_size, (c["B"], S + steps),
+                             generator=torch.Generator().manual_seed(
+                                 c["seed"]))
+
+        def run(device, p, cfg_):
+            mm = build(cfg_)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                lg, cache = mm.prefill(p, {"tokens": toks[:, :S].to(device)},
+                                       max_cache_seq=S + steps)
+                outs = [lg]
+                for i in range(steps):
+                    lg, cache = mm.decode_step(
+                        p, cache, toks[:, S + i:S + i + 1].to(device))
+                    outs.append(lg)
+            lg = torch.cat([o.float().cpu() for o in outs], dim=1)
+            return lg, time.perf_counter() - t0
+
+        card32, card32_s = run(dev, params, cfg32)
+        card, card_s = run(dev, params, cfg)
+        del params
+        cpu32, cpu32_s = run(torch.device("cpu"), host, cfg32)
+        cpu, cpu_s = run(torch.device("cpu"), host, cfg)
+        tol = 5e-2 if cfg.attention == "sliding" else 3e-2
+        f32_rows, bf16_rows = _row_errs(card32, cpu32), _row_errs(card, cpu)
+        own = _row_errs(cpu, cpu32)         # the CPU's bf16 against its f32
+        f32_median = statistics.median(f32_rows)
+        bf16_median = statistics.median(bf16_rows)
+        finite = bool(torch.isfinite(card).all() and
+                      torch.isfinite(card32).all())
+        r = {"rows": len(f32_rows), "f32_median": f32_median,
+             "f32_max": max(f32_rows), "bf16_median": bf16_median,
+             "bf16_max": max(bf16_rows),
+             "bf16_over": sum(e > tol for e in bf16_rows), "tol": tol,
+             "cpu_bf16_vs_f32_median": statistics.median(own),
+             "f32_rows": f32_rows, "bf16_rows": bf16_rows,
+             "card_s": card_s, "card32_s": card32_s, "cpu_s": cpu_s,
+             "cpu32_s": cpu32_s, "finite": finite}
+        rows = lambda es: " ".join(f"{e:.1e}" for e in es)
+        tlog(f"serve card vs cpu {name} ({cfg.n_layers} layers, d "
+             f"{cfg.d_model}, vocab {cfg.vocab_size}, window {window}, B "
+             f"{c['B']}, S {S}, {steps} steps; {r['rows']} logits rows, "
+             f"relative Frobenius): f32 median {f32_median:.3e} (tol "
+             f"{c['f32_median_tol']}), max {r['f32_max']:.3e} (tol "
+             f"{c['f32_row_tol']}); bf16 median {bf16_median:.3e} (tol "
+             f"{tol}), max {r['bf16_max']:.3e}, {r['bf16_over']} rows over "
+             f"tol; the CPU's bf16 against its f32, median "
+             f"{r['cpu_bf16_vs_f32_median']:.3e}; card f32 {card32_s:.2f} "
+             f"s, bf16 {card_s:.2f} s, CPU f32 {cpu32_s:.2f} s, bf16 "
+             f"{cpu_s:.2f} s; f32 rows (sequence-major) {rows(f32_rows)}; "
+             f"bf16 rows {rows(bf16_rows)}")
+        if not (finite and f32_median <= c["f32_median_tol"]
+                and r["f32_max"] <= c["f32_row_tol"]
+                and bf16_median <= tol):
+            fail(f"serve card vs cpu {name}: {r}")
+        out[name] = r
+        del host
+    return out
+
+
+def phase_serve(dev, card: str, rehearse: bool = False) -> dict:
+    """Phase 14: the serving path (see the module docstring), every line
+    with the card's name and power limit, each part's counts set to 0 just
+    before it and read just after.  ``rehearse`` runs it on the CPU at
+    reduced widths, where no kernel launches."""
+    import torch
+    tlog = lambda msg: log(f"{msg} [{card}]")
+    report = {}
+    t_phase = time.perf_counter()
+    for name in ("starcoder2-3b", "starcoder2-3b-int8", "recurrentgemma-9b"):
+        t0 = time.perf_counter()
+        report[name] = _serve_part(name, dev, tlog, rehearse)
+        report[name]["part_s"] = time.perf_counter() - t0
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["vs_cpu"] = _serve_vs_cpu(dev, tlog, rehearse)
+    report["vs_cpu"]["part_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["xlstm-125m"] = _serve_part("xlstm-125m", dev, tlog, rehearse)
+    report["xlstm-125m"]["part_s"] = time.perf_counter() - t0
+    report["phase_s"] = time.perf_counter() - t_phase
+    report["launches"] = {k: sum(report[r]["launches"].get(k, 0) for r in (
+        "starcoder2-3b", "starcoder2-3b-int8", "recurrentgemma-9b",
+        "xlstm-125m")) for k in ("flash_attention", "decode_attention",
+                                 "rglru_scan", "mlstm_scan")}
+    tlog(f"serve phase {report['phase_s']:.1f} s ("
+         + ", ".join(f"{k} {report[k]['part_s']:.1f}" for k in (
+             "starcoder2-3b", "starcoder2-3b-int8", "recurrentgemma-9b",
+             "vs_cpu", "xlstm-125m")) + f"); launches {report['launches']}")
+    return report
+
+
 def _kernel_modules():
     from repro_torch.kernels import (decode_attention, event_sweep,
                                      flash_attention, mlstm_scan,
@@ -4754,6 +5154,11 @@ def main() -> None:
     ft_q = {k: report["ft"]["run"]["launches"][k]
             for k in ("quantize_leaves", "dequantize_leaves")}
 
+    # serving (phase 14), each part's counts read around it
+    report["serve"] = phase_serve(dev, card)
+    torch.cuda.empty_cache()
+    serve_n = report["serve"]["launches"]
+
     # the checkpoint runtime path, its counts read around it
     root = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(root, ignore_errors=True)
@@ -4899,12 +5304,14 @@ def main() -> None:
             "sources": [f"src/repro_torch/csrc/{f}"
                         for f in KERNEL_FILES.get(name, (f"{name}.cu",))],
             "replaces": f"src/repro/kernels/{name}.py:{line}",
-            "launches": zoo_counts[name] + (train_ml + ft_ml
-                                            if name == "mlstm_scan" else 0),
+            "launches": zoo_counts[name] + serve_n[name] + (
+                train_ml + ft_ml if name == "mlstm_scan" else 0),
             "launches_by_path": ({"zoo": zoo_counts[name],
-                                  "train": train_ml, "ft": ft_ml}
+                                  "train": train_ml, "ft": ft_ml,
+                                  "serve": serve_n[name]}
                                  if name == "mlstm_scan" else
-                                 {"zoo": zoo_counts[name]}),
+                                 {"zoo": zoo_counts[name],
+                                  "serve": serve_n[name]}),
             **({"on_train_step": {
                 k: report["train"]["profile"].get(k) for k in (
                     "mlstm_launch_ms", "mlstm_bound_ms", "mlstm_bound_by",

@@ -12,7 +12,7 @@ executed.
 
 The reduced model is xLSTM-125M (2 layers, d 64, one mLSTM head of 128,
 the card's kernel's narrowest) in place of the reference's reduced
-starcoder2-3b, whose attention forward the port does not have yet
+starcoder2-3b, whose attention has no backward on the card yet
 (ROADMAP A9c).  In scaled time the failure schedule is the only
 randomness, so the rows do not depend on the model.
 

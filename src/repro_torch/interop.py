@@ -2,9 +2,10 @@
 
 This system's counterpart of carrying a model's weights across: the
 reference's parameter grids, parameter dataclasses (single-level and
-multilevel), failure schedules, state trees, advisor requests, and a
+multilevel), failure schedules, state trees, advisor requests, a
 model's initialised parameters and AdamW state (the weights themselves,
-here) become the port's tensors and dataclasses.  Everything here works by duck typing on plain mappings,
+here), and a prefill's decode cache become the port's tensors and
+dataclasses.  Everything here works by duck typing on plain mappings,
 arrays and containers, so the port never imports the reference package.
 """
 from __future__ import annotations
@@ -183,3 +184,30 @@ def opt_state_from_numpy(state: Any, device="cuda"):
                                              torch.int32),
                       m=conv(state.m), v=conv(state.v),
                       master=conv(state.master))
+
+
+def cache_from_numpy(tree: Any, cfg, device="cuda") -> Any:
+    """The reference's decode cache (``jax.device_get`` of its prefill's
+    cache: numpy leaves, int8 payloads and bfloat16 scales included, its
+    state namedtuples) as the port's, ready for ``decode_step``: the
+    K/V and state leaves on ``device``, ``pos`` and ``slot_pos`` (the
+    leaves without a batch axis) on the host, as the port keeps them.
+    The tree is held against the port's ``cache_spec(cfg, ...)``: the same
+    structure and dtypes, or this raises."""
+    from .models.spec import torch_dtype
+    from .models.transformer import cache_spec
+    dev = resolve_device(device)
+    leaves, treedef = tree_flatten(tree)
+    specs, spec_def = tree_flatten(cache_spec(cfg, 1, 1))
+    if str(treedef) != str(spec_def):
+        raise ValueError(f"the tree is not {cfg.name}'s decode cache: "
+                         f"{treedef} against {spec_def}")
+    out = []
+    for x, s in zip(leaves, specs):
+        t = tensor_from_array(x, dev if "batch" in s.logical else "cpu")
+        if t.dtype != torch_dtype(s.dtype) or t.ndim != len(s.shape):
+            raise ValueError(f"a leaf of {tuple(t.shape)} {t.dtype} where "
+                             f"{cfg.name}'s cache has {s.dtype} of rank "
+                             f"{len(s.shape)}")
+        out.append(t)
+    return tree_unflatten(spec_def, out)

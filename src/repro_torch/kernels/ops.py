@@ -4,7 +4,9 @@ Counterpart of the reference's ``repro/kernels/ops.py``.  Each runs on the
 device of its input: the kernel on CUDA, its plain version on the CPU.
 
 * :func:`flash_attention` takes the model layout ``(B, S, H, Dh)`` to the
-  kernel's flat-head ``(B*H, S, Dh)`` and back; :func:`mlstm_scan` folds
+  kernel's flat-head ``(B*H, S, Dh)`` and back, and
+  :func:`decode_attention` a query ``(B, 1, H, Dh)`` against a cache
+  ``(B, Sc, H, Dh)``; :func:`mlstm_scan` folds
   ``(B, H, S, Dh)`` and ``(B, H, S)`` gates to ``B*H`` rows;
   :func:`rglru_scan` is the kernel's own wrapper, whose layout
   ``(B, S, W)`` is the model's.  :func:`mlstm_scan_trainable` is the
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from . import decode_attention as _da
 from . import flash_attention as _fa
 from . import mlstm_scan as _ml
 from .quant_blockwise import (dequantize, dequantize_leaves, quantize,
@@ -41,6 +44,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = _fa.flash_attention(fold(q), fold(k), fold(v), mode=mode,
                               window=window, chunk=chunk)
     return out.reshape(B, H, S, Dh).transpose(1, 2)
+
+
+def decode_attention(q1: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     length: int) -> torch.Tensor:
+    """One query token against a KV cache in the model layout: q1
+    (B, 1, H, Dh), k/v (B, Sc, H, Dh) (already expanded to the q heads);
+    ``length`` (a host int) leading cache slots are attended.  Returns
+    (B, 1, H, Dh).  A cache laid out head-major in memory (what
+    ``models/attention.py::expand_kv`` makes) folds without a copy."""
+    B, _, H, Dh = q1.shape
+    fold = lambda t: t.transpose(1, 2).reshape(B * H, t.shape[1], Dh)
+    out = _da.decode_attention(fold(q1), fold(k), fold(v), length)
+    return out.reshape(B, H, 1, Dh).transpose(1, 2)
 
 
 def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

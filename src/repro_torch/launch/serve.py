@@ -1,5 +1,23 @@
 """Serving entry points.
 
+Model path (default): prefill a batch of prompts, then greedy-decode, on
+the card (``--device cuda``, the default; it raises without a GPU) or on
+the host (``--device cpu``).  Prompts and the random init come from
+``torch.Generator``s seeded by ``--seed``.
+
+    python -m repro_torch.launch.serve --arch starcoder2-3b \\
+        --reduce --batch 4 --prompt-len 64 --new-tokens 16 --kv-cache int8
+    python -m repro_torch.launch.serve --arch starcoder2-3b --no-reduce \\
+        --batch 8 --prompt-len 8192 --new-tokens 32 --waves 2
+
+``--reduce`` (the default) gives the reference's ``reduced(cfg)`` on the
+CPU; on CUDA it gives ``reduced(cfg, d_model=128, n_heads=1)``, heads of
+128, since the attention kernels take head widths of 128 and 256 only
+(the reference's reduced heads are 16 wide).  The attention archs
+(starcoder2-3b, codeqwen1.5-7b, deepseek-coder-33b, granite-20b), the
+hybrid recurrentgemma-9b and xlstm-125m are served; the MoE archs (dbrx,
+llama4), whisper and internvl exit naming ROADMAP A9c's next slice.
+
 Advisor path: drive the checkpoint-advisor service (``repro_torch.serve``)
 with a synthetic open-loop workload and print throughput/latency/cache
 statistics.  ``--smoke`` runs the short self-checking workload.
@@ -7,14 +25,12 @@ statistics.  ``--smoke`` runs the short self-checking workload.
     python -m repro_torch.launch.serve advisor --requests 512 \\
         --rate 2000 --repeat-frac 0.5 --batch-window-ms 2
     python -m repro_torch.launch.serve advisor --smoke [--device cpu]
-
-The model path of the reference's launcher (prefill, then greedy decode)
-needs the port's model zoo, which does not exist yet: without
-``advisor`` this launcher exits with an error naming what is missing.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import time
 
 import numpy as np
 
@@ -23,6 +39,137 @@ def generator(seed: int) -> np.random.Generator:
     """The numpy generator a ``--seed`` flag stands for; the library takes
     generators from its callers, and this CLI is one."""
     return np.random.default_rng(seed)  # reprolint: disable=RPL001 (the CLI entry point turns its --seed flag into the generator the library takes; the reference seeds at its approved loadgen site, the port's library never does)
+
+
+#: ``--reduce`` on CUDA: one head of 128 (the kernels' narrowest width).
+CUDA_REDUCE = dict(d_model=128, n_heads=1)
+#: the archs the model path serves.
+SERVED = ("starcoder2-3b", "codeqwen1.5-7b", "deepseek-coder-33b",
+          "granite-20b", "recurrentgemma-9b", "xlstm-125m")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """Model-serving CLI (kept separate so tests can parse without building
+    a model)."""
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.
+                                 RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", default="starcoder2-3b")
+    ap.add_argument("--reduce", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="reduced same-family config: the reference's "
+                         "reduced(cfg) on the CPU, reduced(cfg, d_model=128, "
+                         "n_heads=1) on CUDA (heads of 128, which the "
+                         "kernels take)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--kv-cache", default="bfloat16",
+                    choices=["bfloat16", "int8"])
+    ap.add_argument("--waves", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="where the model runs (cuda or cpu)")
+    return ap
+
+
+def serving_config(args, device: "torch.device"):
+    """The architecture ``args`` name, cut by ``--reduce`` for ``device``
+    and set to ``--kv-cache`` and ``--waves``; an arch whose layers the
+    port does not serve yet exits naming its slice."""
+    from ..configs import get_config, reduced
+    cfg = get_config(args.arch)
+    if cfg.n_experts or cfg.is_encoder_decoder or cfg.n_prefix_tokens:
+        raise SystemExit(
+            f"repro_torch.launch.serve: {cfg.name} needs the MoE, "
+            f"encoder-decoder or prefix inputs, which are not ported yet "
+            f"(ROADMAP A9c, the next slice); the port serves "
+            f"{', '.join(SERVED)}")
+    if args.reduce:
+        cfg = (reduced(cfg) if device.type == "cpu"
+               else reduced(cfg, **CUDA_REDUCE))
+    return dataclasses.replace(cfg, kv_cache_dtype=args.kv_cache,
+                               prefill_waves=args.waves)
+
+
+@dataclasses.dataclass
+class ServeRun:
+    """What one model-path run made: the generated ids (B, new_tokens), the
+    last logits (B, 1, V), the cache after the last step, the model, its
+    params and config, and the host seconds of the prefill and of the
+    decode loop."""
+    tokens: "torch.Tensor"
+    logits: "torch.Tensor"
+    cache: dict
+    model: object
+    params: object
+    cfg: object
+    prefill_s: float
+    decode_s: float
+
+
+def model_main(args, *, sync_debug=None) -> ServeRun:
+    """Prefill ``--batch`` random prompts of ``--prompt-len`` tokens, then
+    greedy-decode ``--new-tokens``; prints the reference's lines.  Times
+    are taken after ``torch.cuda.synchronize`` on the card.  On CUDA,
+    ``sync_debug`` (``"warn"`` or ``"error"``) is the
+    ``torch.cuda.set_sync_debug_mode`` the decode loop runs under: a step
+    that reads the device then warns or raises."""
+    import torch
+
+    from .._device import resolve_device
+    from ..models import build
+
+    dev = resolve_device(args.device)
+    cfg = serving_config(args, dev)
+    model = build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed),
+                        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                            generator=gen, device=dev)
+    total = args.prompt_len + args.new_tokens
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    with torch.no_grad():
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": prompts},
+                                      max_cache_seq=total)
+        sync()
+        t_prefill = time.perf_counter() - t0
+
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        out_tokens = [tok]
+        t0 = time.perf_counter()
+        if cuda and sync_debug:
+            torch.cuda.set_sync_debug_mode(sync_debug)
+        try:
+            for _ in range(args.new_tokens - 1):
+                logits, cache = model.decode_step(params, cache, tok)
+                tok = torch.argmax(logits[:, -1:], dim=-1)
+                out_tokens.append(tok)
+        finally:
+            if cuda and sync_debug:
+                torch.cuda.set_sync_debug_mode(0)
+        sync()
+        t_decode = time.perf_counter() - t0
+
+    gen_ids = torch.cat(out_tokens, dim=1)
+    print(f"arch={cfg.name} kv_cache={args.kv_cache} waves={args.waves}")
+    print(f"prefill: {args.batch}x{args.prompt_len} tokens in "
+          f"{t_prefill*1e3:.1f} ms")
+    print(f"decode : {args.new_tokens} steps x {args.batch} seqs in "
+          f"{t_decode*1e3:.1f} ms "
+          f"({t_decode/max(args.new_tokens-1,1)*1e3:.1f} ms/step)")
+    print("generated token ids (first sequence):",
+          [int(t) for t in gen_ids[0][:16]])
+    return ServeRun(gen_ids, logits, cache, model, params, cfg, t_prefill,
+                    t_decode)
 
 
 def build_advisor_parser() -> argparse.ArgumentParser:
@@ -116,10 +263,7 @@ def main(argv=None):
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     if argv and argv[0] == "advisor":
         return advisor_main(argv[1:])
-    raise SystemExit(
-        "repro_torch.launch.serve: the model-serving path (prefill and "
-        "decode of a model) needs repro_torch.models, which is not ported "
-        "yet; only the 'advisor' subcommand runs")
+    return model_main(build_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

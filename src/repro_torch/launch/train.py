@@ -18,8 +18,11 @@ prints the measured report next to the model's predictions
         --q 1 --compress --profile paper_ml --sim-step-seconds 0
     python -m repro_torch.launch.train --smoke [--device cpu]
 
-Only the recurrent archs train in the port so far: an attention, MoE or
-RG-LRU arch raises ``NotImplementedError`` (ROADMAP A9c) at its first step.
+On the card only the xLSTM trains in the port so far: the attention and
+RG-LRU kernels have no backward, so an attention or RG-LRU arch raises
+``NotImplementedError`` (ROADMAP A9c) at its first step there (on the CPU
+autograd runs through their plain versions), and an MoE arch raises on
+either device.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from ..core.optimal import STRATEGIES
 #: the ``--smoke`` run: the reference's spec (120 steps of ``algo_t_ml``
 #: at mu 15 s, C 1.5/0.3, R 1.5/0.3, D 0.2/0.1, q 0.15, ``paper_ml``,
 #: seed 3) on reduced xLSTM-125M in place of the reference's reduced
-#: starcoder2-3b, whose attention forward the port does not have yet
+#: starcoder2-3b, whose attention has no backward on the card yet
 #: (ROADMAP A9c).  In scaled time every duration is virtual, so the
 #: failure schedule is the only randomness and the report (wall, energy,
 #: failures, checkpoints, the operating point) does not depend on the

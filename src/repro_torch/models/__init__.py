@@ -4,12 +4,14 @@ Counterpart of the reference's ``repro/models/__init__.py``: ``Model``
 bundles an :class:`~repro_torch.configs.ArchConfig` with its parameter
 tree, init, loss, forward and an AdamW train step.  Parameters are plain
 trees of tensors (dicts and tuples, leaves in the reference's order);
-gradients come from ``torch.autograd``.  Prefill and decoding wait for
-ROADMAP A9c, and ``input_specs`` (its shardings) for A11.
+gradients come from ``torch.autograd``.  ``prefill`` (in waves) and
+``decode_step`` serve the attention and recurrent archs; ``input_specs``
+(its shardings) waits for ROADMAP A11.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -45,6 +47,43 @@ class Model:
 
     def forward(self, params, tokens, **kw):
         return tfm.forward(self.cfg, params, tokens, **kw)
+
+    def prefill(self, params, batch, max_cache_seq: Optional[int] = None):
+        """Serving prefill: (logits (B, 1, V), cache).  With
+        ``cfg.prefill_waves > 1`` (dividing the batch) the request batch is
+        processed in sequential waves, which bounds live activation memory;
+        each cache leaf is then merged along the axis its ``cache_spec``
+        names ``batch``, and a leaf without one (``pos``, ``slot_pos``)
+        takes the first wave's."""
+        waves = max(1, getattr(self.cfg, "prefill_waves", 1))
+        B = batch["tokens"].shape[0]
+        if B % waves:
+            waves = 1
+        bw = B // waves
+        outs = []
+        for w in range(waves):
+            wb = {k: (None if x is None else x[w * bw:(w + 1) * bw])
+                  for k, x in batch.items()}
+            outs.append(tfm.forward(self.cfg, params, wb["tokens"],
+                                    prefix=wb.get("prefix"),
+                                    frames=wb.get("frames"),
+                                    collect_cache=True,
+                                    max_cache_seq=max_cache_seq))
+        spec = tfm.cache_spec(self.cfg, bw, max_cache_seq
+                              or batch["tokens"].shape[1])
+        specs, _ = tree_flatten(spec)
+        flat = [tree_flatten(cache) for _, cache in outs]
+        merged = []
+        for s, parts in zip(specs, zip(*(leaves for leaves, _ in flat))):
+            if len(parts) == 1 or "batch" not in s.logical:
+                merged.append(parts[0])
+            else:
+                merged.append(torch.cat(parts, dim=s.logical.index("batch")))
+        logits = torch.cat([lg for lg, _ in outs], dim=0)
+        return logits, tree_unflatten(flat[0][1], merged)
+
+    def decode_step(self, params, cache, token):
+        return tfm.decode_step(self.cfg, params, cache, token)
 
     def cache_spec(self, batch: int, max_seq: int):
         return tfm.cache_spec(self.cfg, batch, max_seq)

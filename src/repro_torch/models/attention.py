@@ -1,15 +1,42 @@
-"""Attention's parameter tree (counterpart of the reference's
-``repro/models/attention.py``, its specs only).
+"""Attention: GQA projections, memory-bounded softmax attention, decode.
 
-q/k/v use a flat head axis padded to ``cfg.head_pad_multiple``; the padded
-heads carry zero projections in the reference and are output-masked.  The
-forwards (online and banded attention, decode, the KV cache) wait for the
-port of the attention archs (ROADMAP A9c).
+Counterpart of the reference's ``repro/models/attention.py``.  q/k/v use a
+flat head axis padded to ``cfg.head_pad_multiple``; the padded heads carry
+zero projections in the reference and are output-masked.  KV is stored
+un-expanded ``(B, S, Hkv, Dh)`` and expanded to the q heads where a kernel
+reads it.
+
+* :func:`attention` keeps the reference's dispatch (banded for a
+  sliding-window or chunked mask narrower than the sequence, online
+  softmax otherwise).  Both bodies are one call of
+  ``kernels/ops.py::flash_attention`` in the mask's mode: the flash kernel
+  on CUDA, its plain version on the CPU.  The kernel has no backward, so
+  on CUDA an input that requires a gradient raises (ROADMAP A9c's
+  training slice); on the CPU autograd runs through the plain version.
+  The masks are the kernel's (the reference's ``_block_mask`` is
+  ``kernels/flash_attention.py::allowed``).
+* :func:`decode_attention` maps the reference's ``slot_pos`` mask to the
+  number of leading cache slots it allows (:func:`decode_length`, worked
+  out on the host) and launches ``kernels/ops.py::decode_attention`` on
+  the KV cache expanded to the q heads.
 """
 from __future__ import annotations
 
+import torch
+
+from ..kernels import ops as kops
+from .layers import rope
 from .spec import ParamSpec
 
+#: the training slice that brings a flash backward.
+_NO_BACKWARD = ("attention has no backward on CUDA yet (ROADMAP A9c: "
+                "training through attention); run under torch.no_grad() "
+                "or on the CPU")
+
+
+# ---------------------------------------------------------------------------
+# Parameter spec
+# ---------------------------------------------------------------------------
 
 def padded_heads(cfg) -> int:
     m = getattr(cfg, "head_pad_multiple", 1) or 1
@@ -26,3 +53,169 @@ def attn_spec(cfg, cross: bool = False) -> dict:
         "wv": ParamSpec((d, hkv, dh), ("embed", "kv_heads", "head_dim"), dt),
         "wo": ParamSpec((hq, dh, d), ("heads", "head_dim", "embed"), dt),
     }
+
+
+def _head_mask(cfg, device=None) -> torch.Tensor:
+    return torch.arange(padded_heads(cfg), device=device) < cfg.n_heads
+
+
+def expand_kv(cfg, kv: torch.Tensor) -> torch.Tensor:
+    """(B, S, Hkv, Dh) -> (B, S, Hq_pad, Dh): the reference's per-head
+    gather, KV head j serving q heads j*G .. j*G + G - 1 (G = n_heads //
+    Hkv) and any head past Hkv * G (padded, or a group size that does not
+    divide) the last KV head.  The result is one broadcast
+    copy laid out head-major, ``(B, Hq_pad, S, Dh)`` in memory, so that
+    the kernels' fold of heads (``t.transpose(1, 2).reshape(B * H, S,
+    Dh)``) is a view of it (``index_select`` on the transposed cache runs
+    as a gather at a quarter of the rate on the H100, PERF.md §6).  Heads
+    past Hkv * G add a second copy; no config of the port has them."""
+    B, S, Hkv, Dh = kv.shape
+    G = cfg.n_heads // Hkv
+    pad = padded_heads(cfg) - Hkv * G
+    heads = kv.transpose(1, 2)[:, :, None].expand(B, Hkv, G, S, Dh)
+    heads = heads.contiguous().view(B, Hkv * G, S, Dh)
+    if pad:
+        heads = torch.cat([heads, heads[:, -1:].expand(B, pad, S, Dh)], 1)
+    return heads.transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# Core attention (flat layout: q/k/v all (B, S, H, Dh))
+# ---------------------------------------------------------------------------
+
+def _flash(q, k, v, **kw) -> torch.Tensor:
+    if q.device.type == "cuda" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(_NO_BACKWARD)
+    return kops.flash_attention(q, k, v, **kw)
+
+
+def attention_online(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     mode: str = "causal", window: int = 0,
+                     chunk: int = 0) -> torch.Tensor:
+    """Online-softmax attention (causal or bidirectional) over the whole
+    sequence.  q: (B, Sq, H, Dh); k/v: (B, Skv, H, Dh)."""
+    return _flash(q, k, v, mode=mode, window=window, chunk=chunk)
+
+
+def attention_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     mode: str, window: int = 0,
+                     chunk: int = 0) -> torch.Tensor:
+    """Sliding-window or chunked-local self-attention (Skv == Sq); the
+    kernel skips the key tiles outside the band."""
+    if mode not in ("sliding", "chunked"):
+        raise ValueError(mode)
+    return _flash(q, k, v, mode=mode, window=window, chunk=chunk)
+
+
+def attention(q, k, v, *, mode: str, window: int = 0,
+              chunk: int = 0) -> torch.Tensor:
+    """Dispatch: banded for sliding/chunked (when the band is a real
+    subset), online-softmax otherwise."""
+    Skv = k.shape[1]
+    if mode == "sliding" and window < Skv:
+        return attention_banded(q, k, v, mode="sliding", window=window)
+    if mode == "chunked" and chunk < Skv:
+        return attention_banded(q, k, v, mode="chunked", chunk=chunk)
+    eff = "bidir" if mode == "bidir" else "causal"
+    return attention_online(q, k, v, mode=eff)
+
+
+# ---------------------------------------------------------------------------
+# Decode (single new token against a cache)
+# ---------------------------------------------------------------------------
+
+def decode_length(mode: str, pos: int, Sc: int, window: int = 0,
+                  chunk: int = 0) -> int:
+    """The reference's decode mask as a prefix length of the ring cache.
+
+    After position ``pos`` is written, the ring of ``Sc`` slots holds the
+    last ``min(pos + 1, Sc)`` positions, position p at slot p % Sc, so
+    those lie in the leading slots.  The reference allows slots with
+    ``0 <= slot_pos <= pos`` (and ``slot_pos > pos - window`` for sliding,
+    ``slot_pos // chunk == pos // chunk`` for chunked): every held
+    position for causal, and for sliding as long as ``Sc <= window`` (the
+    cache's own length, ``min(window, max_seq)``); for chunked the
+    current chunk's positions, which start at slot 0 when ``chunk``
+    divides by ``Sc``.  A mask that is not a prefix raises."""
+    n = min(pos + 1, Sc)
+    if mode == "sliding" and window < n:
+        raise ValueError(f"a sliding window of {window} over a ring of "
+                         f"{Sc} slots is not a prefix of the cache")
+    if mode == "chunked":
+        start = pos - pos % chunk             # the chunk's first position
+        if start > pos - n + 1:
+            if start % Sc:
+                raise ValueError(f"chunk {chunk} over a ring of {Sc} slots "
+                                 f"at position {pos} is not a prefix of "
+                                 f"the cache")
+            n = pos - start + 1
+    return n
+
+
+def decode_attention(cfg, q1: torch.Tensor, ck: torch.Tensor,
+                     cv: torch.Tensor, pos, *, mode: str, window: int = 0,
+                     chunk: int = 0) -> torch.Tensor:
+    """q1: (B, 1, Hq_pad, Dh); cache ck/cv: (B, Sc, Hkv, Dh), the ring of
+    ``_to_cache``; pos: the current position, a host int (or 0-d CPU
+    tensor).  Returns (B, 1, Hq_pad, Dh).  The reference masks by the
+    cache's ``slot_pos``; the ring layout makes that mask a prefix of the
+    cache (:func:`decode_length`), so no slot positions are read here.
+
+    The cache is expanded to the q heads (one copy, ``expand_kv``) and
+    read by the decode kernel, one query row per (batch, head)."""
+    length = decode_length(mode, int(pos), ck.shape[1], window, chunk)
+    return kops.decode_attention(q1, expand_kv(cfg, ck), expand_kv(cfg, cv),
+                                 length)
+
+
+# ---------------------------------------------------------------------------
+# Full multi-head layer (projections + rope + core + output)
+# ---------------------------------------------------------------------------
+
+def project_qkv(cfg, p: dict, x: torch.Tensor, positions, *,
+                use_rope: bool, compute_dtype):
+    """x: (B,S,d) -> q (B,S,Hq_pad,Dh), k/v (B,S,Hkv,Dh)."""
+    cd = compute_dtype
+
+    def proj(w):                 # einsum("bsd,dhk->bshk")
+        d, h, dh = w.shape
+        return (x @ w.to(cd).reshape(d, h * dh)).unflatten(-1, (h, dh))
+
+    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def output_proj(cfg, p: dict, out: torch.Tensor,
+                compute_dtype) -> torch.Tensor:
+    if padded_heads(cfg) != cfg.n_heads:   # a mask of ones is a no-op
+        mask = _head_mask(cfg, out.device)
+        out = out * mask[None, None, :, None].to(out.dtype)
+    h, dh, d = p["wo"].shape
+    return out.flatten(-2) @ p["wo"].to(compute_dtype).reshape(h * dh, d)
+
+
+def self_attention(cfg, p: dict, x: torch.Tensor, positions, *,
+                   mode: str, use_rope: bool, compute_dtype,
+                   window: int = 0, chunk: int = 0):
+    """Training/prefill self-attention.  Returns (y, (k, v)), the raw KV
+    for the cache."""
+    q, k, v = project_qkv(cfg, p, x, positions, use_rope=use_rope,
+                          compute_dtype=compute_dtype)
+    ke, ve = expand_kv(cfg, k), expand_kv(cfg, v)
+    out = attention(q, ke, ve, mode=mode, window=window, chunk=chunk)
+    return output_proj(cfg, p, out, compute_dtype), (k, v)
+
+
+def cross_kv(cfg, p: dict, enc_out: torch.Tensor, compute_dtype):
+    raise NotImplementedError("cross-attention (whisper) is not ported yet "
+                              "(ROADMAP A9c, the next slice)")
+
+
+def cross_attention(cfg, p: dict, x: torch.Tensor, enc_out: torch.Tensor,
+                    compute_dtype):
+    raise NotImplementedError("cross-attention (whisper) is not ported yet "
+                              "(ROADMAP A9c, the next slice)")

@@ -1,5 +1,5 @@
-"""Recurrent sequence-mixing blocks: mLSTM and sLSTM (xLSTM), and the
-RG-LRU's parameter tree.
+"""Recurrent sequence-mixing blocks: RG-LRU (RecurrentGemma), mLSTM and
+sLSTM (xLSTM).
 
 Counterpart of the reference's ``repro/models/recurrent.py``.  All
 recurrences run in float32.
@@ -12,8 +12,10 @@ recurrences run in float32.
   reference's ``lax.scan`` over ``jax.checkpoint(_mlstm_chunk)``).
 * The sLSTM is a sequential scan, a Python loop over time steps: neither
   package has a kernel for it.
-* The RG-LRU block's forward waits for the RecurrentGemma port (ROADMAP
-  A9c); its spec is here so that every arch's parameter tree is.
+* The RG-LRU computes its gates as the reference does and runs its
+  linear scan through ``kernels/ops.py::rglru_scan`` from the state's h
+  (the reference folds h0 into the first step of a log-depth
+  ``associative_scan``: the same function, other rounding).
 """
 from __future__ import annotations
 
@@ -27,10 +29,11 @@ from .layers import act_fn
 from .spec import ParamSpec
 
 F32 = torch.float32
+LRU_C = 8.0          # RG-LRU decay exponent constant (RecurrentGemma)
 
 
 # ===========================================================================
-# RG-LRU (parameter tree only)
+# RG-LRU
 # ===========================================================================
 
 def _lru_blocks(cfg):
@@ -67,11 +70,90 @@ class RGLRUState(NamedTuple):
     conv: torch.Tensor    # (B, conv_width - 1, w) conv tail
 
 
+def rglru_zero_state(cfg, batch: int, dtype=F32,
+                     device=None) -> RGLRUState:
+    w = cfg.lru_width or cfg.d_model
+    return RGLRUState(h=torch.zeros((batch, w), dtype=dtype, device=device),
+                      conv=torch.zeros((batch, cfg.conv_width - 1, w),
+                                       dtype=dtype, device=device))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 tail: Optional[torch.Tensor] = None):
+    """Depthwise causal conv along time.  x: (B, S, w); w: (cw, w).
+    Returns (out, the last cw - 1 inputs: the next call's ``tail``).  The
+    taps' products and sums run in f32 and round once to x's dtype, where
+    XLA's fusion of the reference's sum rounds them."""
+    cw = w.shape[0]
+    if tail is None:
+        pad = x.new_zeros((x.shape[0], cw - 1, x.shape[2]))
+    else:
+        pad = tail.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                  # (B, S+cw-1, w)
+    S = x.shape[1]
+    xp32, w32 = xp.to(F32), w.to(F32)
+    out = xp32[:, 0:S] * w32[0][None, None]
+    for i in range(1, cw):
+        out = out + xp32[:, i:i + S] * w32[i][None, None]
+    new_tail = xp[:, -(cw - 1):] if cw > 1 else None
+    return (out + b.to(F32)[None, None]).to(x.dtype), new_tail
+
+
+def _rglru_core(p, xw: torch.Tensor, h0: torch.Tensor):
+    """The RG-LRU recurrence.  xw: (B, S, w) f32; h0: (B, w) f32.  Returns
+    (h (B, S, w) f32, the last h).
+
+    Gates are block-diagonal per head, computed with a batched per-block
+    product, as the reference's; the scan ``h_t = a_t h_{t-1} + b_t`` from
+    ``h0`` runs through ``kernels/ops.py::rglru_scan`` (the kernel on
+    CUDA, which has no backward: an input that requires a gradient
+    raises there)."""
+    B, S, W = xw.shape
+    nb, wb, _ = p["gate_a"].shape
+    x4 = xw.reshape(B, S, nb, wb)
+
+    def gate(w, bias):           # einsum("bshw,hwv->bshv") + bias
+        y = torch.einsum("bshw,hwv->bshv", x4, w.to(F32))
+        return torch.sigmoid(y.reshape(B, S, W) + bias.to(F32))
+
+    r = gate(p["gate_a"], p["gate_a_b"])
+    i = gate(p["gate_x"], p["gate_x_b"])
+    log_a = -LRU_C * F.softplus(p["lamb"].to(F32)) * r
+    a = torch.exp(log_a)
+    gated_x = i * xw
+    beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
+    b = beta * gated_x
+    if xw.device.type == "cuda" and torch.is_grad_enabled() and (
+            a.requires_grad or b.requires_grad):
+        raise NotImplementedError(
+            "the RG-LRU scan has no backward on CUDA yet (ROADMAP A9c: "
+            "training through the RG-LRU); run under torch.no_grad() or on "
+            "the CPU")
+    h = kops.rglru_scan(a, b, h0.to(F32))
+    return h, h[:, -1]
+
+
 def rglru_block(cfg, p: dict, x: torch.Tensor, compute_dtype,
                 state: Optional[RGLRUState] = None):
-    raise NotImplementedError(
-        "the RG-LRU block's forward is not ported yet (ROADMAP A9c); "
-        "repro_torch.kernels.ops.rglru_scan holds its scan")
+    """Full RG-LRU temporal block: in-proj, causal conv, recurrence, gated
+    out.  x: (B, S, d).  Returns (y, new_state)."""
+    B = x.shape[0]
+    cd = compute_dtype
+    y_branch = act_fn("gelu")(x @ p["in_y"].to(cd))
+    xw = x @ p["in_x"].to(cd)
+    tail = state.conv if state is not None else None
+    xw, new_tail = _causal_conv(xw, p["conv_w"].to(cd), p["conv_b"].to(cd),
+                                tail)
+    W = xw.shape[-1]
+    h0 = (state.h if state is not None
+          else torch.zeros((B, W), dtype=F32, device=x.device))
+    h, h_last = _rglru_core(p, xw.to(F32), h0)
+    out = (h.to(cd) * y_branch) @ p["out"].to(cd)
+    new_state = RGLRUState(
+        h=h_last,
+        conv=(new_tail.to(F32) if new_tail is not None
+              else torch.zeros((B, 0, W), dtype=F32, device=x.device)))
+    return out, new_state
 
 
 # ===========================================================================

@@ -3,14 +3,25 @@
 Counterpart of the reference's ``repro/models/transformer.py``.  Layers are
 grouped into repeating **super-blocks** (xLSTM's (mlstm, slstm),
 RecurrentGemma's (rglru, rglru, attn)) whose parameters are stacked along a
-leading ``layers`` axis; a non-dividing tail is unrolled.  The parameter
-and cache trees cover all ten archs.  The full-sequence forward runs the
-recurrent stack (mLSTM, sLSTM, and the RG-LRU layer's norm/MLP wrapper);
-the attention, MoE, encoder and prefix kinds, the prefill cache and
-decoding wait for ROADMAP A9c and raise.  The reference's ``lax.scan``
-over super-blocks is a Python loop here, with ``remat == "full"`` as one
+leading ``layers`` axis; a non-dividing tail is unrolled.  The same stacks
+drive ``forward`` (train), the prefill (``collect_cache=True``: the
+next-token logits and a KV/state cache) and ``decode_step`` (one token
+against the cache).  The reference's ``lax.scan`` over super-blocks is a
+Python loop here, with ``remat == "full"`` as one
 ``torch.utils.checkpoint`` a layer (the reference checkpoints each layer
 of a multi-kind super-block, and the body of a one-kind one).
+
+KV caches are ring buffers of per-kind size (the full context for full
+attention, ``window`` for sliding, ``chunk`` for chunked-local) with
+absolute slot positions.  The cache's ``pos`` (a 0-d int32 tensor) and
+``slot_pos`` (one (Sc,) int32 tensor a cache length) stay on the host, so
+a decode step works out each kind's mask there and never reads the
+device; ``decode_step`` writes the new token's K/V and the recurrent
+states into the cache's tensors in place.
+
+The attention kinds (causal, sliding, chunked, global NoPE) and the
+recurrent kinds run; the MoE, encoder-decoder (whisper) and prefix
+(internvl) inputs raise, naming ROADMAP A9c's next slice.
 """
 from __future__ import annotations
 
@@ -27,8 +38,24 @@ from .layers import (apply_norm, norm_spec, mlp_spec, apply_mlp, embed_spec,
                      embed_lookup, unembed, cross_entropy)
 from .spec import ParamSpec, torch_dtype
 
+F32 = torch.float32
+
 RECURRENT_KINDS = ("mlstm", "slstm", "rglru")
-_LATER = "is not ported yet (ROADMAP A9c)"
+_LATER = "is not ported yet (ROADMAP A9c, the next slice)"
+
+
+def _kv_quant(k: torch.Tensor):
+    """Per-(batch, slot, head) absmax int8 quantization of K/V."""
+    k32 = k.to(F32)
+    scale = k32.abs().amax(dim=-1) / 127.0
+    scale = torch.clamp_min(scale, 1e-12)
+    q = torch.clamp(torch.round(k32 / scale[..., None]), -127, 127).to(
+        torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def _kv_dequant(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return q.to(dtype) * scale[..., None].to(dtype)
 
 
 def ffn_kind(kind: str) -> str:
@@ -222,29 +249,79 @@ def cache_spec(cfg, batch: int, max_seq: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Full-sequence forward (train)
+# Per-kind forward (full-sequence mode: train / prefill)
 # ---------------------------------------------------------------------------
+
+def _attn_mode(kind: str) -> tuple:
+    """kind -> (mode, use_rope_default)"""
+    kind = attn_kind(kind)
+    return {
+        "attn": ("causal", True),
+        "moe": ("causal", True),            # MoE blocks use standard attention
+        "sliding": ("sliding", True),
+        "chunked": ("chunked", True),
+        "global_nope": ("causal", False),   # llama4 NoPE global layers
+        "enc": ("bidir", False),
+        "xattn": ("causal", False),         # whisper: sinusoidal, not rope
+    }[kind]
+
+
+def _check_kind(kind: str) -> None:
+    if ffn_kind(kind) == "moe":
+        raise NotImplementedError(f"the MoE layer {_LATER}")
+    if kind in ("xattn", "enc"):
+        raise NotImplementedError(f"the encoder-decoder ({kind!r}) layer "
+                                  f"{_LATER}")
+
 
 def apply_layer_full(cfg, kind: str, p: dict, x: torch.Tensor,
                      positions: torch.Tensor, *, collect_cache: bool,
                      max_seq: int, enc_kv=None):
     """One block over the full sequence.  Returns (x, cache_entry)."""
     cd = torch_dtype(cfg.compute_dtype)
-    if kind not in RECURRENT_KINDS:
-        raise NotImplementedError(f"the {kind!r} layer {_LATER}")
+    if kind in RECURRENT_KINDS:
+        h = apply_norm(p["ln1"], x, cfg.norm)
+        if kind == "rglru":
+            y, state = rec.rglru_block(cfg, p["rglru"], h, cd)
+            x = x + y
+            h2 = apply_norm(p["ln2"], x, cfg.norm)
+            x = x + apply_mlp(p["mlp"], h2, cfg.mlp, cfg.act, cd)
+        elif kind == "mlstm":
+            y, state = rec.mlstm_block(cfg, p["mlstm"], h, cd)
+            x = x + y
+        else:
+            y, state = rec.slstm_block(cfg, p["slstm"], h, cd)
+            x = x + y
+        return x, (state if collect_cache else None)
+
+    _check_kind(kind)
+    mode, use_rope = _attn_mode(kind)
     h = apply_norm(p["ln1"], x, cfg.norm)
-    if kind == "rglru":
-        y, state = rec.rglru_block(cfg, p["rglru"], h, cd)
-        x = x + y
-        h2 = apply_norm(p["ln2"], x, cfg.norm)
-        x = x + apply_mlp(p["mlp"], h2, cfg.mlp, cfg.act, cd)
-    elif kind == "mlstm":
-        y, state = rec.mlstm_block(cfg, p["mlstm"], h, cd)
-        x = x + y
-    else:
-        y, state = rec.slstm_block(cfg, p["slstm"], h, cd)
-        x = x + y
-    return x, (state if collect_cache else None)
+    y, (k, v) = attn.self_attention(
+        cfg, p["attn"], h, positions, mode=mode, use_rope=use_rope,
+        compute_dtype=cd, window=cfg.window, chunk=cfg.chunk)
+    x = x + y
+    h2 = apply_norm(p["ln2"], x, cfg.norm)
+    x = x + apply_mlp(p["mlp"], h2, cfg.mlp, cfg.act, cd)
+    if not collect_cache:
+        return x, None
+    Sc = _cache_len(cfg, kind, max_seq)
+    kc, vc = _to_cache(k, Sc), _to_cache(v, Sc)
+    if cfg.kv_cache_dtype == "int8":
+        kc, ks = _kv_quant(kc)
+        vc, vs = _kv_quant(vc)
+        return x, {"k": kc, "k_scale": ks, "v": vc, "v_scale": vs}
+    return x, {"k": kc, "v": vc}
+
+
+def _to_cache(k: torch.Tensor, Sc: int) -> torch.Tensor:
+    """Lay out prefilled K/V (B, S, H, Dh) as a ring buffer of length Sc
+    where absolute position p sits at slot p % Sc."""
+    S = k.shape[1]
+    if S >= Sc:
+        return torch.roll(k[:, -Sc:], (S - Sc) % Sc, dims=1)
+    pad = k.new_zeros((k.shape[0], Sc - S) + tuple(k.shape[2:]))
+    return torch.cat([k, pad], dim=1)
 
 
 def _unstack(tree, n: int) -> list:
@@ -274,52 +351,97 @@ def _run_stack(cfg, params, x, positions, *, collect_cache: bool,
         return layer(kind, xh, psl)
 
     slices = [_unstack(stage, n) for stage in params["stages"]]
-    stage_caches = []
+    entries = [[] for _ in pat]
     for i in range(n):
-        entries = []
         for j, kind in enumerate(pat):
             x, entry = run(kind, x, slices[j][i])
-            entries.append(entry)
-        stage_caches.append(tuple(entries))
+            entries[j].append(entry)
     tail_caches = []
     for kind, psl in zip(tail, params["tail"]):
         x, entry = layer(kind, x, psl)
         tail_caches.append(entry)
+    # the reference's scan stacks each kind's entries: leading (n,)
+    stage_caches = (tuple(_stack_trees(e) for e in entries)
+                    if collect_cache else ())
     return x, {"stages": stage_caches, "tail": tuple(tail_caches)}
+
+
+def _stack_trees(trees: list):
+    """One tree whose leaves stack the ``trees``' leaves on a new axis 0."""
+    flat = [tree_flatten(t) for t in trees]
+    td = flat[0][1]
+    return tree_unflatten(td, [torch.stack(xs) for xs in
+                               zip(*(leaves for leaves, _ in flat))])
 
 
 def _embed_inputs(cfg, params, tokens, prefix=None):
     cd = torch_dtype(cfg.compute_dtype)
     x = embed_lookup(params["embed"], tokens, cd)
     if cfg.scale_embed:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cd, device=x.device)
+        # the reference's constant, rounded to cd on the host (a device
+        # constant would be a host-to-device copy, which synchronises)
+        x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=cd))
     if prefix is not None:
         x = torch.cat([prefix.to(cd), x], dim=1)
     return x
 
 
+def _logits(cfg, params, x):
+    """The final norm and the (tied or untied) unembedding."""
+    cd = torch_dtype(cfg.compute_dtype)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    if cfg.tie_embeddings:
+        return unembed(params["embed"], x, cd, transpose=True)
+    return unembed(params["lm_head"], x, cd, transpose=False)
+
+
 def forward(cfg, params, tokens, *, prefix=None, frames=None,
             collect_cache: bool = False, max_cache_seq: Optional[int] = None):
-    """Full-sequence forward.  Returns (logits, None).
+    """Full-sequence forward.  Returns (logits, cache_or_None).
 
-    tokens: (B, S) integer.  The encoder (whisper) and the prefill cache
-    (``collect_cache=True``) wait for ROADMAP A9c."""
+    tokens: (B, S) integer.  With ``collect_cache`` (serving prefill) the
+    logits are the last position's, (B, 1, V), and the cache holds the
+    ring buffers of ``max_cache_seq`` (default S) positions.  The encoder
+    (whisper) and prefix (internvl) inputs wait for ROADMAP A9c's next
+    slice."""
     if cfg.is_encoder_decoder or frames is not None:
         raise NotImplementedError(f"the encoder-decoder forward {_LATER}")
-    if collect_cache:
-        raise NotImplementedError(f"prefill with a cache {_LATER}")
-    cd = torch_dtype(cfg.compute_dtype)
+    if prefix is not None:
+        raise NotImplementedError(f"the prefix (VLM) input {_LATER}")
     x = _embed_inputs(cfg, params, tokens, prefix)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
-    x, _ = _run_stack(cfg, params, x, positions, collect_cache=False,
-                      max_seq=max_cache_seq or S)
-    x = apply_norm(params["final_norm"], x, cfg.norm)
-    if cfg.tie_embeddings:
-        logits = unembed(params["embed"], x, cd, transpose=True)
-    else:
-        logits = unembed(params["lm_head"], x, cd, transpose=False)
-    return logits, None
+    max_seq = max_cache_seq or S
+    x, caches = _run_stack(cfg, params, x, positions,
+                           collect_cache=collect_cache, max_seq=max_seq)
+    if collect_cache:
+        # serving prefill: only the next-token logits are needed
+        x = x[:, -1:]
+    logits = _logits(cfg, params, x)
+    if not collect_cache:
+        return logits, None
+    cache = {"layers": caches, "pos": torch.tensor(S, dtype=torch.int32),
+             "slot_pos": _prefill_slot_pos(cfg, S, max_seq)}
+    return logits, cache
+
+
+def _prefill_slot_pos(cfg, S: int, max_seq: int) -> dict:
+    """Absolute slot positions per distinct cache length (-1 = empty), on
+    the host."""
+    pat, _, tail = super_block(cfg)
+    out = {}
+    for kind in {attn_kind(k) for k in set(pat) | set(tail)}:
+        if kind in RECURRENT_KINDS + ("enc",):
+            continue
+        Sc = _cache_len(cfg, kind, max_seq)
+        if S >= Sc:
+            pos = torch.arange(S - Sc, S, dtype=torch.int32)
+            out[kind] = torch.roll(pos, (S - Sc) % Sc)
+        else:
+            out[kind] = torch.cat([torch.arange(S, dtype=torch.int32),
+                                   torch.full((Sc - S,), -1,
+                                              dtype=torch.int32)])
+    return out
 
 
 def loss_fn(cfg, params, batch) -> torch.Tensor:
@@ -333,3 +455,104 @@ def loss_fn(cfg, params, batch) -> torch.Tensor:
     mask = labels >= 0
     labels = torch.clamp_min(labels, 0)
     return cross_entropy(logits, labels, mask, real_vocab=cfg.vocab_size)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def apply_layer_decode(cfg, kind: str, p: dict, x: torch.Tensor, entry,
+                       pos, enc_out=None):
+    """One block for a single token.  x: (B, 1, d); pos: the host int
+    position.  Returns (x, new_entry): an attention kind's new K/V are
+    written into ``entry``'s tensors at slot ``pos % Sc`` (in place), a
+    recurrent kind's state is new."""
+    cd = torch_dtype(cfg.compute_dtype)
+    if kind in RECURRENT_KINDS:
+        h = apply_norm(p["ln1"], x, cfg.norm)
+        if kind == "rglru":
+            y, state = rec.rglru_block(cfg, p["rglru"], h, cd, state=entry)
+            x = x + y
+            h2 = apply_norm(p["ln2"], x, cfg.norm)
+            x = x + apply_mlp(p["mlp"], h2, cfg.mlp, cfg.act, cd)
+        elif kind == "mlstm":
+            y, state = rec.mlstm_block(cfg, p["mlstm"], h, cd, state=entry)
+            x = x + y
+        else:
+            y, state = rec.slstm_block(cfg, p["slstm"], h, cd, state=entry)
+            x = x + y
+        return x, state
+
+    _check_kind(kind)
+    mode, use_rope = _attn_mode(kind)
+    h = apply_norm(p["ln1"], x, cfg.norm)
+    positions = torch.arange(pos, pos + 1, device=x.device)
+    q, k1, v1 = attn.project_qkv(cfg, p["attn"], h, positions,
+                                 use_rope=use_rope, compute_dtype=cd)
+    Sc = entry["k"].shape[1]
+    slot = pos % Sc
+    ck, cv = entry["k"], entry["v"]
+    if cfg.kv_cache_dtype == "int8":
+        k1q, k1s = _kv_quant(k1)
+        v1q, v1s = _kv_quant(v1)
+        ck[:, slot] = k1q[:, 0]
+        cv[:, slot] = v1q[:, 0]
+        entry["k_scale"][:, slot] = k1s[:, 0]
+        entry["v_scale"][:, slot] = v1s[:, 0]
+        ck_c = _kv_dequant(ck, entry["k_scale"], cd)
+        cv_c = _kv_dequant(cv, entry["v_scale"], cd)
+    else:
+        ck[:, slot] = k1[:, 0]
+        cv[:, slot] = v1[:, 0]
+        ck_c, cv_c = ck, cv
+    out = attn.decode_attention(cfg, q, ck_c, cv_c, pos, mode=mode,
+                                window=cfg.window, chunk=cfg.chunk)
+    x = x + attn.output_proj(cfg, p["attn"], out, cd)
+    h2 = apply_norm(p["ln2"], x, cfg.norm)
+    x = x + apply_mlp(p["mlp"], h2, cfg.mlp, cfg.act, cd)
+    return x, entry
+
+
+def decode_step(cfg, params, cache, token):
+    """token: (B, 1) integer.  Returns (logits (B, 1, V), new_cache).
+
+    The cache's K/V and state tensors are updated in place (the cache
+    passed in is consumed); the new cache shares them, with ``pos`` one
+    further and the current slot marked in ``slot_pos``.  Nothing here
+    reads the device: ``pos`` and ``slot_pos`` live on the host."""
+    pat, n, tail = super_block(cfg)
+    pos = int(cache["pos"])
+    # the reference's slot positions, kept in the cache's tree; the mask
+    # itself is a prefix of the ring (attention.decode_length)
+    slot_pos = {}
+    for k, v in cache["slot_pos"].items():
+        v = v.clone()
+        v[pos % v.shape[0]] = pos
+        slot_pos[k] = v
+    x = _embed_inputs(cfg, params, token)
+
+    pslices = [_unstack(stage, n) for stage in params["stages"]]
+    stages = cache["layers"]["stages"]
+    cslices = [_unstack(stage, n) for stage in stages]
+    for i in range(n):
+        for j, kind in enumerate(pat):
+            ent = cslices[j][i]
+            x, ne = apply_layer_decode(cfg, kind, pslices[j][i], x, ent,
+                                       pos)
+            if kind in RECURRENT_KINDS:     # into the stacked state, in place
+                for old, new in zip(tree_flatten(ent)[0],
+                                    tree_flatten(ne)[0]):
+                    old.copy_(new)
+
+    new_tail = []
+    for kind, psl, ent in zip(tail, params["tail"],
+                              cache["layers"]["tail"]):
+        x, ne = apply_layer_decode(cfg, kind, psl, x, ent, pos)
+        new_tail.append(ne)
+
+    logits = _logits(cfg, params, x)
+    new_cache = dict(cache)
+    new_cache["layers"] = {"stages": stages, "tail": tuple(new_tail)}
+    new_cache["pos"] = torch.tensor(pos + 1, dtype=torch.int32)
+    new_cache["slot_pos"] = slot_pos
+    return logits, new_cache

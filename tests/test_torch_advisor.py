@@ -865,9 +865,11 @@ class TestServeCLI:
         assert "dispatched solves" in capsys.readouterr().out
 
     def test_model_path_names_what_is_missing(self):
+        """The model path serves the attention and recurrent archs; an MoE
+        arch exits naming the slice that brings it."""
         from repro_torch.launch.serve import main
-        with pytest.raises(SystemExit, match="repro_torch.models"):
-            main(["--arch", "xlstm-125m"])
+        with pytest.raises(SystemExit, match="A9c, the next slice"):
+            main(["--arch", "dbrx-132b", "--device", "cpu"])
 
 
 class TestBenchAdvisor:

@@ -125,7 +125,9 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
             "repro_torch.ft.run, repro_torch.ft.trainer, "
             "repro_torch.launch.train, "
             "repro_torch.benchmarks.validate_runtime, "
-            "repro_torch.benchmarks.train_fault_tolerant\n"
+            "repro_torch.benchmarks.train_fault_tolerant, "
+            "repro_torch.models.attention, repro_torch.models.transformer, "
+            "repro_torch.benchmarks.serve_batched\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(','.join(bad))\n")
@@ -171,3 +173,34 @@ def test_chip_smoke_fails_without_a_gpu_or_a_checkout(where, tmp_path):
                          check=False)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def _serving_rig(cd="bfloat16"):
+    """Reduced recurrentgemma-9b at heads of 128 (the kernels' width): an
+    (rglru, rglru, sliding) super-block."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build
+    cfg = dataclasses.replace(
+        reduced(get_config("recurrentgemma-9b"), d_model=128, n_heads=1),
+        n_layers=3, compute_dtype=cd)
+    return cfg, build(cfg)
+
+
+def test_serving_entry_points_need_a_gpu_by_default():
+    """Nothing of the serving path runs on the CPU unless asked to: the
+    model's init, the reference's cache carried across and the launcher
+    default to the card and raise without one."""
+    import torch
+    from repro_torch.ckpt.tree import tree_map
+    from repro_torch.launch import serve
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg, m = _serving_rig("float32")
+    with pytest.raises(RuntimeError, match="cuda"):
+        m.init(torch.Generator())
+    tree = tree_map(lambda s: np.zeros(s.shape, s.dtype), m.cache_spec(1, 8))
+    with pytest.raises(RuntimeError, match="cuda"):
+        interop.cache_from_numpy(tree, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--batch", "1", "--prompt-len", "8"])
+

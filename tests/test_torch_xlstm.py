@@ -262,11 +262,19 @@ def test_mlstm_block_final_state_matches_the_chunk_scan():
         assert _frob(_np(a), _np(b)) <= 1e-6
 
 
-def test_unported_kinds_raise():
-    m = build(reduced(get_config("starcoder2-3b")))
+@pytest.mark.parametrize("arch", ["dbrx-132b", "whisper-tiny",
+                                  "internvl2-1b"])
+def test_unported_kinds_raise(arch):
+    """The MoE layer, the encoder-decoder and the prefix input raise
+    naming ROADMAP A9c (the attention and recurrent kinds run)."""
+    cfg = reduced(get_config(arch))
+    m = build(cfg)
     params = m.init(torch.Generator().manual_seed(0), device=CPU)
+    kw = {}
+    if cfg.n_prefix_tokens:
+        kw["prefix"] = torch.zeros((1, cfg.n_prefix_tokens, cfg.d_model))
     with pytest.raises(NotImplementedError, match="A9c"):
-        m.forward(params, torch.zeros((1, 8), dtype=torch.int32))
+        m.forward(params, torch.zeros((1, 8), dtype=torch.int32), **kw)
 
 
 def test_chip_smoke_train_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
