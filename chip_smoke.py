@@ -11,7 +11,8 @@ Phases (any failure exits non-zero; no result line is printed then):
    nvcc each, all started together) and prints the build times and the
    compiler's register reports; then checks the design in the SASS
    (``cuobjdump -sass``): the flash library must hold HGMMA (wgmma) and
-   UTMALDG (TMA loads), the decode library UBLKCP (bulk copies), the mLSTM
+   UTMALDG (TMA loads), in its bf16 kernel at each head width (64, 128,
+   256), the decode library UBLKCP (bulk copies), the mLSTM
    library HGMMA (its 3xTF32 products), the RG-LRU library UTMALDG (its
    copy ring) and both quant kernels UBLKCP (their copy ring), and no
    kernel of ``NO_SPILL`` may spill; it counts the
@@ -37,19 +38,24 @@ Phases (any failure exits non-zero; no result line is printed then):
    shapes: RG-LRU bitwise (f32 and bf16; the ring route with W not a
    multiple of its 32 lanes and S not of its 64-step stages, (3, 300, 200)
    and (2, 1000, 4104), and the direct route, W = 333), flash
-   attention in all four modes (Dh 128 and 256, f32 and bf16, S = 333;
-   bf16 also at S = 1000 with windows 100 and 700 and chunks of 64, and
-   at S = 77),
-   decode (Dh 128 and 256, f32 and bf16: S = 768, length 0, 1, 333, 768;
-   S = 1000, length 999 and 1000; BH = 1), mLSTM (chunks 64/128/256 at
-   Dh 128/256/384, and bf16), within ``ZOO_TOL``; and phase 14's shapes:
-   RG-LRU at (2, 1, 4096) and (2, 4096, 4096), flash bf16 at S 8192 under
-   a window of 4096 (Dh 128), decode bf16 at BH 192, S 4096, Dh 128
-   (lengths 1, 2048, 4096) and BH 32, S 2048, Dh 256; and
-   ``ops.decode_attention`` in the model layout on ``expand_kv``'s cache
-   (starcoder2-3b's 8 x 24 heads over 2 at 4096 slots, recurrentgemma-9b's
-   2 x 16 over 1 at 2048) against the plain version on heads repeated by
-   ``repeat_interleave``.
+   attention in all four modes (Dh 64, 128 and 256, f32 and bf16, S =
+   333; bf16 also at S = 1000 with windows 100 and 700 and chunks of 64,
+   and at S = 77),
+   decode (Dh 64, 128 and 256, f32 and bf16: S = 768, length 0, 1, 333,
+   768; S = 1000, length 999 and 1000; BH = 1), mLSTM (chunks 64/128/256
+   at Dh 128/256/384, and bf16), within ``ZOO_TOL``; and phase 14's
+   shapes: RG-LRU at (2, 1, 4096) and (2, 4096, 4096), flash bf16 at S
+   8192 under a window of 4096 (Dh 128), decode bf16 at BH 192, S 4096,
+   Dh 128 (lengths 1, 2048, 4096) and BH 32, S 2048, Dh 256; phase 15's
+   at Dh 64 in f32 and bf16: flash bidir at 1500 x 1500 and at 64 queries
+   against 1500 keys (whisper's encoder and cross-attention, BH 96 in
+   bf16), causal at S 2048 (internvl, BH 224), decode at BH 96 x 1500 and
+   BH 224 x 2080 (lengths 1, the middle, all); and ``ops.decode_attention``
+   in the model layout on ``expand_kv``'s cache (starcoder2-3b's 8 x 24
+   heads over 2 at 4096 slots, recurrentgemma-9b's 2 x 16 over 1 at 2048,
+   whisper-tiny's 16 x 6 over 6 at its 1500-slot cross cache,
+   internvl2-1b's 16 x 14 over 2 at 2080) against the plain version on
+   heads repeated by ``repeat_interleave``.
 4. model sweep: ``evaluate_grid`` on the 1,000,000-point
    ``mu_rho_grid(linspace(30,600,1000), linspace(1,10,1000))`` under both
    policies; the compensated periods, re-evaluated in f64, must be within
@@ -281,6 +287,33 @@ Phases (any failure exits non-zero; no result line is printed then):
    the reference's bf16 tolerance (5e-2 for these sliding archs).  (d)
    xLSTM-125M at full width, B 2, prompt 1024 (6 mLSTM launches), 8
    decode steps.
+
+15. the other four archs served (after phase 14), as phase 14: every
+   line with the card's name and power limit, each part's counts set to
+   0 just before it and read just after, each run through
+   ``model_main`` with its decode loop under sync-debug "error", each
+   model freed before the next.  (a) llama4-scout-17b-a16e at full width
+   cut to one super-block (4 of 48 layers: three chunked MoE layers and a
+   global NoPE one; ``model_main``'s ``cut``), B 1, prompt 16384 (two
+   8192-token chunks: the chunked mask bites, the chunk ring holds the
+   second, decode starts a third), 16 new tokens; then ``moe_impl =
+   "capacity"`` at prompt 8192 (C 640, the top-1 inverse gather).  (b)
+   dbrx-132b at full width cut to 2 of 40 layers, B 1, prompt 8192, 16
+   new tokens; then capacity (C 2560: the scan over 512-slot chunks and
+   the top-4 scatter-add).  (c) whisper-tiny whole, B 16, 1500 stub frames,
+   prompt 64, 64 new tokens.  (d) internvl2-1b whole, B 16, 256 stub
+   prefix embeddings + prompt 1792, 32 new tokens.  Gates as phase 14's:
+   flash once per attention layer a wave (whisper: 4 encoder, 4 self, 4
+   cross), decode once per attention layer a step (whisper: 4 self, 4
+   cross), no plain call, logits finite.  Each run prints its prefill and
+   per-step times, peak memory and one profiled step (kernels, busy
+   share, the expand copies and, for the MoE, the expert-weight casts
+   timed alone).  (e) card against CPU from the same params in f32 and
+   bf16 (``SERVE15_VS_CPU``: whisper and internvl whole at B 2, prompt
+   32; the MoE archs at heads of 128 with d 1024 and vocab 4096, every
+   expert kept, both ``moe_impl``s): phase 14 (c)'s gates, with the
+   routing flips between the devices counted and printed (a row after a
+   flip at a top-k gap under 1e-5 may leave the every-row f32 gate).
 
 Near the end it prints one JSON line ``{"gates": {...}}`` with every
 gate's numbers, then one ``{"kernels": [...]}`` line, then the card's name
@@ -629,15 +662,22 @@ DESIGN_SASS = {"flash_attention.cu": ("HGMMA", "UTMALDG"),
                "rglru_scan.cu": ("UTMALDG",),
                "quant_blockwise.cu": ("UBLKCP",)}
 #: kernels that must each hold their source's design instructions
-#: themselves: both quant kernels.  The fragments carry the mangled name's
-#: length prefix, so that one kernel's name cannot match inside the other's.
+#: themselves: both quant kernels, and the bf16 flash kernel at each head
+#: width.  The fragments carry the mangled name's length prefix, so that
+#: one kernel's name cannot match inside the other's.
 DESIGN_KERNELS = {"quant_blockwise.cu": ("22quantize_leaves_kernel",
-                                         "24dequantize_leaves_kernel")}
-#: kernels that must compile without spilling registers.
+                                         "24dequantize_leaves_kernel"),
+                  "flash_attention.cu": ("18flash_wgmma_kernelILi64E",
+                                         "18flash_wgmma_kernelILi128E",
+                                         "18flash_wgmma_kernelILi256E")}
+#: kernels that must compile without spilling registers (the Dh 64
+#: instantiations of flash's f32 route and of decode by their mangled
+#: template arguments).
 NO_SPILL = ("flash_wgmma_kernel", "event_sweep_kernel", "event_draws_kernel",
             "rglru_ring_kernel", "gates_kernel", "state_kernel",
             "scores_kernel", "output_kernel", "quantize_leaves_kernel",
-            "dequantize_leaves_kernel")
+            "dequantize_leaves_kernel", "12flash_kernelILi64E",
+            "13decode_kernelILi64E")
 
 
 def _spills(log_text: str) -> dict:
@@ -2078,11 +2118,22 @@ def phase_zoo_parity(dev) -> dict:
         ("causal", 0, 0), ("sliding", 100, 0), ("sliding", 700, 0),
         ("chunked", 0, 64), ("bidir", 0, 0))))
     flash_cases.append((2, 77, bf16, (("causal", 0, 0), ("bidir", 0, 0))))
-    # starcoder2-3b's prefill (phase 14): S 8192 under its window of 4096
+    # starcoder2-3b's prefill (phase 14): S 8192 under its window of 4096;
+    # phase 15's heads of 64 in both dtypes: whisper's encoder (1500
+    # frames, bidir), its cross-attention (64 queries against 1500 keys)
+    # and internvl's prefill (S 2048, causal), at their BH in bf16
     model_flash = [(128, (4, 8192, bf16, (("sliding", 4096, 0),)))]
+    model_flash += [(64, (BH if dt == bf16 else 8, S, dt, modes))
+                    for dt in (f32, bf16)
+                    for BH, S, modes in (
+                        (96, (1500, 1500), (("bidir", 0, 0),)),
+                        (96, (64, 1500), (("bidir", 0, 0),)),
+                        (224, 2048, (("causal", 0, 0),)))]
     for Dh, (BH, S, dt, modes) in [(Dh, case) for Dh in fa.HEAD_DIMS
                                    for case in flash_cases] + model_flash:
-        q, k, v = (randn(BH, S, Dh).to(dt) for _ in range(3))
+        Sq, Skv = S if isinstance(S, tuple) else (S, S)
+        q = randn(BH, Sq, Dh).to(dt)
+        k, v = (randn(BH, Skv, Dh).to(dt) for _ in range(2))
         for mode, w, c in modes:
             out = fa.flash_attention(q, k, v, mode=mode, window=w,
                                      chunk=c)
@@ -2097,12 +2148,12 @@ def phase_zoo_parity(dev) -> dict:
             ok_ref, err_ref, frob_ref = _close(out, oracle, tol)
             errs["flash_attention"] = max(errs["flash_attention"], err)
             log(f"zoo parity flash_attention {mode:8s} {w or c:4d} Dh "
-                f"{Dh} {dt} {(BH, S, Dh)}: max_abs_err={err} (rel "
+                f"{Dh} {dt} {(BH, Sq, Skv, Dh)}: max_abs_err={err} (rel "
                 f"Frobenius {frob:.3e}); vs attention_ref "
                 f"{err_ref:.3e} ({frob_ref:.3e})")
             if not (ok and ok_ref):
                 fail(f"flash_attention off at {mode} {w or c} Dh {Dh} "
-                     f"{dt} S {S}")
+                     f"{dt} Sq {Sq} Skv {Skv}")
 
     # lengths 999 and 1000 of S = 1000 end on a ragged ring stage; BH = 1
     # leaves all SMs but one idle; then phase 14's shapes in bf16:
@@ -2112,6 +2163,10 @@ def phase_zoo_parity(dev) -> dict:
                     (1, 1000, (0, 500, 1000)))
     model_decode = [(128, bf16, (192, 4096, (1, 2048, 4096))),
                     (256, bf16, (32, 2048, (1, 1000, 2048)))]
+    # phase 15's heads of 64: whisper's 16 x 6 heads against its 1500-slot
+    # cross cache, internvl's 16 x 14 against its 2080-slot ring
+    model_decode += [(64, dt, case) for dt in (f32, bf16) for case in (
+        (96, 1500, (1, 750, 1500)), (224, 2080, (1, 1040, 2080)))]
     for Dh, dt, (BH, S, lengths) in list(itertools.product(
             da.HEAD_DIMS, (f32, bf16), decode_cases)) + model_decode:
         q1 = randn(BH, 1, Dh).to(dt)
@@ -2146,7 +2201,9 @@ def phase_zoo_parity(dev) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.models.attention import expand_kv
     for arch, B, Sc, lengths in (("starcoder2-3b", 8, 4096, (1, 2048, 4096)),
-                                 ("recurrentgemma-9b", 2, 2048, (1, 2048))):
+                                 ("recurrentgemma-9b", 2, 2048, (1, 2048)),
+                                 ("whisper-tiny", 16, 1500, (1500,)),
+                                 ("internvl2-1b", 16, 2080, (1, 2080))):
         cfg = get_config(arch)
         H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
         q1 = randn(B, 1, H, Dh).to(bf16)
@@ -2451,6 +2508,39 @@ def phase_zoo_times(inp: dict, peaks, dev) -> dict:
             **bound(2 * (2 * d["BH"] * length * d["Dh"] + 2 * q1.numel()),
                     4 * d["BH"] * length * d["Dh"], f32_peak)))
     res["decode_attention"] = parts
+
+    # phase 15's heads of 64 (bf16): whisper's encoder self-attention and
+    # internvl's prefill on the flash kernel, internvl's decode
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(ZOO_SEED + 1)
+    randn = _randn(gen, dev)
+    res["flash_attention_dh64"], res["decode_attention_dh64"] = [], []
+    for label, BH, S, mode in (("whisper-tiny encoder", 96, 1500, "bidir"),
+                               ("internvl2-1b prefill", 224, 2048,
+                                "causal")):
+        q, k, v = (randn(BH, S, 64).to(torch.bfloat16) for _ in range(3))
+        pairs = S * S if mode == "bidir" else _flash_pairs(S, S)
+        res["flash_attention_dh64"].append(timed(
+            f"flash_attention {mode} {label} {tuple(q.shape)} bf16",
+            lambda: fa.flash_attention(q, k, v, mode=mode),
+            lambda: fa.flash_attention_plain(q, k, v, mode=mode),
+            lambda: Fn.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=mode == "causal"),
+            **bound(4 * q.numel() * 2, 4 * 64 * BH * pairs, bf16_peak)))
+    del q, k, v
+    BH, S = 224, 2080
+    q1 = randn(BH, 1, 64).to(torch.bfloat16)
+    kc, vc = (randn(BH, S, 64).to(torch.bfloat16) for _ in range(2))
+    res["decode_attention_dh64"].append(timed(
+        f"decode_attention internvl2-1b {tuple(kc.shape)} bf16 length {S}",
+        lambda: da.decode_attention(q1, kc, vc, S),
+        lambda: da.decode_attention_plain(q1, kc, vc, S),
+        lambda: Fn.scaled_dot_product_attention(q1[None], kc[None],
+                                                vc[None]),
+        **bound(2 * (2 * BH * S * 64 + 2 * q1.numel()), 4 * BH * S * 64,
+                f32_peak)))
+    del q1, kc, vc
+    torch.cuda.empty_cache()
 
     m = MLSTM
     BH, S, Dh, L = m["B"] * m["H"], m["S"], m["Dh"], m["chunk"]
@@ -4689,6 +4779,39 @@ SERVE_RUNS = {
     "xlstm-125m": ["--arch", "xlstm-125m", "--no-reduce", "--batch", "2",
                    "--prompt-len", "1024", "--new-tokens", "9", "--seed",
                    "0"]}
+#: phase 15: the other four archs.  (a) llama4-scout at full width cut to
+#: one super-block (3 chunked MoE layers, 1 global NoPE), B 1, a prompt of
+#: two 8192-token chunks; then the capacity MoE (C 640: the top-1 inverse
+#: gather) at 8192.  (b) dbrx at full width cut to 2 layers, B 1, prompt
+#: 8192; then the capacity MoE (C 2560: the scan over 512-slot chunks and
+#: the top-4 scatter-add).  (c) whisper-tiny whole, B 16
+#: (``microbatch_rows_per_device``), 1500 stub frames, prompt 64, 64 new
+#: tokens.  (d) internvl2-1b whole, B 16, 256 stub prefix embeddings + a
+#: prompt of 1792, 32 new tokens.
+SERVE_RUNS.update({
+    "llama4-scout": ["--arch", "llama4-scout-17b-a16e", "--no-reduce",
+                     "--batch", "1", "--prompt-len", "16384",
+                     "--new-tokens", "16", "--seed", "0"],
+    "llama4-scout-capacity": ["--arch", "llama4-scout-17b-a16e",
+                              "--no-reduce", "--batch", "1", "--prompt-len",
+                              "8192", "--new-tokens", "16", "--seed", "0"],
+    "dbrx": ["--arch", "dbrx-132b", "--no-reduce", "--batch", "1",
+             "--prompt-len", "8192", "--new-tokens", "16", "--seed", "0"],
+    "dbrx-capacity": ["--arch", "dbrx-132b", "--no-reduce", "--batch", "1",
+                      "--prompt-len", "8192", "--new-tokens", "16", "--seed",
+                      "0"],
+    "whisper-tiny": ["--arch", "whisper-tiny", "--no-reduce", "--batch",
+                     "16", "--prompt-len", "64", "--new-tokens", "64",
+                     "--seed", "0"],
+    "internvl2-1b": ["--arch", "internvl2-1b", "--no-reduce", "--batch", "16",
+                     "--prompt-len", "1792", "--new-tokens", "32", "--seed",
+                     "0"]})
+#: the config fields a run changes after its flags (``model_main``'s
+#: ``cut``): the MoE archs' depth (the cut) and ``moe_impl``.
+SERVE_CUTS = {"llama4-scout": dict(n_layers=4),
+              "llama4-scout-capacity": dict(n_layers=4, moe_impl="capacity"),
+              "dbrx": dict(n_layers=2),
+              "dbrx-capacity": dict(n_layers=2, moe_impl="capacity")}
 #: the same runs rehearsed on the CPU (``--reduce``, short prompts).
 SERVE_REHEARSAL = {"--prompt-len": "64", "--new-tokens": "5"}
 #: part (c): the card against the CPU from the same params, B 4, a prompt
@@ -4707,9 +4830,11 @@ SERVE_VS_CPU = dict(B=4, S=512, window=128, steps=4, seed=0,
 
 def _serve_expected(cfg, args) -> dict:
     """Launches a model-path run makes: flash once per attention layer a
-    prefill wave, decode once per attention layer a step, the RG-LRU scan
-    once per RG-LRU layer a wave and a step, the mLSTM once per mLSTM
-    layer a wave (its decode runs the state form)."""
+    prefill wave (whisper: once more per decoder layer for the cross
+    attention and once per encoder layer), decode once per attention layer
+    a step (whisper: twice, self and cross), the RG-LRU scan once per
+    RG-LRU layer a wave and a step, the mLSTM once per mLSTM layer a wave
+    (its decode runs the state form)."""
     from repro_torch.models.transformer import RECURRENT_KINDS, super_block
     pat, n, tail = super_block(cfg)
     kinds = list(pat) * n + list(tail)
@@ -4717,8 +4842,10 @@ def _serve_expected(cfg, args) -> dict:
         else 1
     steps = args.new_tokens - 1
     n_attn = sum(k not in RECURRENT_KINDS for k in kinds)
-    return {"flash_attention": n_attn * waves,
-            "decode_attention": n_attn * steps,
+    n_cross = kinds.count("xattn")
+    n_enc = cfg.n_encoder_layers if cfg.is_encoder_decoder else 0
+    return {"flash_attention": (n_attn + n_cross + n_enc) * waves,
+            "decode_attention": (n_attn + n_cross) * steps,
             "rglru_scan": kinds.count("rglru") * (waves + steps),
             "mlstm_scan": kinds.count("mlstm") * waves}
 
@@ -4728,11 +4855,14 @@ def _profile_decode_step(run, dev) -> dict:
     its CUDA kernels, their busy time against the step's host clock, and
     the ten kernels that take the most device time.  Then the
     ``expand_kv`` copies of the step timed alone with CUDA events (the K
-    and V of every attention layer expanded to the q heads, back to back,
-    median of 5) and their share of the step's busy time."""
+    and V of every attention layer expanded to the q heads, and whisper's
+    cross K/V, back to back, median of 5) and their share of the step's
+    busy time; for an MoE arch likewise the casts of its MoE weights to
+    the compute dtype (a step casts each layer's once, whole)."""
     import collections
     import torch
     from torch.profiler import ProfilerActivity, profile as prof_ctx
+    from repro_torch.ckpt.tree import tree_leaves
     from repro_torch.models import attention as attn
     from repro_torch.models.transformer import _kv_dequant
     tok = run.tokens[:, -1:]
@@ -4770,6 +4900,7 @@ def _profile_decode_step(run, dev) -> dict:
         return e[key]
     with torch.no_grad():
         layers = [(kv(e, "k"), kv(e, "v")) for e in entries]
+        layers += [(e["xk"], e["xv"]) for e in entries if "xk" in e]
 
     def expand_all():
         for k, v in layers:
@@ -4777,13 +4908,30 @@ def _profile_decode_step(run, dev) -> dict:
             attn.expand_kv(cfg, v)
     with torch.no_grad():
         expand_ms = _events_ms(expand_all)
-    return {"step_s": wall, "kernels": n, "busy_s": busy * 1e-9,
-            "busy_share": busy * 1e-9 / wall if wall else 0.0,
-            "top": [{"name": k[:96], "count": c, "ms": ns * 1e-6}
-                    for k, (c, ns) in top],
-            "expand_layers": len(layers), "expand_ms": expand_ms,
-            "expand_share": expand_ms * 1e-3 / (busy * 1e-9) if busy
-            else 0.0}
+    out = {"step_s": wall, "kernels": n, "busy_s": busy * 1e-9,
+           "busy_share": busy * 1e-9 / wall if wall else 0.0,
+           "top": [{"name": k[:96], "count": c, "ms": ns * 1e-6}
+                   for k, (c, ns) in top],
+           "expand_layers": len(layers), "expand_ms": expand_ms,
+           "expand_share": expand_ms * 1e-3 / (busy * 1e-9) if busy
+           else 0.0}
+    if cfg.n_experts:        # the MoE's per-use casts of its weights
+        moes = [st["moe"] for st in run.params["stages"] if "moe" in st]
+        mats = [w for m in moes for w in tree_leaves(m)]
+        mats += [w for t in run.params["tail"] if "moe" in t
+                 for w in tree_leaves(t["moe"])]
+
+        def casts():
+            for w in mats:
+                w.to(cd)
+        with torch.no_grad():
+            out["casts_ms"] = _events_ms(casts)
+        out["casts_bytes"] = sum(w.numel() * (w.element_size() + 2)
+                                 for w in mats)
+        out["casts_share"] = (out["casts_ms"] * 1e-3 / (busy * 1e-9)
+                              if busy else 0.0)
+        out["casts_leaves"] = len(mats)
+    return out
 
 
 def _serve_part(name, dev, tlog, rehearse: bool) -> dict:
@@ -4801,6 +4949,7 @@ def _serve_part(name, dev, tlog, rehearse: bool) -> dict:
         for k, v in SERVE_REHEARSAL.items():
             argv[argv.index(k) + 1] = v
     args = serve.build_parser().parse_args(argv + ["--device", dev.type])
+    cut = SERVE_CUTS.get(name)
     on_card = dev.type == "cuda"
     base = 0
     if on_card:            # the run's own peak: earlier phases hold tensors
@@ -4809,7 +4958,8 @@ def _serve_part(name, dev, tlog, rehearse: bool) -> dict:
         base = torch.cuda.memory_allocated(dev)
     _reset_counts()
     t0 = time.perf_counter()
-    run = serve.model_main(args, sync_debug="error" if on_card else None)
+    run = serve.model_main(args, sync_debug="error" if on_card else None,
+                           cut=cut)
     _dev_sync(dev)
     host_s = time.perf_counter() - t0
     counts = _counts()
@@ -4818,8 +4968,8 @@ def _serve_part(name, dev, tlog, rehearse: bool) -> dict:
     got = {k: counts[k] for k in expected}
     finite = bool(torch.isfinite(run.logits.float()).all())
     steps = args.new_tokens - 1
-    tlog(f"serve {name}: {run.cfg.name}, B {args.batch}, prompt "
-         f"{args.prompt_len}, {args.new_tokens} new tokens, waves "
+    tlog(f"serve {name}: {run.cfg.name} (cut {cut}), B {args.batch}, "
+         f"prompt {args.prompt_len}, {args.new_tokens} new tokens, waves "
          f"{args.waves}, kv {args.kv_cache}: prefill {run.prefill_s:.4f} "
          f"s, decode {run.decode_s:.4f} s "
          f"({run.decode_s / max(steps, 1) * 1e3:.3f} ms a step), run "
@@ -4839,7 +4989,7 @@ def _serve_part(name, dev, tlog, rehearse: bool) -> dict:
     if not ok:
         fail(f"serve {name}: launches {got} (others {others}, plain "
              f"{plain}) where the path makes {expected}")
-    out = {"argv": argv, "prefill_s": run.prefill_s,
+    out = {"argv": argv, "cut": cut, "prefill_s": run.prefill_s,
            "decode_s": run.decode_s,
            "decode_ms_per_step": run.decode_s / max(steps, 1) * 1e3,
            "host_s": host_s, "peak_bytes": peak, "launches": got,
@@ -4854,6 +5004,12 @@ def _serve_part(name, dev, tlog, rehearse: bool) -> dict:
              f"{prof['expand_share']:.1%} of the busy time; by device time: "
              + "; ".join(f"{t['name']} x{t['count']} {t['ms']:.3f} ms"
                          for t in prof["top"]))
+        if "casts_ms" in prof:
+            tlog(f"serve {name}: the step's MoE weight casts "
+                 f"({prof['casts_leaves']} leaves, "
+                 f"{prof['casts_bytes'] / 1e9:.2f} GB read and written) "
+                 f"{prof['casts_ms']:.3f} ms alone, "
+                 f"{prof['casts_share']:.1%} of the busy time")
     del run
     return out
 
@@ -4906,18 +5062,7 @@ def _serve_vs_cpu(dev, tlog, rehearse: bool) -> dict:
                                  c["seed"]))
 
         def run(device, p, cfg_):
-            mm = build(cfg_)
-            t0 = time.perf_counter()
-            with torch.no_grad():
-                lg, cache = mm.prefill(p, {"tokens": toks[:, :S].to(device)},
-                                       max_cache_seq=S + steps)
-                outs = [lg]
-                for i in range(steps):
-                    lg, cache = mm.decode_step(
-                        p, cache, toks[:, S + i:S + i + 1].to(device))
-                    outs.append(lg)
-            lg = torch.cat([o.float().cpu() for o in outs], dim=1)
-            return lg, time.perf_counter() - t0
+            return _teacher_forced(build(cfg_), p, {}, toks, S, steps, device)
 
         card32, card32_s = run(dev, params, cfg32)
         card, card_s = run(dev, params, cfg)
@@ -4991,6 +5136,303 @@ def phase_serve(dev, card: str, rehearse: bool = False) -> dict:
          + ", ".join(f"{k} {report[k]['part_s']:.1f}" for k in (
              "starcoder2-3b", "starcoder2-3b-int8", "recurrentgemma-9b",
              "vs_cpu", "xlstm-125m")) + f"); launches {report['launches']}")
+    return report
+
+
+#: part (e): the card against the CPU from the same params, in f32 and
+#: bf16 compute, B 2, prefill then 4 teacher-forced steps.  whisper-tiny
+#: and internvl2-1b at their whole widths (1500 frames; 256 prefix
+#: embeddings before a prompt of 32) cut in depth, as phase 14 (c) cuts
+#: its archs: whisper to one encoder and one decoder layer, internvl to 2
+#: layers.  Whole, their random models are chaotic: a 1e-6 relative
+#: change of the frames or the prefix moves the CPU's own f32 logits by
+#: percents (whisper) or by O(1) (internvl), which ``_sensitivity``
+#: prints, so no device comparison of the whole models can read the
+#: implementation.  The MoE archs at heads of 128 with their widths cut
+#: (d 1024, 8 heads over 2 KV heads, d_ff 2048, vocab 4096), every expert
+#: and top-k kept (llama4's shared expert too), llama4 one super-block
+#: with a chunk of 128 at S 512, dbrx 2 layers, each under both
+#: ``moe_impl``s.  Gates: phase 14 (c)'s (llama4's: ``LLAMA4_TOL``), and
+#: each config's own f32 sensitivity printed beside them.  A routing flip
+#: (a token whose top-k set differs between the devices) moves its
+#: sequence's later rows by O(1); a row after a flip whose top-k gap (on
+#: the CPU, in f64) is under ``flip_gap`` may leave the every-row f32
+#: gate, and is printed.
+MOE_CUT = dict(d_model=1024, n_heads=8, n_kv_heads=2, head_dim=0,
+               d_ff=2048, vocab_size=4096)
+#: llama4's cut model is itself ill-conditioned: one f32 ulp of its
+#: embedding table moves its prefill's logits rows by 2e-5 to 3e-4 on a
+#: CPU alone (``_sensitivity``, printed), and the devices' rounding
+#: differences, at every op, move them by 5e-5 to 2.4e-3, so its f32
+#: median is held at 3e-3; in bf16 its top-1 router flips about 5% of its
+#: decisions between the devices (a token then takes another expert
+#: whole, and under capacity moves the drops), so its bf16 median is held
+#: at 3e-1.  A wrong mask, slot or combine moves rows by O(1).
+LLAMA4_TOL = dict(f32_median_tol=3e-3, bf16_median_tol=3e-1)
+SERVE15_VS_CPU = dict(
+    B=2, steps=4, seed=0, f32_median_tol=1e-4, f32_row_tol=1e-2,
+    bf16_median_tol=5e-2, flip_gap=1e-5,
+    runs={"whisper-tiny": dict(S=32, cut=dict(n_layers=1,
+                                              n_encoder_layers=1)),
+          "internvl2-1b": dict(S=32, cut=dict(n_layers=2)),
+          "llama4-scout-17b-a16e": dict(S=512, cut=dict(
+              MOE_CUT, n_layers=4, chunk=128), **LLAMA4_TOL),
+          "llama4-scout-17b-a16e-capacity": dict(S=512, cut=dict(
+              MOE_CUT, n_layers=4, chunk=128, moe_impl="capacity"),
+              **LLAMA4_TOL),
+          "dbrx-132b": dict(S=512, cut=dict(MOE_CUT, n_layers=2)),
+          "dbrx-132b-capacity": dict(S=512, cut=dict(
+              MOE_CUT, n_layers=2, moe_impl="capacity"))})
+
+
+class _RouterLog:
+    """While active, records every ``models.moe._router`` call: the step it
+    belongs to (``step``, set by the caller: 0 the prefill, i + 1 decode
+    step i), the top-k mask of each token (B, S, E) and, on the host, the
+    router's input and weights (for the top-k gap)."""
+
+    def __init__(self):
+        self.calls, self.step = [], 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._orig = orig = moe._router
+
+        def rec(cfg, p, x):
+            combine = orig(cfg, p, x)
+            self.calls.append((self.step, (combine > 0).cpu(),
+                               x.detach().double().cpu(),
+                               p["router"].to(x.dtype).double().cpu(),
+                               cfg.top_k))
+            return combine
+        moe._router = rec
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._router = self._orig
+
+
+def _routing_flips(card_log, cpu_log) -> list:
+    """Tokens whose top-k sets differ between the devices, call by call:
+    (call, step, sequence, token, top-k gap on the CPU's input in f64)."""
+    import torch
+    flips = []
+    for i, (a, b) in enumerate(zip(card_log.calls, cpu_log.calls)):
+        step, mask_card, _, _, k = a
+        _, mask_cpu, x, w, _ = b
+        diff = (mask_card != mask_cpu).any(-1)
+        for bi, t in diff.nonzero().tolist():
+            probs = torch.softmax(x[bi, t] @ w, dim=-1).sort(
+                descending=True).values
+            gap = float(probs[k - 1] - probs[k]) if k < len(probs) else 0.0
+            flips.append({"call": i, "step": step, "seq": bi, "token": t,
+                          "gap": gap})
+    return flips
+
+
+def _stub_inputs(cfg, B: int, gen) -> dict:
+    """whisper's frames or internvl's prefix, 0.02 times a normal draw
+    from ``gen`` (on the host), as the launcher makes them."""
+    import torch
+    batch = {}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = 0.02 * torch.randn(
+            (B, cfg.encoder_seq, cfg.d_model), generator=gen)
+    if cfg.n_prefix_tokens:
+        batch["prefix"] = 0.02 * torch.randn(
+            (B, cfg.n_prefix_tokens, cfg.d_model), generator=gen)
+    return batch
+
+
+def _sensitivity(cfg, S: int, what: str) -> list:
+    """A model's own f32 sensitivity on the CPU (B 2, prompt ``S``, the
+    port's random init from seed 0): each last-position logits row's
+    relative Frobenius change when ``what`` is ``"embed"`` (the embedding
+    table times 1 + 1e-7, an f32 ulp) or ``"stub"`` (the frames or prefix
+    times 1 + 1e-6).  Printed, not gated: rounding differences between the
+    devices cannot read below it."""
+    import torch
+    from repro_torch.models import build
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    m = build(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = m.init(gen, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, S), generator=gen)
+    batch = _stub_inputs(cfg, 2, gen)
+    if what == "embed":
+        moved = dict(params, embed=params["embed"] * (1 + 1e-7))
+        other = batch
+    else:
+        moved = params
+        other = {k: v * (1 + 1e-6) for k, v in batch.items()}
+    with torch.no_grad():
+        a = m.prefill(params, dict(batch, tokens=toks))[0]
+        b = m.prefill(moved, dict(other, tokens=toks))[0]
+    return _row_errs(b, a)
+
+
+def _teacher_forced(model, params, batch, toks, S, steps, device,
+                    router_log=None):
+    """Prefill ``toks[:, :S]`` (with ``batch``'s frames or prefix), then
+    ``steps`` teacher-forced decode steps; returns the logits (B, steps +
+    1, V) as f32 on the host and the host seconds."""
+    import torch
+    t0 = time.perf_counter()
+    P = batch["prefix"].shape[1] if "prefix" in batch else 0
+    with torch.no_grad():
+        lg, cache = model.prefill(
+            params, dict({k: v.to(device) for k, v in batch.items()},
+                         tokens=toks[:, :S].to(device)),
+            max_cache_seq=S + P + steps)
+        outs = [lg]
+        for i in range(steps):
+            if router_log is not None:
+                router_log.step = i + 1
+            lg, cache = model.decode_step(
+                params, cache, toks[:, S + i:S + i + 1].to(device))
+            outs.append(lg)
+    lg = torch.cat([o.float().cpu() for o in outs], dim=1)
+    return lg, time.perf_counter() - t0
+
+
+def _serve15_vs_cpu(dev, tlog, rehearse: bool) -> dict:
+    """Part (e): ``SERVE15_VS_CPU``; each logits row (a sequence at a step)
+    of the card against the CPU's, in relative Frobenius, with the routing
+    flips between them."""
+    import statistics
+    import torch
+    from repro_torch.ckpt.tree import tree_map
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build
+    c = SERVE15_VS_CPU
+    out = {}
+    for name, run in c["runs"].items():
+        arch = name.removesuffix("-capacity")
+        cut, S, steps = dict(run["cut"]), run["S"], c["steps"]
+        tol = {k: run.get(k, c[k]) for k in ("f32_median_tol",
+                                              "bf16_median_tol")}
+        cfg = get_config(arch)
+        if rehearse:
+            cfg = reduced(cfg, d_model=128, n_heads=1)
+            cut = {k: v for k, v in cut.items()
+                   if k in ("n_layers", "n_encoder_layers", "moe_impl")}
+            S = 64 if cfg.n_experts else 16
+        cfg = dataclasses.replace(cfg, **cut)
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        params = build(cfg).init(
+            torch.Generator(device=dev).manual_seed(c["seed"]), device=dev)
+        host = tree_map(lambda t: t.cpu(), params)
+        gen = torch.Generator().manual_seed(c["seed"])
+        toks = torch.randint(0, cfg.vocab_size, (c["B"], S + steps),
+                             generator=gen)
+        batch = _stub_inputs(cfg, c["B"], gen)
+        res, logs = {}, {}
+        for key, device, p, cf in (("card32", dev, params, cfg32),
+                                   ("card", dev, params, cfg),
+                                   ("cpu32", torch.device("cpu"), host,
+                                    cfg32),
+                                   ("cpu", torch.device("cpu"), host, cfg)):
+            with _RouterLog() as rlog:
+                res[key] = _teacher_forced(build(cf), p, batch, toks, S,
+                                           steps, device, rlog)
+            logs[key] = rlog
+        del params
+        rows = {dt: _row_errs(res["card" + sfx][0], res["cpu" + sfx][0])
+                for dt, sfx in (("f32", "32"), ("bf16", ""))}
+        flips = {dt: _routing_flips(logs["card" + sfx], logs["cpu" + sfx])
+                 for dt, sfx in (("f32", "32"), ("bf16", ""))}
+        per_seq = steps + 1
+        exempt = sorted({f["seq"] * per_seq + s for f in flips["f32"]
+                         if f["gap"] < c["flip_gap"]
+                         for s in range(f["step"], per_seq)})
+        held = [e for i, e in enumerate(rows["f32"]) if i not in exempt]
+        r = {"rows": len(rows["f32"]),
+             "f32_median": statistics.median(rows["f32"]),
+             "f32_max": max(rows["f32"]),
+             "f32_max_held": max(held) if held else 0.0,
+             "bf16_median": statistics.median(rows["bf16"]),
+             "bf16_max": max(rows["bf16"]),
+             "f32_rows": rows["f32"], "bf16_rows": rows["bf16"],
+             "flips": {dt: len(f) for dt, f in flips.items()},
+             "flip_list": flips, "exempt_rows": exempt,
+             "secs": {k: v[1] for k, v in res.items()},
+             "finite": all(bool(torch.isfinite(res[k][0]).all())
+                           for k in ("card", "card32"))}
+        fmt = lambda es: " ".join(f"{e:.1e}" for e in es)
+        moe_impl = cfg.moe_impl if cfg.n_experts else None
+        tlog(f"serve15 card vs cpu {name} ({cfg.n_layers} layers, d "
+             f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, "
+             f"vocab {cfg.vocab_size}, moe {moe_impl}, B {c['B']}, S {S}, "
+             f"{steps} steps; {r['rows']} "
+             f"rows, relative Frobenius): f32 median {r['f32_median']:.3e} "
+             f"(tol {tol['f32_median_tol']}), max {r['f32_max']:.3e}, max "
+             f"held {r['f32_max_held']:.3e} (tol {c['f32_row_tol']}); bf16 "
+             f"median {r['bf16_median']:.3e} (tol {tol['bf16_median_tol']}), "
+             f"max {r['bf16_max']:.3e}; routing flips f32 "
+             f"{r['flips']['f32']}, bf16 {r['flips']['bf16']}; rows exempt "
+             f"after a flip under gap {c['flip_gap']}: {exempt}; secs "
+             + ", ".join(f"{k} {v:.2f}" for k, v in r["secs"].items())
+             + f"; f32 rows {fmt(rows['f32'])}; bf16 rows "
+             f"{fmt(rows['bf16'])}")
+        for f in flips["f32"]:
+            tlog(f"serve15 card vs cpu {name}: f32 routing flip {f}")
+        if not (r["finite"] and r["f32_median"] <= tol["f32_median_tol"]
+                and r["f32_max_held"] <= c["f32_row_tol"]
+                and r["bf16_median"] <= tol["bf16_median_tol"]):
+            fail(f"serve15 card vs cpu {name}: "
+                 f"{ {k: v for k, v in r.items() if k != 'flip_list'} }")
+        r["ulp_sensitivity"] = _sensitivity(cfg, S, "embed")
+        tlog(f"serve15 sensitivity {name} ({cfg.n_layers} layers, S {S}), "
+             f"the CPU in f32: the embedding table x (1 + 1e-7) moves the "
+             f"prefill's logits rows by "
+             f"{' '.join(f'{e:.2e}' for e in r['ulp_sensitivity'])}")
+        if batch:
+            whole = get_config(arch)
+            if rehearse:
+                whole = reduced(whole, d_model=128, n_heads=1)
+            r["whole_sensitivity"] = _sensitivity(whole, 32, "stub")
+            tlog(f"serve15 sensitivity {arch} whole ({whole.n_layers} "
+                 f"layers), the CPU in f32: the stub inputs x (1 + 1e-6) "
+                 f"move the prefill's logits rows by "
+                 f"{' '.join(f'{e:.2e}' for e in r['whole_sensitivity'])}")
+        out[name] = r
+        del host
+    return out
+
+
+#: phase 15's model-path runs, in order.
+SERVE15_PARTS = ("llama4-scout", "llama4-scout-capacity", "dbrx",
+                 "dbrx-capacity", "whisper-tiny", "internvl2-1b")
+
+
+def phase_serve15(dev, card: str, rehearse: bool = False) -> dict:
+    """Phase 15: the other four archs served (see the module docstring),
+    every line with the card's name and power limit, each part's counts
+    set to 0 just before it and read just after, each model freed before
+    the next is built.  ``rehearse`` runs it on the CPU at reduced widths,
+    where no kernel launches."""
+    import torch
+    tlog = lambda msg: log(f"{msg} [{card}]")
+    report = {}
+    t_phase = time.perf_counter()
+    for name in SERVE15_PARTS:
+        t0 = time.perf_counter()
+        report[name] = _serve_part(name, dev, tlog, rehearse)
+        report[name]["part_s"] = time.perf_counter() - t0
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["vs_cpu"] = _serve15_vs_cpu(dev, tlog, rehearse)
+    report["vs_cpu"]["part_s"] = time.perf_counter() - t0
+    report["phase_s"] = time.perf_counter() - t_phase
+    report["launches"] = {k: sum(report[r]["launches"].get(k, 0)
+                                 for r in SERVE15_PARTS)
+                          for k in ("flash_attention", "decode_attention")}
+    tlog(f"serve15 phase {report['phase_s']:.1f} s ("
+         + ", ".join(f"{k} {report[k]['part_s']:.1f}"
+                     for k in SERVE15_PARTS + ("vs_cpu",))
+         + f"); launches {report['launches']}")
     return report
 
 
@@ -5157,7 +5599,13 @@ def main() -> None:
     # serving (phase 14), each part's counts read around it
     report["serve"] = phase_serve(dev, card)
     torch.cuda.empty_cache()
-    serve_n = report["serve"]["launches"]
+    # the other four archs served (phase 15), each part's counts read
+    # around it
+    report["serve15"] = phase_serve15(dev, card)
+    torch.cuda.empty_cache()
+    serve15_n = report["serve15"]["launches"]
+    serve_n = {k: v + serve15_n.get(k, 0)
+               for k, v in report["serve"]["launches"].items()}
 
     # the checkpoint runtime path, its counts read around it
     root = ROOT / "build" / "chip_smoke_ckpt"
@@ -5311,7 +5759,10 @@ def main() -> None:
                                   "serve": serve_n[name]}
                                  if name == "mlstm_scan" else
                                  {"zoo": zoo_counts[name],
-                                  "serve": serve_n[name]}),
+                                  "serve": serve_n[name],
+                                  "serve_phase15": serve15_n.get(name, 0)}),
+            **({"dh64": ztimes[name + "_dh64"]}
+               if name + "_dh64" in ztimes else {}),
             **({"on_train_step": {
                 k: report["train"]["profile"].get(k) for k in (
                     "mlstm_launch_ms", "mlstm_bound_ms", "mlstm_bound_by",

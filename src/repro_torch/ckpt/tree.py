@@ -69,7 +69,13 @@ def tree_flatten(tree: Any, is_leaf: Callable[[Any], bool] = None
         leaves.append(node)
         return TreeDef("leaf")
 
-    treedef = walk(tree)
+    try:
+        treedef = walk(tree)
+    finally:
+        # ``walk`` refers to itself through its closure: emptying its cell
+        # breaks that cycle, so the leaves are not kept alive until the
+        # cyclic garbage collector runs (a served model's weights, say)
+        del walk
     return leaves, treedef
 
 
@@ -96,6 +102,8 @@ def tree_unflatten(treedef: TreeDef, leaves) -> Any:
     except StopIteration:
         raise ValueError("fewer leaves than the tree structure holds") \
             from None
+    finally:
+        del build                # the self-reference, as in tree_flatten
     if next(it, _END) is not _END:
         raise ValueError("more leaves than the tree structure holds")
     return out

@@ -55,22 +55,30 @@ struct Ring {
 };
 
 // kEPL = Dh / 32 consecutive elements -> f32, exactly (a bf16 is the top
-// half of its f32); 16-byte vector loads.
+// half of its f32); one vector load of 4 * kEPL or 2 * kEPL bytes (8 to 16;
+// 4 for bf16 at Dh = 64).
 template <int N>
 __device__ __forceinline__ void load_row(const float* p, float (&x)[N]) {
+  static_assert(N == 2 || N % 4 == 0, "2 or a multiple of 4 f32 a lane");
+  if constexpr (N == 2) {
+    const float2 u = *reinterpret_cast<const float2*>(p);
+    x[0] = u.x;
+    x[1] = u.y;
+  } else {
 #pragma unroll
-  for (int g = 0; g < N / 4; ++g) {
-    const float4 u = reinterpret_cast<const float4*>(p)[g];
-    x[4 * g] = u.x;
-    x[4 * g + 1] = u.y;
-    x[4 * g + 2] = u.z;
-    x[4 * g + 3] = u.w;
+    for (int g = 0; g < N / 4; ++g) {
+      const float4 u = reinterpret_cast<const float4*>(p)[g];
+      x[4 * g] = u.x;
+      x[4 * g + 1] = u.y;
+      x[4 * g + 2] = u.z;
+      x[4 * g + 3] = u.w;
+    }
   }
 }
 template <int N>
 __device__ __forceinline__ void load_row(const __nv_bfloat16* p,
                                          float (&x)[N]) {
-  static_assert(N == 4 || N == 8, "4 or 8 bf16 a lane");
+  static_assert(N == 2 || N == 4 || N == 8, "2, 4 or 8 bf16 a lane");
   uint32_t w[N / 2];
   if constexpr (N == 8) {
     const uint4 u = *reinterpret_cast<const uint4*>(p);
@@ -78,10 +86,12 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p,
     w[1] = u.y;
     w[2] = u.z;
     w[3] = u.w;
-  } else {
+  } else if constexpr (N == 4) {
     const uint2 u = *reinterpret_cast<const uint2*>(p);
     w[0] = u.x;
     w[1] = u.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
   }
 #pragma unroll
   for (int g = 0; g < N / 2; ++g) {
@@ -257,6 +267,8 @@ int dispatch(int64_t Dh, const void* q1, const void* k, const void* v,
              void* out, int64_t BH, int64_t S, int64_t length, float scale,
              cudaStream_t st) {
   switch (Dh) {
+    case 64:
+      return launch<64, T>(q1, k, v, out, BH, S, length, scale, st);
     case 128:
       return launch<128, T>(q1, k, v, out, BH, S, length, scale, st);
     case 256:
@@ -270,7 +282,7 @@ int dispatch(int64_t Dh, const void* q1, const void* k, const void* v,
 
 // Plain C entry point (bound with ctypes).  q1, out: (BH, 1, Dh); k, v:
 // (BH, S, Dh); contiguous, 16-byte aligned, f32 (bf16 == 0) or bf16
-// (bf16 == 1); Dh 128 or 256; 0 <= length <= S; scale = float32(Dh **
+// (bf16 == 1); Dh 64, 128 or 256; 0 <= length <= S; scale = float32(Dh **
 // -0.5).  Launches on `stream` and returns cudaGetLastError() (0 on
 // success); does not synchronize.
 extern "C" int repro_decode_attention(int bf16, const void* q1,

@@ -20,9 +20,10 @@
 // bf16 (the model path): wgmma for both products, fed by TMA.  One block of
 // two consumer warpgroups per (bh, tile of 128 query rows), heaviest causal
 // tiles first; each warpgroup owns 64 rows (wgmma's M).  The Q tile and a
-// ring of K/V stages (64 keys x Dh; 2 stages at Dh = 256, 4 at Dh = 128) are
-// bf16 in shared memory, written by TMA through 3-D tensor maps (Dh, S, BH)
-// with the 128-byte swizzle: a 128-byte box is 64 columns wide, so a tile is
+// ring of K/V stages (64 keys x Dh; 2 stages at Dh = 256, 4 at Dh = 128, 6
+// at Dh = 64, whose 8 KB tiles leave room for more in flight) are bf16 in
+// shared memory, written by TMA through 3-D tensor maps (Dh, S, BH) with
+// the 128-byte swizzle: a 128-byte box is 64 columns wide, so a tile is
 // Dh / 64 column slabs, and rows past S read as zeros.  Thread 0 starts the
 // loads of tile t + stages once every warp has released tile t (an mbarrier
 // per stage each way).  S = Q K^T runs as Dh / 16 wgmma m64n64k16 with both
@@ -303,6 +304,9 @@ int dispatch(int64_t Dh, const void* q, const void* k, const void* v,
              void* out, int64_t BH, int64_t Sq, int64_t Skv, int mode,
              int window, int chunk, float scale, cudaStream_t st) {
   switch (Dh) {
+    case 64:
+      return launch<64, T>(q, k, v, out, BH, Sq, Skv, mode, window, chunk,
+                           scale, st);
     case 128:
       return launch<128, T>(q, k, v, out, BH, Sq, Skv, mode, window, chunk,
                             scale, st);
@@ -329,7 +333,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int DH>
 struct Tiles {
   static constexpr int kSlabs = DH / kSlabCols;
-  static constexpr int kStages = DH == 256 ? 2 : 4;
+  static constexpr int kStages = DH == 256 ? 2 : DH == 128 ? 4 : 6;
   static constexpr int kQBytes = kWBQ * DH * 2;
   static constexpr int kTileBytes = kWBK * DH * 2;  // one K or V tile
   static constexpr int kStageBytes = 2 * kTileBytes;
@@ -421,6 +425,12 @@ __device__ __forceinline__ void online_softmax(
 template <int DH>
 __device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2],
                                          const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  hopper::wgmma_rs_m64n64k16(o, a, db);
+}
 template <>
 __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
                                               const uint32_t (&a)[4],
@@ -600,7 +610,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
 
 // Plain C entry point (bound with ctypes).  q, out: (BH, Sq, Dh); k, v:
 // (BH, Skv, Dh); contiguous, 16-byte aligned, f32 (bf16 == 0: the CUDA-core
-// kernel) or bf16 (bf16 == 1: the wgmma kernel); Dh 128 or 256; mode 0
+// kernel) or bf16 (bf16 == 1: the wgmma kernel); Dh 64, 128 or 256; mode 0
 // causal, 1 sliding, 2 chunked (chunk > 0), 3 bidir; scale = float32(Dh **
 // -0.5).  Launches on `stream` and returns a CUDA error code (0 on success);
 // does not synchronize.
@@ -615,6 +625,9 @@ extern "C" int repro_flash_attention(int bf16, const void* q, const void* k,
     return dispatch<float>(Dh, q, k, v, out, BH, Sq, Skv, mode, window,
                            chunk, scale, st);
   switch (Dh) {
+    case 64:
+      return launch_wgmma<64>(q, k, v, out, BH, Sq, Skv, mode, window, chunk,
+                              scale, st);
     case 128:
       return launch_wgmma<128>(q, k, v, out, BH, Sq, Skv, mode, window, chunk,
                                scale, st);

@@ -33,7 +33,7 @@ from . import _build
 NEG_INF = -1.0e30
 DTYPES = (torch.float32, torch.bfloat16)
 #: head widths the kernel is compiled for.
-HEAD_DIMS = (128, 256)
+HEAD_DIMS = (64, 128, 256)
 
 _SOURCE = "decode_attention.cu"
 

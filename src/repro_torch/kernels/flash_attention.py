@@ -45,7 +45,7 @@ NEG_INF = -1.0e30
 MODES = ("causal", "sliding", "chunked", "bidir")
 DTYPES = (torch.float32, torch.bfloat16)
 #: head widths the kernel is compiled for.
-HEAD_DIMS = (128, 256)
+HEAD_DIMS = (64, 128, 256)
 
 _SOURCE = "flash_attention.cu"
 

@@ -12,11 +12,13 @@ the host (``--device cpu``).  Prompts and the random init come from
 
 ``--reduce`` (the default) gives the reference's ``reduced(cfg)`` on the
 CPU; on CUDA it gives ``reduced(cfg, d_model=128, n_heads=1)``, heads of
-128, since the attention kernels take head widths of 128 and 256 only
-(the reference's reduced heads are 16 wide).  The attention archs
-(starcoder2-3b, codeqwen1.5-7b, deepseek-coder-33b, granite-20b), the
-hybrid recurrentgemma-9b and xlstm-125m are served; the MoE archs (dbrx,
-llama4), whisper and internvl exit naming ROADMAP A9c's next slice.
+128, since the attention kernels take head widths of 64, 128 and 256 only
+(the reference's reduced heads are 16 wide).  All ten archs are served:
+the attention archs (starcoder2-3b, codeqwen1.5-7b, deepseek-coder-33b,
+granite-20b), the MoE archs (dbrx-132b, llama4-scout-17b-a16e), the
+hybrid recurrentgemma-9b, xlstm-125m, whisper-tiny (random stub frames
+through its encoder) and internvl2-1b (random stub prefix embeddings
+before the prompt).
 
 Advisor path: drive the checkpoint-advisor service (``repro_torch.serve``)
 with a synthetic open-loop workload and print throughput/latency/cache
@@ -45,7 +47,8 @@ def generator(seed: int) -> np.random.Generator:
 CUDA_REDUCE = dict(d_model=128, n_heads=1)
 #: the archs the model path serves.
 SERVED = ("starcoder2-3b", "codeqwen1.5-7b", "deepseek-coder-33b",
-          "granite-20b", "recurrentgemma-9b", "xlstm-125m")
+          "granite-20b", "dbrx-132b", "llama4-scout-17b-a16e",
+          "recurrentgemma-9b", "xlstm-125m", "whisper-tiny", "internvl2-1b")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,23 +76,17 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def serving_config(args, device: "torch.device"):
+def serving_config(args, device: "torch.device", cut=None):
     """The architecture ``args`` name, cut by ``--reduce`` for ``device``
-    and set to ``--kv-cache`` and ``--waves``; an arch whose layers the
-    port does not serve yet exits naming its slice."""
+    and set to ``--kv-cache`` and ``--waves``; ``cut`` (a dict of
+    config fields, e.g. ``n_layers``) is applied last."""
     from ..configs import get_config, reduced
     cfg = get_config(args.arch)
-    if cfg.n_experts or cfg.is_encoder_decoder or cfg.n_prefix_tokens:
-        raise SystemExit(
-            f"repro_torch.launch.serve: {cfg.name} needs the MoE, "
-            f"encoder-decoder or prefix inputs, which are not ported yet "
-            f"(ROADMAP A9c, the next slice); the port serves "
-            f"{', '.join(SERVED)}")
     if args.reduce:
         cfg = (reduced(cfg) if device.type == "cpu"
                else reduced(cfg, **CUDA_REDUCE))
     return dataclasses.replace(cfg, kv_cache_dtype=args.kv_cache,
-                               prefill_waves=args.waves)
+                               prefill_waves=args.waves, **(cut or {}))
 
 
 @dataclasses.dataclass
@@ -108,27 +105,40 @@ class ServeRun:
     decode_s: float
 
 
-def model_main(args, *, sync_debug=None) -> ServeRun:
-    """Prefill ``--batch`` random prompts of ``--prompt-len`` tokens, then
+def model_main(args, *, sync_debug=None, cut=None) -> ServeRun:
+    """Prefill ``--batch`` random prompts of ``--prompt-len`` tokens (with
+    random stub frames for an encoder-decoder and a random stub prefix for
+    a VLM, ``0.02`` times a normal draw, as the reference's), then
     greedy-decode ``--new-tokens``; prints the reference's lines.  Times
     are taken after ``torch.cuda.synchronize`` on the card.  On CUDA,
     ``sync_debug`` (``"warn"`` or ``"error"``) is the
     ``torch.cuda.set_sync_debug_mode`` the decode loop runs under: a step
-    that reads the device then warns or raises."""
+    that reads the device then warns or raises.  ``cut`` changes config
+    fields after the flags (``serving_config``): a full-width MoE arch at
+    a few of its layers, say, or another ``moe_impl``."""
     import torch
 
     from .._device import resolve_device
     from ..models import build
 
     dev = resolve_device(args.device)
-    cfg = serving_config(args, dev)
+    cfg = serving_config(args, dev, cut)
     model = build(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed),
                         device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=dev)
-    total = args.prompt_len + args.new_tokens
+    batch = {"tokens": prompts}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = 0.02 * torch.randn(
+            (args.batch, cfg.encoder_seq, cfg.d_model), generator=gen,
+            device=dev)
+    if cfg.n_prefix_tokens:
+        batch["prefix"] = 0.02 * torch.randn(
+            (args.batch, cfg.n_prefix_tokens, cfg.d_model), generator=gen,
+            device=dev)
+    total = args.prompt_len + (cfg.n_prefix_tokens or 0) + args.new_tokens
     cuda = dev.type == "cuda"
 
     def sync():
@@ -138,8 +148,7 @@ def model_main(args, *, sync_debug=None) -> ServeRun:
     with torch.no_grad():
         sync()
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": prompts},
-                                      max_cache_seq=total)
+        logits, cache = model.prefill(params, batch, max_cache_seq=total)
         sync()
         t_prefill = time.perf_counter() - t0
 

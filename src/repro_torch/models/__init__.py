@@ -5,8 +5,8 @@ bundles an :class:`~repro_torch.configs.ArchConfig` with its parameter
 tree, init, loss, forward and an AdamW train step.  Parameters are plain
 trees of tensors (dicts and tuples, leaves in the reference's order);
 gradients come from ``torch.autograd``.  ``prefill`` (in waves) and
-``decode_step`` serve the attention and recurrent archs; ``input_specs``
-(its shardings) waits for ROADMAP A11.
+``decode_step`` serve all ten archs; ``input_specs`` (its shardings)
+waits for ROADMAP A11.
 """
 from __future__ import annotations
 
@@ -21,8 +21,8 @@ from ..optim import adamw
 from . import transformer as tfm
 from .spec import ParamSpec, init_tree, is_spec, torch_dtype, tree_size
 
-__all__ = ["Model", "build", "batch_spec", "ParamSpec", "init_tree",
-           "is_spec", "tree_size"]
+__all__ = ["Model", "build", "batch_spec", "decode_input_spec", "ParamSpec",
+           "init_tree", "is_spec", "tree_size"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,4 +152,13 @@ def batch_spec(cfg: ArchConfig, shape: ShapeConfig) -> dict:
     if cfg.is_encoder_decoder:
         out["frames"] = ParamSpec((B, cfg.encoder_seq, cfg.d_model),
                                   ("batch", None, "act_embed"), "float32")
+    return out
+
+
+def decode_input_spec(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """ParamSpec tree of one decode step's input token (B, 1)."""
+    B = shape.global_batch
+    out = {"token": ParamSpec((B, 1), ("batch", None), "int32")}
+    if B == 1:
+        out["token"] = ParamSpec((B, 1), (None, None), "int32")
     return out

@@ -19,6 +19,9 @@ reads it.
   number of leading cache slots it allows (:func:`decode_length`, worked
   out on the host) and launches ``kernels/ops.py::decode_attention`` on
   the KV cache expanded to the q heads.
+* :func:`cross_attention` (whisper's decoder over the encoder output) is
+  flash in the ``bidir`` mode with Sq != Skv; its decode
+  (:func:`cross_decode_attention`) reads all of the cross cache.
 """
 from __future__ import annotations
 
@@ -173,16 +176,17 @@ def decode_attention(cfg, q1: torch.Tensor, ck: torch.Tensor,
 # Full multi-head layer (projections + rope + core + output)
 # ---------------------------------------------------------------------------
 
+def project_heads(x: torch.Tensor, w: torch.Tensor, cd) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk", x, w.astype(cd))."""
+    d, h, dh = w.shape
+    return (x @ w.to(cd).reshape(d, h * dh)).unflatten(-1, (h, dh))
+
+
 def project_qkv(cfg, p: dict, x: torch.Tensor, positions, *,
                 use_rope: bool, compute_dtype):
     """x: (B,S,d) -> q (B,S,Hq_pad,Dh), k/v (B,S,Hkv,Dh)."""
     cd = compute_dtype
-
-    def proj(w):                 # einsum("bsd,dhk->bshk")
-        d, h, dh = w.shape
-        return (x @ w.to(cd).reshape(d, h * dh)).unflatten(-1, (h, dh))
-
-    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+    q, k, v = (project_heads(x, p[w], cd) for w in ("wq", "wk", "wv"))
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -211,11 +215,28 @@ def self_attention(cfg, p: dict, x: torch.Tensor, positions, *,
 
 
 def cross_kv(cfg, p: dict, enc_out: torch.Tensor, compute_dtype):
-    raise NotImplementedError("cross-attention (whisper) is not ported yet "
-                              "(ROADMAP A9c, the next slice)")
+    """Project the encoder output (B, F, d) to un-expanded cross K/V
+    (B, F, Hkv, Dh)."""
+    return project_heads(enc_out, p["wk"], compute_dtype), project_heads(
+        enc_out, p["wv"], compute_dtype)
 
 
 def cross_attention(cfg, p: dict, x: torch.Tensor, enc_out: torch.Tensor,
                     compute_dtype):
-    raise NotImplementedError("cross-attention (whisper) is not ported yet "
-                              "(ROADMAP A9c, the next slice)")
+    """Decoder-to-encoder attention (whisper): every query row sees all F
+    encoder positions (flash in the ``bidir`` mode, Sq != Skv).  Returns
+    (y, (k, v)), the un-expanded cross K/V for the cache."""
+    q = project_heads(x, p["wq"], compute_dtype)
+    k, v = cross_kv(cfg, p, enc_out, compute_dtype)
+    out = attention(q, expand_kv(cfg, k), expand_kv(cfg, v), mode="bidir")
+    return output_proj(cfg, p, out, compute_dtype), (k, v)
+
+
+def cross_decode_attention(cfg, q1: torch.Tensor, xk: torch.Tensor,
+                           xv: torch.Tensor) -> torch.Tensor:
+    """One decode step's query (B, 1, Hq_pad, Dh) against the cross cache
+    (B, F, Hkv, Dh).  The cross cache is no ring: the reference attends all
+    F slots whatever the position (its ``slot_pos`` is ``arange(F)`` and
+    its ``pos`` F), so the kernel reads F slots."""
+    return kops.decode_attention(q1, expand_kv(cfg, xk), expand_kv(cfg, xv),
+                                 xk.shape[1])

@@ -105,13 +105,21 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 def sinusoidal_positions(seq: int, d: int, offset=0,
                          device=None) -> torch.Tensor:
-    """Classic transformer sinusoidal embeddings (whisper)."""
-    pos = (torch.arange(seq, dtype=F32, device=device) + offset)[:, None]
+    """Classic transformer sinusoidal embeddings (whisper), f32.
+
+    Computed in f64 and rounded once: the reference's f32 angles (up to
+    1500 rad for whisper's frames) carry ~1e-4 of rounding into each sine,
+    and f32 ``sin`` differs between the CPU and the card by as much, which
+    whisper's random full-width model amplifies to O(1) in its logits.
+    Rounded from f64, the table is the same on either device and within
+    an f32 rounding of the exact values."""
+    f64 = torch.float64
+    pos = (torch.arange(seq, dtype=f64, device=device) + offset)[:, None]
     half = d // 2
-    freqs = (1.0 / 10_000.0) ** (torch.arange(half, dtype=F32,
+    freqs = (1.0 / 10_000.0) ** (torch.arange(half, dtype=f64,
                                               device=device) / half)
     ang = pos * freqs
-    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(F32)
 
 
 # ---------------------------------------------------------------------------

@@ -19,9 +19,12 @@ a decode step works out each kind's mask there and never reads the
 device; ``decode_step`` writes the new token's K/V and the recurrent
 states into the cache's tensors in place.
 
-The attention kinds (causal, sliding, chunked, global NoPE) and the
-recurrent kinds run; the MoE, encoder-decoder (whisper) and prefix
-(internvl) inputs raise, naming ROADMAP A9c's next slice.
+Every kind runs: the attention kinds (causal, sliding, chunked, global
+NoPE), their MoE-FFN forms (``moe:*``), whisper's encoder (``enc``) and
+decoder (``xattn``: self-attention, then cross-attention over the
+encoder output, whose K/V the cache keeps unquantized), and the
+recurrent kinds; ``forward`` takes internvl's prefix embeddings and
+whisper's frames.
 """
 from __future__ import annotations
 
@@ -35,13 +38,13 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import recurrent as rec
 from .layers import (apply_norm, norm_spec, mlp_spec, apply_mlp, embed_spec,
-                     embed_lookup, unembed, cross_entropy)
+                     embed_lookup, unembed, cross_entropy,
+                     sinusoidal_positions)
 from .spec import ParamSpec, torch_dtype
 
 F32 = torch.float32
 
 RECURRENT_KINDS = ("mlstm", "slstm", "rglru")
-_LATER = "is not ported yet (ROADMAP A9c, the next slice)"
 
 
 def _kv_quant(k: torch.Tensor):
@@ -266,14 +269,6 @@ def _attn_mode(kind: str) -> tuple:
     }[kind]
 
 
-def _check_kind(kind: str) -> None:
-    if ffn_kind(kind) == "moe":
-        raise NotImplementedError(f"the MoE layer {_LATER}")
-    if kind in ("xattn", "enc"):
-        raise NotImplementedError(f"the encoder-decoder ({kind!r}) layer "
-                                  f"{_LATER}")
-
-
 def apply_layer_full(cfg, kind: str, p: dict, x: torch.Tensor,
                      positions: torch.Tensor, *, collect_cache: bool,
                      max_seq: int, enc_kv=None):
@@ -294,24 +289,41 @@ def apply_layer_full(cfg, kind: str, p: dict, x: torch.Tensor,
             x = x + y
         return x, (state if collect_cache else None)
 
-    _check_kind(kind)
     mode, use_rope = _attn_mode(kind)
+    if cfg.is_encoder_decoder:
+        use_rope = False
     h = apply_norm(p["ln1"], x, cfg.norm)
     y, (k, v) = attn.self_attention(
         cfg, p["attn"], h, positions, mode=mode, use_rope=use_rope,
         compute_dtype=cd, window=cfg.window, chunk=cfg.chunk)
     x = x + y
-    h2 = apply_norm(p["ln2"], x, cfg.norm)
-    x = x + apply_mlp(p["mlp"], h2, cfg.mlp, cfg.act, cd)
-    if not collect_cache:
+    cross = None
+    if kind == "xattn":
+        hx = apply_norm(p["lnx"], x, cfg.norm)
+        y, cross = attn.cross_attention(cfg, p["xattn"], hx, enc_kv, cd)
+        x = x + y
+    x = x + _ffn(cfg, kind, p, x, cd)
+    if not collect_cache or kind == "enc":
         return x, None
     Sc = _cache_len(cfg, kind, max_seq)
     kc, vc = _to_cache(k, Sc), _to_cache(v, Sc)
     if cfg.kv_cache_dtype == "int8":
         kc, ks = _kv_quant(kc)
         vc, vs = _kv_quant(vc)
-        return x, {"k": kc, "k_scale": ks, "v": vc, "v_scale": vs}
-    return x, {"k": kc, "v": vc}
+        entry = {"k": kc, "k_scale": ks, "v": vc, "v_scale": vs}
+    else:
+        entry = {"k": kc, "v": vc}
+    if kind == "xattn":
+        entry["xk"], entry["xv"] = cross
+    return x, entry
+
+
+def _ffn(cfg, kind: str, p: dict, x: torch.Tensor, cd) -> torch.Tensor:
+    """The block's second residual branch: the MoE FFN or the MLP."""
+    h2 = apply_norm(p["ln2"], x, cfg.norm)
+    if ffn_kind(kind) == "moe":
+        return moe_mod.moe_ffn(cfg, p["moe"], h2, cd)
+    return apply_mlp(p["mlp"], h2, cfg.mlp, cfg.act, cd)
 
 
 def _to_cache(k: torch.Tensor, Sc: int) -> torch.Tensor:
@@ -361,8 +373,14 @@ def _run_stack(cfg, params, x, positions, *, collect_cache: bool,
         x, entry = layer(kind, x, psl)
         tail_caches.append(entry)
     # the reference's scan stacks each kind's entries: leading (n,)
-    stage_caches = (tuple(_stack_trees(e) for e in entries)
-                    if collect_cache else ())
+    if not collect_cache:
+        stage_caches = ()
+    elif n:
+        stage_caches = tuple(_stack_trees(e) for e in entries)
+    else:     # no whole super-block (llama4 cut below 4 layers): (0, ...)
+        spec = cache_spec(cfg, x.shape[0], max_seq)["layers"]["stages"]
+        stage_caches = tree_map(lambda s: torch.empty(
+            s.shape, dtype=torch_dtype(s.dtype), device=x.device), spec)
     return x, {"stages": stage_caches, "tail": tuple(tail_caches)}
 
 
@@ -372,6 +390,30 @@ def _stack_trees(trees: list):
     td = flat[0][1]
     return tree_unflatten(td, [torch.stack(xs) for xs in
                                zip(*(leaves for leaves, _ in flat))])
+
+
+def _run_encoder(cfg, params, frames: torch.Tensor) -> torch.Tensor:
+    """whisper's encoder over stub frame embeddings (B, F, d): sinusoidal
+    positions, the ``enc`` layers (bidirectional, no cache), the final
+    norm."""
+    cd = torch_dtype(cfg.compute_dtype)
+    x = frames.to(cd)
+    F = x.shape[1]
+    x = x + sinusoidal_positions(F, cfg.d_model,
+                                 device=x.device).to(cd)[None]
+    positions = torch.arange(F, device=x.device)
+    stage = params["encoder"]["stage"]
+
+    def layer(xh, psl):
+        return apply_layer_full(cfg, "enc", psl, xh, positions,
+                                collect_cache=False, max_seq=F)[0]
+
+    for psl in _unstack(stage, cfg.n_encoder_layers):
+        if cfg.remat == "full" and torch.is_grad_enabled():
+            x = checkpoint(layer, x, psl, use_reentrant=False)
+        else:
+            x = layer(x, psl)
+    return apply_norm(params["encoder"]["final_norm"], x, cfg.norm)
 
 
 def _embed_inputs(cfg, params, tokens, prefix=None):
@@ -399,21 +441,29 @@ def forward(cfg, params, tokens, *, prefix=None, frames=None,
             collect_cache: bool = False, max_cache_seq: Optional[int] = None):
     """Full-sequence forward.  Returns (logits, cache_or_None).
 
-    tokens: (B, S) integer.  With ``collect_cache`` (serving prefill) the
-    logits are the last position's, (B, 1, V), and the cache holds the
-    ring buffers of ``max_cache_seq`` (default S) positions.  The encoder
-    (whisper) and prefix (internvl) inputs wait for ROADMAP A9c's next
-    slice."""
-    if cfg.is_encoder_decoder or frames is not None:
-        raise NotImplementedError(f"the encoder-decoder forward {_LATER}")
-    if prefix is not None:
-        raise NotImplementedError(f"the prefix (VLM) input {_LATER}")
+    tokens: (B, S) integer; prefix: (B, P, d) early-fusion embeddings
+    (internvl), put before the tokens; frames: (B, F, d) stub audio frame
+    embeddings (whisper), run through the encoder.  With ``collect_cache``
+    (serving prefill) the logits are the last position's, (B, 1, V), and
+    the cache holds the ring buffers of ``max_cache_seq`` (default: the
+    sequence, prefix included) positions."""
+    cd = torch_dtype(cfg.compute_dtype)
+    enc_kv = None
+    if cfg.is_encoder_decoder:
+        if frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: forward "
+                             f"needs frames")
+        enc_kv = _run_encoder(cfg, params, frames)
     x = _embed_inputs(cfg, params, tokens, prefix)
     S = x.shape[1]
+    if cfg.is_encoder_decoder:
+        x = x + sinusoidal_positions(S, cfg.d_model,
+                                     device=x.device).to(cd)[None]
     positions = torch.arange(S, device=x.device)
     max_seq = max_cache_seq or S
     x, caches = _run_stack(cfg, params, x, positions,
-                           collect_cache=collect_cache, max_seq=max_seq)
+                           collect_cache=collect_cache, max_seq=max_seq,
+                           enc_kv=enc_kv)
     if collect_cache:
         # serving prefill: only the next-token logits are needed
         x = x[:, -1:]
@@ -466,7 +516,8 @@ def apply_layer_decode(cfg, kind: str, p: dict, x: torch.Tensor, entry,
     """One block for a single token.  x: (B, 1, d); pos: the host int
     position.  Returns (x, new_entry): an attention kind's new K/V are
     written into ``entry``'s tensors at slot ``pos % Sc`` (in place), a
-    recurrent kind's state is new."""
+    recurrent kind's state is new.  An ``xattn`` block also attends the
+    entry's cross K/V, all of it."""
     cd = torch_dtype(cfg.compute_dtype)
     if kind in RECURRENT_KINDS:
         h = apply_norm(p["ln1"], x, cfg.norm)
@@ -483,8 +534,9 @@ def apply_layer_decode(cfg, kind: str, p: dict, x: torch.Tensor, entry,
             x = x + y
         return x, state
 
-    _check_kind(kind)
     mode, use_rope = _attn_mode(kind)
+    if cfg.is_encoder_decoder:
+        use_rope = False
     h = apply_norm(p["ln1"], x, cfg.norm)
     positions = torch.arange(pos, pos + 1, device=x.device)
     q, k1, v1 = attn.project_qkv(cfg, p["attn"], h, positions,
@@ -508,8 +560,12 @@ def apply_layer_decode(cfg, kind: str, p: dict, x: torch.Tensor, entry,
     out = attn.decode_attention(cfg, q, ck_c, cv_c, pos, mode=mode,
                                 window=cfg.window, chunk=cfg.chunk)
     x = x + attn.output_proj(cfg, p["attn"], out, cd)
-    h2 = apply_norm(p["ln2"], x, cfg.norm)
-    x = x + apply_mlp(p["mlp"], h2, cfg.mlp, cfg.act, cd)
+    if kind == "xattn":
+        hx = apply_norm(p["lnx"], x, cfg.norm)
+        qx = attn.project_heads(hx, p["xattn"]["wq"], cd)
+        o = attn.cross_decode_attention(cfg, qx, entry["xk"], entry["xv"])
+        x = x + attn.output_proj(cfg, p["xattn"], o, cd)
+    x = x + _ffn(cfg, kind, p, x, cd)
     return x, entry
 
 
@@ -530,6 +586,10 @@ def decode_step(cfg, params, cache, token):
         v[pos % v.shape[0]] = pos
         slot_pos[k] = v
     x = _embed_inputs(cfg, params, token)
+    if cfg.is_encoder_decoder:
+        cd = torch_dtype(cfg.compute_dtype)
+        x = x + sinusoidal_positions(1, cfg.d_model, offset=pos,
+                                     device=x.device).to(cd)
 
     pslices = [_unstack(stage, n) for stage in params["stages"]]
     stages = cache["layers"]["stages"]

@@ -865,11 +865,13 @@ class TestServeCLI:
         assert "dispatched solves" in capsys.readouterr().out
 
     def test_model_path_names_what_is_missing(self):
-        """The model path serves the attention and recurrent archs; an MoE
-        arch exits naming the slice that brings it."""
+        """The launcher's model path (beside the advisor) serves an MoE
+        arch too: dbrx, reduced, on the CPU."""
         from repro_torch.launch.serve import main
-        with pytest.raises(SystemExit, match="A9c, the next slice"):
-            main(["--arch", "dbrx-132b", "--device", "cpu"])
+        run = main(["--arch", "dbrx-132b", "--device", "cpu", "--batch",
+                    "2", "--prompt-len", "16", "--new-tokens", "3"])
+        assert run.cfg.n_experts and run.tokens.shape == (2, 3)
+        assert bool(torch.isfinite(run.logits.float()).all())
 
 
 class TestBenchAdvisor:

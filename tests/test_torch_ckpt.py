@@ -976,3 +976,28 @@ def test_interop_carries_multilevel_params():
     got = interop.ml_power_from_fields(dataclasses.asdict(
         R.EXASCALE_ML_POWER))
     assert dataclasses.asdict(got) == dataclasses.asdict(R.EXASCALE_ML_POWER)
+
+
+def test_tree_functions_leave_no_reference_cycle():
+    """``tree_flatten``, ``tree_unflatten`` and ``tree_map`` free a tree's
+    leaves as soon as the caller drops them, without waiting for the
+    cyclic garbage collector: their recursive helpers referred to
+    themselves through their closures, and on the card a served model's
+    weights outlived the run that made them."""
+    import gc
+    import weakref
+    from repro_torch.ckpt.tree import tree_unflatten
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        x = torch.zeros(4)
+        ref = weakref.ref(x)
+        tree = {"a": (x, [x * 2]), "b": None}
+        leaves, td = tree_flatten(tree)
+        tree_unflatten(td, leaves)
+        tree_map(lambda t: t + 1, tree)
+        del x, tree, leaves
+        assert ref() is None
+    finally:
+        if was:
+            gc.enable()

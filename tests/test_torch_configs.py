@@ -115,6 +115,16 @@ def test_batch_spec_matches_reference():
                                     TC.SHAPES[shape.name]))
 
 
+def test_decode_input_spec_matches_reference():
+    from repro.models import decode_input_spec as ref_spec
+    from repro_torch.models import decode_input_spec
+    for name in ARCHS:
+        for shape in RC.get_config(name).applicable_shapes():
+            _same_leaves(ref_spec(RC.get_config(name), shape),
+                         decode_input_spec(TC.get_config(name),
+                                           TC.SHAPES[shape.name]))
+
+
 # ---------------------------------------------------------------------------
 # init_tree, per rule
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """The serving launcher's model path (``repro_torch.launch.serve``) against
 the reference's (``repro.launch.serve``): the same flags and defaults
 plus ``--device`` (default ``cuda``, raising without a GPU), the same
-output lines, the width rule of ``--reduce`` on CUDA, and the archs left
-for the next slice exiting with a message naming it."""
+output lines for all ten archs, and the width rule of ``--reduce`` on
+CUDA."""
 import dataclasses
 import re
 
@@ -104,9 +104,23 @@ def test_reduce_width_rule(arch):
 
 
 @pytest.mark.parametrize("arch", LATER)
-def test_later_archs_exit_naming_the_next_slice(arch):
-    with pytest.raises(SystemExit, match="next slice"):
-        serve.main(["--arch", arch, "--device", "cpu"] + SMALL)
+def test_later_archs_exit_naming_the_next_slice(arch, capsys):
+    """The archs that exited before the port's MoE and encoder-decoder
+    slice are served now: the CLI on the CPU prints the reference's lines
+    (timings and ids the run's own), with stub frames for whisper and a
+    stub prefix for internvl, whose cache holds prefix, prompt and new
+    tokens."""
+    run = serve.main(["--arch", arch, "--device", "cpu"] + SMALL)
+    got = capsys.readouterr().out.splitlines()
+    ref_serve.main(["--arch", arch] + SMALL)
+    want = capsys.readouterr().out.splitlines()
+    assert len(got) == len(want) == 4 and got[0] == want[0]
+    num = r"[0-9.]+"
+    for g, w in zip(got[1:], want[1:]):
+        assert re.sub(num, "#", g) == re.sub(num, "#", w)
+    assert run.tokens.shape == (2, 5)
+    assert bool(torch.isfinite(run.logits.float()).all())
+    assert int(run.cache["pos"]) == 40 + (run.cfg.n_prefix_tokens or 0) + 4
 
 
 def test_chip_smoke_serve_phase_rehearses_on_the_cpu(monkeypatch, capsys):
@@ -130,3 +144,26 @@ def test_chip_smoke_serve_phase_rehearses_on_the_cpu(monkeypatch, capsys):
             assert max(r["f32_rows"]) == 0 and max(r["bf16_rows"]) == 0
     out = capsys.readouterr().out
     assert out.count("[cpu]") >= 7 and "FAIL" not in out
+
+
+def test_chip_smoke_serve15_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    """``chip_smoke.phase_serve15`` (the MoE archs in both routings,
+    whisper and internvl) end to end on the CPU at reduced widths: its
+    gates hold, every run's plain-version calls stand for the launches the
+    card makes, and card against CPU compares the CPU with itself (no
+    routing flip)."""
+    from pathlib import Path
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    rep = chip_smoke.phase_serve15(torch.device("cpu"), "cpu",
+                                   rehearse=True)
+    for name in chip_smoke.SERVE15_PARTS:
+        assert not any(rep[name]["launches"].values())
+    assert rep["launches"] == {"flash_attention": 0, "decode_attention": 0}
+    for r in rep["vs_cpu"].values():
+        if isinstance(r, dict):
+            assert r["finite"] and r["rows"] == 2 * 5
+            assert max(r["f32_rows"]) == 0 and max(r["bf16_rows"]) == 0
+            assert r["flips"] == {"f32": 0, "bf16": 0}
+    out = capsys.readouterr().out
+    assert out.count("[cpu]") >= 13 and "FAIL" not in out

@@ -127,7 +127,7 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
             "repro_torch.benchmarks.validate_runtime, "
             "repro_torch.benchmarks.train_fault_tolerant, "
             "repro_torch.models.attention, repro_torch.models.transformer, "
-            "repro_torch.benchmarks.serve_batched\n"
+            "repro_torch.models.moe, repro_torch.benchmarks.serve_batched\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(','.join(bad))\n")
@@ -203,4 +203,27 @@ def test_serving_entry_points_need_a_gpu_by_default():
         interop.cache_from_numpy(tree, cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--batch", "1", "--prompt-len", "8"])
+    for arch in ("dbrx-132b", "llama4-scout-17b-a16e", "whisper-tiny",
+                 "internvl2-1b"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            serve.main(["--arch", arch, "--batch", "1", "--prompt-len", "8"])
+
+
+@pytest.mark.parametrize("wrapper", ["flash_attention", "decode_attention"])
+def test_attention_kernels_take_heads_of_64_128_256(wrapper):
+    """Both attention kernels are built for heads of 64 (whisper-tiny,
+    internvl2-1b), 128 and 256; another width raises in the wrapper's
+    launch path, before any build, and does not drop to the plain
+    version."""
+    import importlib
+    import torch
+    mod = importlib.import_module(f"repro_torch.kernels.{wrapper}")
+    assert mod.HEAD_DIMS == (64, 128, 256)
+    x = torch.zeros((2, 8, 32))
+    args = (x, x, x, "causal", 0, 0) if wrapper == "flash_attention" else (
+        x[:, :1], x, x, 8)
+    calls = getattr(mod, f"{wrapper}_plain").calls
+    with pytest.raises(ValueError, match="Dh"):
+        mod._kernel(*args)
+    assert getattr(mod, f"{wrapper}_plain").calls == calls
 

@@ -265,16 +265,31 @@ def test_mlstm_block_final_state_matches_the_chunk_scan():
 @pytest.mark.parametrize("arch", ["dbrx-132b", "whisper-tiny",
                                   "internvl2-1b"])
 def test_unported_kinds_raise(arch):
-    """The MoE layer, the encoder-decoder and the prefix input raise
-    naming ROADMAP A9c (the attention and recurrent kinds run)."""
-    cfg = reduced(get_config(arch))
-    m = build(cfg)
-    params = m.init(torch.Generator().manual_seed(0), device=CPU)
+    """The kinds that raised before the port's MoE and encoder-decoder
+    slice (the MoE layer, the encoder-decoder, the prefix input) now run:
+    the forward's logits in f32 from the reference's params, within 1e-5
+    (relative Frobenius) of the reference's."""
+    rcfg, cfg = (dataclasses.replace(red(get(arch)), compute_dtype="float32")
+                 for get, red in ((ref_get_config, ref_reduced),
+                                  (get_config, reduced)))
+    rp = ref_build(rcfg).init(jax.random.key(0))
+    p = interop.params_from_numpy(jax.device_get(rp), cfg, device=CPU)
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab_size, (1, 8)).astype(np.int32)
     kw = {}
     if cfg.n_prefix_tokens:
-        kw["prefix"] = torch.zeros((1, cfg.n_prefix_tokens, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="A9c"):
-        m.forward(params, torch.zeros((1, 8), dtype=torch.int32), **kw)
+        kw["prefix"] = 0.02 * rng.standard_normal(
+            (1, cfg.n_prefix_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.is_encoder_decoder:
+        kw["frames"] = 0.02 * rng.standard_normal(
+            (1, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    want, _ = ref_build(rcfg).forward(rp, jnp.asarray(toks), **{
+        k: jnp.asarray(v) for k, v in kw.items()})
+    with torch.no_grad():
+        got, _ = build(cfg).forward(p, torch.as_tensor(toks), **{
+            k: torch.as_tensor(v) for k, v in kw.items()})
+    assert got.shape == want.shape
+    assert _frob(_np(got), np.asarray(want)) <= 1e-5
 
 
 def test_chip_smoke_train_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
