@@ -1,7 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one CUDA card and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --phases 1-3,16  # some of them
+
+``--phases`` takes numbers and ranges; phase 1 always runs, and a phase
+that reads another's results brings it along (4 and 5 run together; 7
+needs 2, 4, 5 and 6).  Each phase not selected is logged as skipped, the
+seconds of every phase are printed as one ``{"phase_s": ...}`` line, and
+the ``kernels`` line, which reads every phase, is printed only when all
+of them ran.
 
 Phases (any failure exits non-zero; no result line is printed then):
 
@@ -212,19 +220,20 @@ Phases (any failure exits non-zero; no result line is printed then):
 
 12. xLSTM-125M trains (after phase 11), every line with the card's name
    and power limit, each part's counts set to 0 just before it and read
-   just after.  At full width (12 layers, d 768, 4 heads, mLSTM Dh 384,
-   chunk 256, vocab 50,304 padded to 50,432): ``Model.init`` on a seeded
-   ``torch.Generator`` (173,090,352 params in 22 leaves); three
+   just after.  At full width (d 768, 4 heads, mLSTM Dh 384, chunk 256,
+   vocab 50,304 padded to 50,432) cut to 2 of its 12 layers (one mLSTM,
+   one sLSTM: a depth cut that makes room for phase 16): ``Model.init`` on
+   a seeded ``torch.Generator`` (93,402,632 params in 22 leaves); three
    ``make_train_step`` steps (AdamW, lr 1e-3, warmup 1, 100 steps) on one
    ``SyntheticLM`` batch (seed 0, B 8, S 1024, bf16 compute,
    ``remat="full"``), each on the host clock: every loss and grad norm
-   finite, the last loss below the first, ``mlstm_scan`` launched 12
-   times a step (6 forwards, 6 remat recomputes) and no plain version
+   finite, the last loss below the first, ``mlstm_scan`` launched twice
+   a step (a forward and its remat recompute) and no plain version
    called; one more step under ``torch.profiler`` (its CUDA kernels,
    their busy time, the mLSTM kernels' share) and each recurrent layer
    timed alone at the step's shapes (the mLSTM forward and backward, the
    sLSTM forward and backward) for the step's split; ``Model.loss`` under
-   no grad at B 8, S 4096 (6 launches); layer 0's mLSTM h through the
+   no grad at B 8, S 4096 (1 launch); layer 0's mLSTM h through the
    kernel against ``mlstm_scan_plain`` within ``ZOO_TOL`` and
    ``MLSTMScan``'s gradients against autograd through the
    ``_mlstm_chunk`` scan within ``TRAIN_BWD_TOL`` (relative Frobenius);
@@ -314,6 +323,39 @@ Phases (any failure exits non-zero; no result line is printed then):
    expert kept, both ``moe_impl``s): phase 14 (c)'s gates, with the
    routing flips between the devices counted and printed (a row after a
    flip at a top-k gap under 1e-5 may leave the every-row f32 gate).
+
+16. training through attention and the RG-LRU (run last, after every
+   other model is freed), every line with the card's name and power
+   limit, each part's counts set to 0 just before it and read just after.
+   (a) starcoder2-3b at full width (d 3072, 24 heads of 128 over 2)
+   cut to 4 of 30 layers, B 4 x S 4096, bf16 compute, ``remat="full"``,
+   three ``make_train_step`` steps (AdamW); (b) recurrentgemma-9b at full
+   width cut to one super-block (rglru, rglru, sliding; the 256,000
+   vocab), B 1 x S 4096, the same.  Gates: losses and grad norms finite;
+   the parameter counts; flash launched twice an attention layer a step
+   (the forward and its remat recompute; the backward is PyTorch), the
+   RG-LRU scan three times an RG-LRU layer a step (the forward, the
+   recompute and the reverse scan of its backward), no other kernel, no
+   plain version.  Each prints its step times, peak memory and one
+   profiled step (CUDA kernels, busy share, flash and RG-LRU kernels).
+   (c) ``launch.train.main`` in-process (reduced starcoder2-3b, heads of
+   64, scaled time, failures), then the same command on the CPU: every
+   step done, the report's keys equal (and to phase 13's smoke's), wall
+   and energy equal, flash launched once an attention layer for each
+   train step run.  (d) the card against the CPU from the same params
+   (``TRAIN16_VS_CPU``: starcoder2-3b, recurrentgemma-9b, whisper-tiny,
+   llama4-scout at d 128 and heads of 64, S 256): the loss and every
+   gradient leaf in f32 (median leaf 1e-4, every leaf 1e-2, relative
+   Frobenius) and the loss in bf16 (``TRAIN_CPU_TOL``).  (e)
+   ``FlashAttention``'s dq, dk, dv at one full-width layer of (a) (96 x
+   4096 x 128, causal) and of (b) (16 x 4096 x 256, sliding 2048), f32
+   and bf16, against autograd through ``flash_attention_plain`` in f32
+   (``ZOO_TOL``; the bf16 gate), with the backward's and the forward
+   kernel's device ms; the reverse scan bitwise ``rglru_scan_plain`` on
+   the same flipped inputs and ``RGLRUScan``'s da, db, dh0 within 1e-5 of
+   autograd through the plain scan at (1, 512, 4096); ``remat_group`` 2
+   against 1 on a 4-super-block reduced recurrentgemma-9b (f32), each
+   with its launches as designed (``_train16_launches``).
 
 Near the end it prints one JSON line ``{"gates": {...}}`` with every
 gate's numbers, then one ``{"kernels": [...]}`` line, then the card's name
@@ -3796,18 +3838,20 @@ def phase_advisor(dev, card: str) -> dict:
 # 12. train: xLSTM-125M at full width
 # ---------------------------------------------------------------------------
 
-#: the train-xlstm-125m cell: src/repro/configs/xlstm_125m.py at full width,
-#: SyntheticLM seed 0, B = microbatch_rows_per_device (8), S = 1024 for the
+#: the train-xlstm-125m cell: src/repro/configs/xlstm_125m.py at full width
+#: cut to ``layers`` of 12 (one super-block: an mLSTM and an sLSTM layer;
+#: the depth cut that makes room for phase 16), SyntheticLM seed 0, B = microbatch_rows_per_device (8), S = 1024 for the
 #: steps and 4096 (train_4k's length) for the no-grad loss; the card
 #: against the CPU at B 2, S 512; the steps with gradient compression at
 #: S 256 (one chunk: the sLSTM's host-bound loop sets a step's time, and
 #: the compression's gates read the step's own gradients at S 1024).
-TRAIN = dict(arch="xlstm-125m", seed=0, S=1024, S_loss=4096, steps=3,
-             cpu_B=2, cpu_S=512, compress_S=256)
+TRAIN = dict(arch="xlstm-125m", seed=0, layers=2, S=1024, S_loss=4096,
+             steps=3, cpu_B=2, cpu_S=512, compress_S=256)
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=100)
-#: xLSTM-125M's parameter tree (tests/test_torch_configs.py holds it
-#: against the reference's).
-TRAIN_PARAMS, TRAIN_LEAVES = 173_090_352, 22
+#: xLSTM-125M's parameter tree cut to ``TRAIN["layers"]`` (one mLSTM, one
+#: sLSTM layer; whole: 173,090,352 in the same 22 leaves,
+#: tests/test_torch_configs.py holds the tree against the reference's).
+TRAIN_PARAMS, TRAIN_LEAVES = 93_402_632, 22
 #: MLSTMScan's gradients against autograd through the ``_mlstm_chunk``
 #: scan on the card, relative Frobenius error per input.  The backward
 #: replays each chunk in f32 from the forward's starting states, which the
@@ -4122,7 +4166,8 @@ def phase_train(dev, card: str, peaks=None, cfg=None, B=None, S=None,
     from repro_torch.models.spec import tree_size
     tlog = lambda msg: log(f"{msg} [{card}]")
     full = cfg is None
-    cfg = cfg or get_config(TRAIN["arch"])
+    cfg = cfg or dataclasses.replace(get_config(TRAIN["arch"]),
+                                     n_layers=TRAIN["layers"])
     B = B or cfg.microbatch_rows_per_device
     S, S_loss = S or TRAIN["S"], S_loss or TRAIN["S_loss"]
     on_card = dev.type == "cuda"
@@ -4567,6 +4612,7 @@ def _ft_part_smoke(dev, root: Path, tlog) -> dict:
     want_ml = _mlstm_per_step(cfg) * calls[0] if dev.type == "cuda" else 0
     out = {"card_s": card_s, "cpu_s": cpu_s, "launches": c,
            "steps_run": calls[0], "wall_s": card["wall_s"],
+           "report_keys": sorted(card),
            "energy_j": card["energy"]["E_total_j"],
            "predicted": card["predicted"], "operating_point": op_c,
            "counts": {k: card[k] for k in counts},
@@ -5436,6 +5482,595 @@ def phase_serve15(dev, card: str, rehearse: bool = False) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# 16. train through attention and the RG-LRU
+# ---------------------------------------------------------------------------
+
+#: parts (a) and (b), the train-starcoder2-3b and train-rg9b cells: the
+#: configs at full width cut in depth, bf16 compute, ``remat="full"``,
+#: AdamW (``TRAIN_OPT``), ``TRAIN16_STEPS`` steps of ``make_train_step`` on
+#: one ``SyntheticLM`` batch (seed 0).  starcoder2-3b: 4 of 30 layers, B 4
+#: (``microbatch_rows_per_device``) x S 4096 (``train_4k``), where S equals
+#: the window and the dispatch takes the causal route.  recurrentgemma-9b:
+#: one super-block (rglru, rglru, sliding), B 1 x S 4096, the whole
+#: 256,000 vocab.  ``analytic`` is ``ArchConfig.param_count()``, ``tree``
+#: the parameter tree's size (norm scales and biases included).
+TRAIN16 = {
+    "starcoder2-3b": dict(n_layers=4, B=4, S=4096, analytic=685_796_352,
+                          tree=685_824_000),
+    "recurrentgemma-9b": dict(n_layers=3, B=1, S=4096,
+                              analytic=2_690_723_840, tree=2_690_740_224)}
+TRAIN16_STEPS = 3
+#: part (c): ``launch.train``'s CLI on reduced starcoder2-3b with heads of
+#: 64 (the card's flash takes 64, 128 or 256), scaled time, failures at a
+#: mu of 15 virtual seconds; the same command on the CPU beside it.
+TRAIN16_CLI = ["--arch", "starcoder2-3b", "--layers", "2", "--d-model",
+               "128", "--n-heads", "2", "--steps", "24", "--mtbf", "15",
+               "--strategy", "algo_t", "--seed", "3", "--quiet"]
+#: part (d): the card against the CPU from the same params (drawn on the
+#: host), loss and every gradient leaf, B 2, S 256, at reduced widths the
+#: kernels take (d 128, 2 heads of 64), ``remat="full"``: starcoder2-3b
+#: at 2 layers (its window 32: sliding), recurrentgemma-9b at one
+#: super-block, whisper-tiny at one encoder and one decoder layer (bidir
+#: over its 32 stub frames, causal, and cross attention with Sq 256 !=
+#: Skv 32), llama4-scout at one super-block (three chunked MoE layers,
+#: chunk 32, and a global causal NoPE one; 4 experts, top-1, the shared
+#: expert).  Gates: in f32 the median leaf's relative Frobenius error
+#: within 1e-4 and every leaf within 1e-2 (phase 14 (c)'s: random
+#: attention is near one-hot, so near ties move single leaves); a leaf
+#: that is zero by math (the top-1 router's, whose weights are 1 whatever
+#: its logits) reads rounding noise on both devices and is held to 1e-6
+#: of the largest leaf's norm instead; in bf16 the loss within
+#: ``TRAIN_CPU_TOL`` (relative) of the CPU's.  The port's init (the
+#: reference's fan-in rule) makes random attention near one-hot: one f32
+#: ulp of the embedding table moves these models' gradient leaves on a
+#: CPU alone by a median of 5.8e-6 (whisper) to 8.9e-5 (recurrentgemma)
+#: and 1.2e-3 (llama4, whose top-1 routing also flips), near or above the
+#: gate, so no device comparison could read the implementation through
+#: them.  The q and k projections are therefore scaled by ``qk_scale``
+#: after the init (the scores by its square): the same ulp then moves the
+#: medians by 2.4e-7 to 3.8e-6.  That sensitivity is printed beside each
+#: reading.  A wrong mask,
+#: fold or backward moves leaves by O(1) at either scale.
+TRAIN16_VS_CPU = dict(B=2, S=256, seed=0, f32_median_tol=1e-4,
+                      f32_leaf_tol=1e-2, zero_leaf_tol=1e-6, qk_scale=0.25,
+                      runs={"starcoder2-3b": dict(n_layers=2),
+                            "recurrentgemma-9b": dict(n_layers=3),
+                            "whisper-tiny": dict(n_layers=1,
+                                                 n_encoder_layers=1),
+                            "llama4-scout-17b-a16e": dict(n_layers=4)})
+#: part (e): the remat check's config (recurrentgemma-9b reduced as in
+#: (d), 4 super-blocks) and its gate: ``remat_group`` 2 against 1, loss
+#: and gradients in f32, relative Frobenius.
+TRAIN16_REMAT = dict(arch="recurrentgemma-9b", n_layers=12, B=2, S=256,
+                     tol=1e-6)
+#: part (e): the RG-LRU's backward at (1, 512, 4096) against autograd
+#: through ``rglru_scan_plain``: max |a - b| / max |b| per gradient.
+TRAIN16_RG_SHAPE, TRAIN16_RG_TOL = (1, 512, 4096), 1e-5
+#: part (e): the reference autograd of ``flash_attention_plain`` runs over
+#: this many (batch, head) rows at a time.
+TRAIN16_REF_ROWS = 8
+
+
+def _train16_cfg(name: str, **cut):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(name), compute_dtype="bfloat16",
+                               remat="full", **cut)
+
+
+def _train16_reduced(name: str, cd: str, **cut):
+    """``name`` reduced to d 128 with 2 heads of 64, cut by ``cut``,
+    ``remat="full"``, compute dtype ``cd``."""
+    from repro_torch.configs import get_config, reduced
+    return dataclasses.replace(
+        reduced(get_config(name), d_model=128, n_heads=2), remat="full",
+        compute_dtype=cd, **cut)
+
+
+def _train16_launches(cfg, grad: bool = True) -> dict:
+    """Flash and RG-LRU launches of one ``Model.loss`` with its backward
+    (``grad``) or without.  Every attention call launches flash once (an
+    ``xattn`` layer twice: self and cross; each encoder layer once), every
+    RG-LRU layer its scan once.  With a gradient under ``remat="full"``
+    each stage layer and each encoder layer runs its forward again before
+    its backward; with ``remat_group = g > 1`` the group's recompute runs
+    a third forward of each of its layers but the last (the checkpoint's
+    recompute stops once it has rebuilt what the group saved, and the
+    last layer's input is the last of that).  An RG-LRU layer's backward
+    makes one more launch, the reverse scan."""
+    from repro_torch.models.transformer import RECURRENT_KINDS, super_block
+    pat, n, tail = super_block(cfg)
+    remat = grad and cfg.remat == "full"
+    g = max(1, cfg.remat_group)
+    g = g if remat and g > 1 and n % g == 0 else 1
+    stage = [k for _ in range(n) for k in pat]
+    runs = [1 + remat + (g > 1 and (i + 1) % (g * len(pat)) != 0)
+            for i in range(len(stage))] + [1] * len(tail)
+    flash = rg = 0
+    for kind, r in zip(stage + list(tail), runs):
+        if kind == "rglru":
+            rg += r + grad
+        elif kind not in RECURRENT_KINDS:
+            flash += r * (2 if kind == "xattn" else 1)
+    if cfg.is_encoder_decoder:
+        flash += cfg.n_encoder_layers * (1 + remat)
+    return {"flash_attention": flash, "rglru_scan": rg}
+
+
+def _train16_want(cfg, dev) -> dict:
+    """``_train16_launches(cfg)`` on the card; none on the CPU."""
+    want = _train16_launches(cfg)
+    return want if dev.type == "cuda" else {k: 0 for k in want}
+
+
+def _profile_train16(step, params, opt, batch, dev) -> dict:
+    """One more step (its result dropped) under ``torch.profiler``: its
+    CUDA kernels, their busy time and share of the step, and the flash and
+    RG-LRU kernels' counts and time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
+        _dev_sync(dev)
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        _dev_sync(dev)
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {"profiled_wall_s": wall, "kernels": 0, "busy_s": 0.0,
+           "flash_kernels": 0, "flash_s": 0.0, "rglru_kernels": 0,
+           "rglru_s": 0.0}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
+            continue
+        s = e.duration_ns() * 1e-9
+        out["kernels"] += 1
+        out["busy_s"] += s
+        for key, frag in (("flash", "flash_"), ("rglru", "rglru_")):
+            if frag in e.name() and "kernel" in e.name():
+                out[f"{key}_kernels"] += 1
+                out[f"{key}_s"] += s
+    out["busy_share"] = out["busy_s"] / wall
+    return out
+
+
+def _free(dev) -> None:
+    import gc
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _train16_part(name: str, dev, tlog) -> dict:
+    """Part (a) or (b): the steps, their launches, the peak memory, one
+    profiled step; the model is freed before returning."""
+    import torch
+    from repro_torch.data import synthetic
+    from repro_torch.models import build
+    from repro_torch.models.spec import tree_size
+    from repro_torch.optim import adamw
+    run = TRAIN16[name]
+    on_card = dev.type == "cuda"
+    cfg = _train16_cfg(name, n_layers=run["n_layers"])
+    m = build(cfg)
+    _free(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(TRAIN["seed"])
+    params = m.init(gen, device=dev)
+    n_tree = tree_size(m.param_spec())
+    batch = synthetic.for_arch(cfg, batch=run["B"], seq_len=run["S"],
+                               seed=TRAIN["seed"], device=dev).peek(0)
+    step = m.make_train_step(adamw.AdamWConfig(**TRAIN_OPT))
+    opt = adamw.init_state(params, device=dev)
+    want = _train16_want(cfg, dev)
+    out = {"cfg": {"n_layers": cfg.n_layers, "B": run["B"], "S": run["S"],
+                   "params_tree": n_tree, "params_analytic":
+                   cfg.param_count()},
+           "losses": [], "grad_norms": [], "step_s": []}
+    _dev_sync(dev)
+    _reset_counts()
+    for _ in range(TRAIN16_STEPS):
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        out["losses"].append(float(met["loss"]))
+        out["grad_norms"].append(float(met["grad_norm"]))
+        _dev_sync(dev)
+        out["step_s"].append(time.perf_counter() - t0)
+    c = _counts()
+    out["launches"] = c
+    out["want_per_step"] = want
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    out["profile"] = _profile_train16(step, params, opt, batch, dev)
+    tlog(f"train16 {name}: {cfg.n_layers} layers, B {run['B']} x S "
+         f"{run['S']}, params {n_tree} (analytic {cfg.param_count()}); "
+         f"losses {out['losses']}, grad norms {out['grad_norms']}, step s "
+         f"{out['step_s']}, peak {out['peak_gib']:.2f} GiB; launches flash "
+         f"{c['flash_attention']}, rglru {c['rglru_scan']} (want "
+         f"{want['flash_attention']} and {want['rglru_scan']} a step), plain "
+         f"calls {c['plain']}; profiled step: " + ", ".join(
+             f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
+             for k, v in out["profile"].items()))
+    if (n_tree, cfg.param_count()) != (run["tree"], run["analytic"]):
+        fail(f"train16 {name}: {n_tree} params in the tree, "
+             f"{cfg.param_count()} analytic")
+    if not all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]):
+        fail(f"train16 {name}: a loss or grad norm is not finite")
+    others = {k: v for k, v in c.items() if v and k not in (
+        "flash_attention", "rglru_scan") and (k != "plain" or on_card)}
+    if (c["flash_attention"] != want["flash_attention"] * TRAIN16_STEPS
+            or c["rglru_scan"] != want["rglru_scan"] * TRAIN16_STEPS
+            or others):
+        fail(f"train16 {name}: launches {c}, want {want} a step and "
+             f"nothing else")
+    del params, opt, batch, step, m, met
+    _free(dev)
+    return out
+
+
+def _flash16_inputs(name: str, dtype, dev):
+    """One full-width layer's attention inputs of part (a) or (b) (q, k,
+    v, dO folded to (B*H, S, Dh), seeded normal draws) and its mask."""
+    import torch
+    cfg = _train16_cfg(name)
+    run = TRAIN16[name]
+    BH = run["B"] * cfg.n_heads
+    Dh = cfg.resolved_head_dim
+    S = run["S"]
+    mode = "causal" if cfg.window >= S else "sliding"
+    gen = torch.Generator(device=dev).manual_seed(ZOO_SEED + 16)
+    draw = lambda: torch.randn((BH, S, Dh), generator=gen,
+                               device=dev).to(dtype)
+    return (draw(), draw(), draw(), draw(),
+            dict(mode=mode, window=cfg.window if mode == "sliding" else 0))
+
+
+def _flash16_check(name: str, dtype, dev) -> dict:
+    """``FlashAttention``'s dq, dk and dv at one full-width layer of part
+    (a) or (b) against autograd through ``flash_attention_plain`` on the
+    inputs in f32, ``TRAIN16_REF_ROWS`` (batch, head) rows at a time: f32
+    within ``ZOO_TOL``, bf16 inputs at the bf16 gate; the backward's
+    device time."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do, kw = _flash16_inputs(name, dtype, dev)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fa.FlashAttention.apply(*leaves, kw["mode"], kw["window"], 0)
+    got = torch.autograd.grad(out, leaves, do)
+    del out, leaves
+    res = {"shape": list(q.shape), "dtype": str(dtype).split(".")[-1],
+           **kw}
+    tol = ZOO_TOL["flash_attention"] if dtype == torch.float32 else \
+        ZOO_TOL["bf16"]
+    n = TRAIN16_REF_ROWS
+    oks, errs, frobs = [], [0.0] * 3, [0.0] * 3
+    for i in range(0, q.shape[0], n):
+        ins = [t[i:i + n].float().requires_grad_() for t in (q, k, v)]
+        o = fa.flash_attention_plain(*ins, **kw)
+        want = torch.autograd.grad(o, ins, do[i:i + n].float())
+        for j, (g, w) in enumerate(zip(got, want)):
+            ok, err, frob = _close(g[i:i + n], w, tol)
+            oks.append(ok)
+            errs[j] = max(errs[j], err)
+            frobs[j] = max(frobs[j], frob)
+        del ins, o, want
+    res.update(ok=all(oks), max_abs_err=dict(zip("qkv", errs)),
+               frob=dict(zip("qkv", frobs)))
+    res["bwd_ms"] = _events_ms(lambda: fa.flash_backward(q, k, v, do, **kw),
+                               reps=3)
+    res["fwd_ms"] = _events_ms(lambda: fa.flash_attention(q, k, v, **kw),
+                               reps=3)
+    del q, k, v, do, got
+    return res
+
+
+def _rglru16_check(dev) -> dict:
+    """The reverse scan against ``rglru_scan_plain`` on the same flipped
+    inputs (bitwise), and ``RGLRUScan``'s da, db and dh0 against autograd
+    through the plain version, at ``TRAIN16_RG_SHAPE``."""
+    import torch
+    from repro_torch.kernels import rglru_scan as rg
+    B, S, W = TRAIN16_RG_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(ZOO_SEED + 17)
+    a = torch.rand((B, S, W), generator=gen, device=dev)
+    b = torch.randn((B, S, W), generator=gen, device=dev)
+    h0 = torch.randn((B, W), generator=gen, device=dev)
+    g = torch.randn((B, S, W), generator=gen, device=dev)
+    shifted = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+    zero = torch.zeros_like(h0)
+    rev = rg.reverse_scan(a, g)
+    want = rg.rglru_scan_plain(shifted.flip(1), g.flip(1), zero).flip(1)
+    bitwise = bool(torch.equal(_bits(rev), _bits(want)))
+    ins = [t.detach().requires_grad_() for t in (a, b, h0)]
+    got = torch.autograd.grad(rg.RGLRUScan.apply(*ins), ins, g)
+    ref = [t.detach().requires_grad_() for t in (a, b, h0)]
+    want = torch.autograd.grad(rg.rglru_scan_plain(*ref), ref, g)
+    rel = {n: float((x - y).abs().max() / y.abs().max())
+           for n, x, y in zip(("da", "db", "dh0"), got, want)}
+    return {"shape": [B, S, W], "reverse_bitwise": bitwise, "rel": rel,
+            "ok": bitwise and max(rel.values()) <= TRAIN16_RG_TOL}
+
+
+def _loss_and_grads(m, params, batch):
+    """(loss as a float, [gradient leaves]) of ``m.loss``."""
+    from repro_torch.ckpt.tree import tree_leaves
+    loss, grads = _value_and_grad(m, params, batch)
+    return float(loss), tree_leaves(grads)
+
+
+def _train16_batch(cfg, B: int, S: int, seed: int) -> dict:
+    """``SyntheticLM``'s first batch (tokens, labels, whisper's stub
+    frames) on the host."""
+    from repro_torch.data import synthetic
+    return synthetic.for_arch(cfg, batch=B, seq_len=S, seed=seed,
+                              device="cpu").peek(0)
+
+
+def _scale_qk(tree, f: float):
+    """``tree`` with every leaf named ``wq`` or ``wk`` times ``f``."""
+    if isinstance(tree, dict):
+        return {k: (v * f if k in ("wq", "wk") else _scale_qk(v, f))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_scale_qk(v, f) for v in tree)
+    return tree
+
+
+def _leaf_errs(got, want, zero_tol: float) -> tuple:
+    """Relative Frobenius errors of ``got``'s gradient leaves against
+    ``want``'s (on the host, f64), and the absolute ones, over the largest
+    leaf's norm, of the leaves whose norm is within ``zero_tol`` of it."""
+    import torch
+    norms = [float(torch.linalg.vector_norm(w.double())) for w in want]
+    top = max(norms)
+    errs, zero = [], []
+    for g, w, nrm in zip(got, want, norms):
+        d = float(torch.linalg.vector_norm(g.double().cpu() - w.double()))
+        if nrm <= zero_tol * top:
+            zero.append(d / top)
+        else:
+            errs.append(d / nrm)
+    return errs, zero
+
+
+def _train16_vs_cpu(dev, tlog) -> dict:
+    """Part (d): ``TRAIN16_VS_CPU``; the card's launches read around the
+    card's runs alone; each f32 model's own sensitivity (the embedding
+    table times 1 + 1e-7, on the CPU) printed beside its reading."""
+    import torch
+    from repro_torch.ckpt.tree import tree_map
+    from repro_torch.models import build
+    v = TRAIN16_VS_CPU
+    cpu = torch.device("cpu")
+    out, launches = {}, {}
+    for name, cut in v["runs"].items():
+        res = {}
+        for cd in ("float32", "bfloat16"):
+            cfg = _train16_reduced(name, cd, **cut)
+            m = build(cfg)
+            params = _scale_qk(m.init(
+                torch.Generator().manual_seed(v["seed"]), device="cpu"),
+                v["qk_scale"])
+            batch = _train16_batch(cfg, v["B"], v["S"], v["seed"])
+            on = lambda d: (tree_map(lambda x: x.to(d), params),
+                            {k: x.to(d) for k, x in batch.items()})
+            _reset_counts()
+            l_card, g_card = _loss_and_grads(m, *on(dev))
+            _dev_sync(dev)
+            c = _counts()
+            want = _train16_want(cfg, dev)
+            if c["flash_attention"] != want["flash_attention"] or (
+                    c["rglru_scan"] != want["rglru_scan"]) or (
+                    dev.type == "cuda" and c["plain"]):
+                fail(f"train16 vs CPU {name} {cd}: launches {c}, want "
+                     f"{want}")
+            for k in ("flash_attention", "rglru_scan"):
+                launches[k] = launches.get(k, 0) + c[k]
+            l_cpu, g_cpu = _loss_and_grads(m, *on(cpu))
+            rel_loss = abs(l_card - l_cpu) / abs(l_cpu)
+            if cd == "bfloat16":
+                res["bf16"] = {"card": l_card, "cpu": l_cpu,
+                               "rel": rel_loss}
+                ok = rel_loss <= TRAIN_CPU_TOL
+            else:
+                errs, zero = _leaf_errs(g_card, g_cpu, v["zero_leaf_tol"])
+                moved = dict(params, embed=params["embed"] * (1 + 1e-7))
+                sens = _leaf_errs(_loss_and_grads(m, moved, batch)[1],
+                                  g_cpu, v["zero_leaf_tol"])[0]
+                med = statistics.median(errs)
+                res["f32"] = {"card": l_card, "cpu": l_cpu,
+                              "loss_rel": rel_loss, "median_leaf": med,
+                              "max_leaf": max(errs), "leaves": len(errs),
+                              "zero_leaves": zero,
+                              "sensitivity_median": statistics.median(sens),
+                              "sensitivity_max": max(sens)}
+                ok = (med <= v["f32_median_tol"]
+                      and max(errs) <= v["f32_leaf_tol"]
+                      and all(z <= v["zero_leaf_tol"] for z in zero))
+            tlog(f"train16 vs CPU {name} ({cd}): " + ", ".join(
+                f"{k} {x:.6g}" if isinstance(x, float) else f"{k} {x}"
+                for k, x in res["bf16" if cd == "bfloat16" else "f32"]
+                .items()) + f"; launches {c['flash_attention']} flash, "
+                f"{c['rglru_scan']} RG-LRU")
+            if not ok:
+                fail(f"train16 vs CPU {name} {cd}: the card's loss or "
+                     f"gradients differ from the CPU's")
+            del m, params, batch, g_card, g_cpu
+        out[name] = res
+    _free(dev)
+    out["launches"] = launches
+    return out
+
+
+def _train16_remat(dev, tlog) -> dict:
+    """Part (e): ``remat_group`` 2 against 1 on ``TRAIN16_REMAT``'s config
+    (4 super-blocks), f32, on the card: the loss and every gradient leaf,
+    relative Frobenius; the launches of each, as designed."""
+    import torch
+    from repro_torch.ckpt.tree import tree_map
+    from repro_torch.models import build
+    r = TRAIN16_REMAT
+    base = _train16_reduced(r["arch"], "float32", n_layers=r["n_layers"])
+    params = tree_map(lambda x: x.to(dev), build(base).init(
+        torch.Generator().manual_seed(0), device="cpu"))
+    batch = {k: x.to(dev) for k, x in
+             _train16_batch(base, r["B"], r["S"], 0).items()}
+    runs = {}
+    for g in (1, 2):
+        cfg = dataclasses.replace(base, remat_group=g)
+        _reset_counts()
+        loss, grads = _loss_and_grads(build(cfg), params, batch)
+        _dev_sync(dev)
+        c = _counts()
+        want = _train16_want(cfg, dev)
+        if (c["flash_attention"], c["rglru_scan"]) != (
+                want["flash_attention"], want["rglru_scan"]) or (
+                dev.type == "cuda" and c["plain"]):
+            fail(f"train16 remat_group {g}: launches {c}, want {want}")
+        runs[g] = (loss, grads, c)
+    (l1, g1, c1), (l2, g2, c2) = runs[1], runs[2]
+    errs = [_frob(a, b) for a, b in zip(g2, g1)]
+    res = {"loss": [l1, l2], "loss_rel": abs(l2 - l1) / abs(l1),
+           "max_leaf": max(errs), "bitwise": all(
+               torch.equal(a, b) for a, b in zip(g2, g1)),
+           "launches": {g: {k: runs[g][2][k] for k in (
+               "flash_attention", "rglru_scan")} for g in (1, 2)}}
+    tlog(f"train16 remat: {base.n_layers} layers (4 super-blocks), "
+         f"remat_group 2 vs 1: losses {l2!r} / {l1!r}, max leaf "
+         f"{res['max_leaf']:.3e}, bitwise {res['bitwise']}, launches "
+         f"{res['launches']} (gate {r['tol']:g})")
+    if not (res["loss_rel"] <= r["tol"] and res["max_leaf"] <= r["tol"]):
+        fail("train16: remat_group 2 disagrees with remat_group 1")
+    del params, batch, runs, g1, g2
+    _free(dev)
+    return res
+
+
+def _train16_cli(dev, tlog, smoke_keys=None) -> dict:
+    """Part (c): ``launch.train.main`` in-process with ``TRAIN16_CLI`` on
+    the card, then on the CPU; the train steps run counted (a wrapper of
+    ``Model.make_train_step``'s step), the launches read around the
+    card's run.  Gates: every step done; the report's keys equal on both
+    devices (and to phase 13's smoke's, where it ran); wall and energy
+    equal (scaled time); flash launched as designed for each train step
+    run, no plain call on the card."""
+    import contextlib
+    import io
+    import shutil
+    from repro_torch import models
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import train as ft_train
+    root = ROOT / "build" / "chip_smoke_train16"
+    shutil.rmtree(root, ignore_errors=True)
+    real = models.Model.make_train_step
+    calls = [0]
+
+    def counted(self, *a, **kw):
+        step = real(self, *a, **kw)
+
+        def run(*args):
+            calls[0] += 1
+            return step(*args)
+        return run
+    reps, counts, steps, host_s = {}, None, {}, {}
+    try:
+        models.Model.make_train_step = counted
+        for i, d in enumerate((str(dev), "cpu")):
+            calls[0] = 0
+            argv = TRAIN16_CLI + ["--device", d, "--ckpt-dir",
+                                  str(root / f"{i}_{d}")]
+            _reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                reps[d] = ft_train.main(argv)
+            _dev_sync(dev)
+            host_s[d] = time.perf_counter() - t0
+            steps[d] = calls[0]
+            counts = counts or _counts()
+    finally:
+        models.Model.make_train_step = real
+        shutil.rmtree(root, ignore_errors=True)
+    card, host = reps[str(dev)], reps["cpu"]
+    args = ft_train.build_parser().parse_args(TRAIN16_CLI)
+    cfg = reduced(get_config(args.arch), n_layers=args.layers,
+                  d_model=args.d_model, n_heads=args.n_heads)
+    want = _train16_want(cfg, dev)["flash_attention"] * steps[str(dev)]
+    keys = sorted(card)
+    res = {"host_s": host_s[str(dev)], "cpu_s": host_s["cpu"],
+           "steps_run": steps, "final_step": card["final_step"],
+           "n_failures": card["n_failures"], "wall_s": card["wall_s"],
+           "energy_j": card["energy"]["E_total_j"], "launches": counts,
+           "want_flash": want, "keys_equal": keys == sorted(host) and (
+               smoke_keys is None or keys == smoke_keys)}
+    tlog(f"train16 cli: {' '.join(TRAIN16_CLI)} on {dev} "
+         f"{res['host_s']:.2f} s, on the CPU {res['cpu_s']:.2f} s; steps "
+         f"{card['final_step']} ({steps} train steps run), failures "
+         f"{card['n_failures']}, wall {card['wall_s']!r} s (CPU "
+         f"{host['wall_s']!r}), energy {res['energy_j']!r} J; report keys "
+         f"equal {res['keys_equal']}; launches flash "
+         f"{counts['flash_attention']} (want {want}), plain {counts['plain']}")
+    if card["final_step"] != args.steps or not res["keys_equal"] or (
+            card["wall_s"] != host["wall_s"]
+            or card["energy"] != host["energy"]):
+        fail("train16 cli: the run did not end, or its report differs from "
+             "the CPU's")
+    if counts["flash_attention"] != want or (dev.type == "cuda"
+                                             and counts["plain"]):
+        fail(f"train16 cli: launches {counts}")
+    return res
+
+
+def phase_train16(dev, card: str, smoke_keys=None) -> dict:
+    """Phase 16: training through attention and the RG-LRU (see the module
+    docstring), every line with the card's name and power limit, each
+    part's counts set to 0 just before it and read just after, every
+    earlier model freed first."""
+    import torch
+    tlog = lambda msg: log(f"{msg} [{card}]")
+    report, t_phase = {}, time.perf_counter()
+    parts = [(name, lambda n=name: _train16_part(n, dev, tlog))
+             for name in TRAIN16]
+    parts += [("cli", lambda: _train16_cli(dev, tlog, smoke_keys)),
+              ("vs_cpu", lambda: _train16_vs_cpu(dev, tlog)),
+              ("remat", lambda: _train16_remat(dev, tlog))]
+    for key, part in parts:
+        t0 = time.perf_counter()
+        report[key] = part()
+        report[key]["part_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checks = {}
+    for name in TRAIN16:
+        for dtype in (torch.float32, torch.bfloat16):
+            r = _flash16_check(name, dtype, dev)
+            checks[f"flash_{name}_{r['dtype']}"] = r
+            tlog(f"train16 flash backward at {name}'s layer {r['shape']} "
+                 f"{r['dtype']} {r['mode']}: dq/dk/dv max abs "
+                 f"{r['max_abs_err']}, frob {r['frob']}; backward "
+                 f"{r['bwd_ms']:.4f} ms, forward kernel {r['fwd_ms']:.4f} ms")
+            if not r["ok"]:
+                fail(f"train16: FlashAttention's gradients at {name}'s "
+                     f"layer ({r['dtype']}) disagree with the plain version")
+            _free(dev)
+    checks["rglru"] = _rglru16_check(dev)
+    tlog(f"train16 RG-LRU backward at {checks['rglru']['shape']}: reverse "
+         f"scan bitwise {checks['rglru']['reverse_bitwise']}, RGLRUScan vs "
+         f"autograd through the plain scan {checks['rglru']['rel']} (gate "
+         f"{TRAIN16_RG_TOL:g})")
+    if not checks["rglru"]["ok"]:
+        fail("train16: the RG-LRU backward disagrees with its plain version")
+    report["checks"] = checks
+    report["checks"]["part_s"] = time.perf_counter() - t0
+    _free(dev)
+    report["phase_s"] = time.perf_counter() - t_phase
+    report["launches"] = {k: sum(report[p]["launches"][k] for p in TRAIN16)
+                          + report["vs_cpu"]["launches"][k]
+                          + report["cli"]["launches"][k]
+                          for k in ("flash_attention", "rglru_scan")}
+    tlog(f"train16 phase {report['phase_s']:.1f} s (" + ", ".join(
+        f"{k} {report[k]['part_s']:.1f}" for k in list(TRAIN16)
+        + ["cli", "vs_cpu", "remat", "checks"]) + ")")
+    return report
+
+
 def _kernel_modules():
     from repro_torch.kernels import (decode_attention, event_sweep,
                                      flash_attention, mlstm_scan,
@@ -5481,179 +6116,318 @@ def _reset_counts() -> None:
         plain.calls = 0
 
 
-def main() -> None:
+#: the phases by number (module docstring), and those a phase reads the
+#: results of: 4 and 5 are one run (the sweep, then the MC on its grid);
+#: the times (7) read the main path's runs, the checkpoint path's and the
+#: draw code's instruction counts (2).
+PHASES = {1: "device", 2: "build", 3: "parity", 4: "sweep", 5: "mc",
+          6: "ckpt", 7: "times", 8: "zoo", 9: "figures", 10: "multilevel",
+          11: "advisor", 12: "train", 13: "ft", 14: "serve", 15: "serve15",
+          16: "train16"}
+NEEDS = {4: {5}, 5: {4}, 7: {2, 4, 5, 6}}
+
+
+def parse_phases(argv) -> set:
+    """The phases ``--phases`` selects (``1-3,16``; all by default), with
+    phase 1 and every phase a selected one needs added."""
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the port's main paths "
+                                 "on one CUDA card (module docstring).")
+    ap.add_argument("--phases", default="",
+                    help="phases to run, e.g. 1-3,16 (default: all)")
+    spec = ap.parse_args(argv).phases.strip()
+    if not spec:
+        return set(PHASES)
+    sel = set()
+    for part in spec.split(","):
+        lo, _, hi = part.strip().partition("-")
+        try:
+            sel |= set(range(int(lo), int(hi or lo) + 1))
+        except ValueError:
+            fail(f"--phases: {part!r} is not a number or a range")
+    if not sel <= set(PHASES):
+        fail(f"--phases: no phase {sorted(sel - set(PHASES))}")
+    sel.add(1)
+    while True:
+        more = set().union(*(NEEDS.get(n, set()) for n in sel)) - sel
+        if not more:
+            return sel
+        sel |= more
+
+
+class _PhaseClock:
+    """Which phases run, and each one's seconds (a phase may run in more
+    than one span of ``main``: they add up)."""
+
+    def __init__(self, selected: set):
+        self.selected, self.secs = selected, {}
+
+    def on(self, n: int) -> bool:
+        return n in self.selected
+
+    def span(self, n: int):
+        import contextlib
+
+        @contextlib.contextmanager
+        def timed():
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                dt = time.perf_counter() - t0
+                self.secs[n] = self.secs.get(n, 0.0) + dt
+                log(f"phase {n} ({PHASES[n]}): {dt:.1f} s (phase_s "
+                    f"{self.secs[n]:.1f} s)")
+        return timed()
+
+    def report(self) -> dict:
+        return {str(n): (round(self.secs[n], 3) if n in self.secs
+                         else "skipped") for n in PHASES}
+
+
+def main(argv=None) -> None:
     t_start = time.perf_counter()
-    card, peaks = phase_device()
+    ph = _PhaseClock(parse_phases(sys.argv[1:] if argv is None else argv))
+    with ph.span(1):
+        card, peaks = phase_device()
+    for n, name in PHASES.items():
+        if not ph.on(n):
+            log(f"phase {n} ({name}): skipped (not selected)")
     import shutil
     import torch
     # the plain versions' f32 products run in full f32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
-    build_s, draw_ops = phase_build()
-    parity_err = phase_parity(dev)
-    sampled_parity = phase_sampled_parity(dev)
-    quant_err, dequant_err = phase_quant_parity(dev)
-    zoo_err = phase_zoo_parity(dev)
+    report = {}
+    if ph.on(2):
+        with ph.span(2):
+            build_s, draw_ops = phase_build()
+    if ph.on(3):
+        with ph.span(3):
+            parity_err = phase_parity(dev)
+            sampled_parity = phase_sampled_parity(dev)
+            quant_err, dequant_err = phase_quant_parity(dev)
+            zoo_err = phase_zoo_parity(dev)
+            report["sampled_parity"] = sampled_parity
 
-    # the Monte-Carlo main path (sweep, then MC), its counts read around it
-    from repro_torch.core.failures import draw_gaps
-    _reset_counts()
-    big, sweeps, mc_grid, model, runs = run_main_path(dev)
-    torch.cuda.synchronize()
-    mc_counts = _counts()
-    log(f"main path (sweep + MC): event_sweep_sampled launches "
-        f"{mc_counts['event_sweep_sampled']}, event_sweep launches "
-        f"{mc_counts['event_sweep']}, event_draws launches "
-        f"{mc_counts['event_draws']}, plain-version calls "
-        f"{mc_counts['plain']} (draw_gaps, which sample_gaps calls: "
-        f"{draw_gaps.calls})")
-    if mc_counts["event_sweep_sampled"] <= 0:
-        fail("the main path never launched the sampled event kernel")
-    if mc_counts["event_sweep"] or mc_counts["event_draws"]:
-        fail("the main path launched the explicit kernel or the draw-only "
-             "entry")
-    if mc_counts["plain"] != 0:
-        fail("the main path called a plain version or drew a schedule")
-    gate_sweep(big, sweeps)
-    report = gate_mc(mc_grid, model, runs, dev)
-    report["dispatch"] = phase_dispatch_invariance(mc_grid, model, dev)
+    if ph.on(4):
+        with ph.span(4):
+            # the Monte-Carlo main path (sweep, then MC), its counts read
+            # around it
+            from repro_torch.core.failures import draw_gaps
+            _reset_counts()
+            big, sweeps, mc_grid, model, runs = run_main_path(dev)
+            torch.cuda.synchronize()
+            mc_counts = _counts()
+            log(f"main path (sweep + MC): event_sweep_sampled launches "
+                f"{mc_counts['event_sweep_sampled']}, event_sweep launches "
+                f"{mc_counts['event_sweep']}, event_draws launches "
+                f"{mc_counts['event_draws']}, plain-version calls "
+                f"{mc_counts['plain']} (draw_gaps, which sample_gaps calls: "
+                f"{draw_gaps.calls})")
+            if mc_counts["event_sweep_sampled"] <= 0:
+                fail("the main path never launched the sampled event kernel")
+            if mc_counts["event_sweep"] or mc_counts["event_draws"]:
+                fail("the main path launched the explicit kernel or the "
+                     "draw-only entry")
+            if mc_counts["plain"] != 0:
+                fail("the main path called a plain version or drew a "
+                     "schedule")
+            gate_sweep(big, sweeps)
+    if ph.on(5):
+        with ph.span(5):
+            report.update(gate_mc(mc_grid, model, runs, dev))
+            report["dispatch"] = phase_dispatch_invariance(mc_grid, model,
+                                                           dev)
 
-    # a caller's schedule through the explicit kernel, its counts read
-    # around it
-    T_ex, gaps_ex = explicit_schedule(mc_grid, model, dev)
-    _reset_counts()
-    tb_ex = run_explicit_path(mc_grid, T_ex, gaps_ex, dev)
-    torch.cuda.synchronize()
-    ex_counts = _counts()
-    log(f"explicit-schedule path: event_sweep launches "
-        f"{ex_counts['event_sweep']}, event_sweep_sampled launches "
-        f"{ex_counts['event_sweep_sampled']}, plain-version calls "
-        f"{ex_counts['plain']}")
-    if (ex_counts["event_sweep"] <= 0 or ex_counts["event_sweep_sampled"]
-            or ex_counts["plain"]):
-        fail("the explicit-schedule path did not run through the explicit "
-             "kernel alone")
-    report["explicit"] = gate_explicit(mc_grid, T_ex, gaps_ex, tb_ex)
-    report["sampled_parity"] = sampled_parity
-    ex_times = phase_explicit_times(mc_grid, T_ex, gaps_ex, tb_ex,
-                                    ex_counts["event_sweep"], peaks, dev)
-    del gaps_ex, tb_ex
-    torch.cuda.empty_cache()
+            # a caller's schedule through the explicit kernel, its counts
+            # read around it
+            T_ex, gaps_ex = explicit_schedule(mc_grid, model, dev)
+            _reset_counts()
+            tb_ex = run_explicit_path(mc_grid, T_ex, gaps_ex, dev)
+            torch.cuda.synchronize()
+            ex_counts = _counts()
+            log(f"explicit-schedule path: event_sweep launches "
+                f"{ex_counts['event_sweep']}, event_sweep_sampled launches "
+                f"{ex_counts['event_sweep_sampled']}, plain-version calls "
+                f"{ex_counts['plain']}")
+            if (ex_counts["event_sweep"] <= 0
+                    or ex_counts["event_sweep_sampled"] or ex_counts["plain"]):
+                fail("the explicit-schedule path did not run through the "
+                     "explicit kernel alone")
+            report["explicit"] = gate_explicit(mc_grid, T_ex, gaps_ex, tb_ex)
+            ex_times = phase_explicit_times(mc_grid, T_ex, gaps_ex, tb_ex,
+                                            ex_counts["event_sweep"], peaks,
+                                            dev)
+            del gaps_ex, tb_ex
+            torch.cuda.empty_cache()
 
-    # the paper's figures and tables (fig5 and the MC surrogate through the
-    # explicit kernel, in f64), their counts read around them
-    report["candidates"] = phase_candidates(dev)
-    with _LaunchLog() as launch_log:
-        _reset_counts()
-        figs = run_figures_path(dev, launch_log)
-        torch.cuda.synchronize()
-        fig_counts = _counts()
-    log(f"figures path: event_sweep launches {fig_counts['event_sweep']} "
-        f"(fig5 {len(launch_log.calls.get('fig5', []))}, argmin "
-        f"{len(launch_log.calls.get('argmin', []))}), event_sweep_sampled "
-        f"launches {fig_counts['event_sweep_sampled']}, plain-version calls "
-        f"{fig_counts['plain']}")
-    if (fig_counts["event_sweep"] <= 0 or fig_counts["event_sweep_sampled"]
-            or fig_counts["event_draws"] or fig_counts["plain"]):
-        fail("the figures path did not run through the explicit kernel "
-             "alone")
-    from repro_torch.benchmarks import _util as fig_util
-    card_results = fig_util.RESULTS
-    fig_util.RESULTS = card_results / "cpu"
-    figs_cpu = run_figures_path(torch.device("cpu"))
-    fig_util.RESULTS = card_results
-    report["figures"] = gate_figures(figs, figs_cpu)
-    report["figures"]["host_s"] = {"card": figs["secs"],
-                                   "cpu": figs_cpu["secs"]}
-    fig_times = phase_figure_times(launch_log, peaks)
-    del launch_log, figs, figs_cpu
-    torch.cuda.empty_cache()
+    if ph.on(9):
+        with ph.span(9):
+            # the paper's figures and tables (fig5 and the MC surrogate
+            # through the explicit kernel, in f64), their counts read
+            # around them
+            report["candidates"] = phase_candidates(dev)
+            with _LaunchLog() as launch_log:
+                _reset_counts()
+                figs = run_figures_path(dev, launch_log)
+                torch.cuda.synchronize()
+                fig_counts = _counts()
+            log(f"figures path: event_sweep launches "
+                f"{fig_counts['event_sweep']} (fig5 "
+                f"{len(launch_log.calls.get('fig5', []))}, argmin "
+                f"{len(launch_log.calls.get('argmin', []))}), "
+                f"event_sweep_sampled launches "
+                f"{fig_counts['event_sweep_sampled']}, plain-version calls "
+                f"{fig_counts['plain']}")
+            if (fig_counts["event_sweep"] <= 0
+                    or fig_counts["event_sweep_sampled"]
+                    or fig_counts["event_draws"] or fig_counts["plain"]):
+                fail("the figures path did not run through the explicit "
+                     "kernel alone")
+            from repro_torch.benchmarks import _util as fig_util
+            card_results = fig_util.RESULTS
+            fig_util.RESULTS = card_results / "cpu"
+            figs_cpu = run_figures_path(torch.device("cpu"))
+            fig_util.RESULTS = card_results
+            report["figures"] = gate_figures(figs, figs_cpu)
+            report["figures"]["host_s"] = {"card": figs["secs"],
+                                           "cpu": figs_cpu["secs"]}
+            fig_times = phase_figure_times(launch_log, peaks)
+            del launch_log, figs, figs_cpu
+            torch.cuda.empty_cache()
 
     # the multilevel path (phase 10), each part's counts read around it
-    report["multilevel"] = phase_multilevel(dev, card)
-    torch.cuda.empty_cache()
+    if ph.on(10):
+        with ph.span(10):
+            report["multilevel"] = phase_multilevel(dev, card)
+            torch.cuda.empty_cache()
 
     # the checkpoint advisor (phase 11), its counts read around it
-    report["advisor"] = phase_advisor(dev, card)
-    torch.cuda.empty_cache()
+    if ph.on(11):
+        with ph.span(11):
+            report["advisor"] = phase_advisor(dev, card)
+            torch.cuda.empty_cache()
 
     # xLSTM-125M trains (phase 12), each part's counts read around it
-    report["train"] = phase_train(dev, card, peaks)
-    torch.cuda.empty_cache()
-    train_ml = report["train"]["launches"]["mlstm_scan"]
-    train_q = {k: (report["train"]["compress"]["counts"][k]
-                   + report["train"]["compress"]["steps_counts"][k])
-               for k in ("quantize_leaves", "dequantize_leaves")}
+    if ph.on(12):
+        with ph.span(12):
+            report["train"] = phase_train(dev, card, peaks)
+            torch.cuda.empty_cache()
+            train_ml = report["train"]["launches"]["mlstm_scan"]
+            train_q = {k: (report["train"]["compress"]["counts"][k]
+                           + report["train"]["compress"]["steps_counts"][k])
+                       for k in ("quantize_leaves", "dequantize_leaves")}
 
     # the fault-tolerant runtime (phase 13), each part's counts read around
     # it
-    report["ft"] = phase_ft(dev, card)
-    torch.cuda.empty_cache()
-    ft_parts = [report["ft"][k]["launches"] for k in ("run", "smoke",
-                                                      "identity")]
-    ft_ml = sum(c["mlstm_scan"] for c in ft_parts)
-    ft_q = {k: report["ft"]["run"]["launches"][k]
-            for k in ("quantize_leaves", "dequantize_leaves")}
+    if ph.on(13):
+        with ph.span(13):
+            report["ft"] = phase_ft(dev, card)
+            torch.cuda.empty_cache()
+            ft_parts = [report["ft"][k]["launches"] for k in (
+                "run", "smoke", "identity")]
+            ft_ml = sum(c["mlstm_scan"] for c in ft_parts)
+            ft_q = {k: report["ft"]["run"]["launches"][k]
+                    for k in ("quantize_leaves", "dequantize_leaves")}
 
     # serving (phase 14), each part's counts read around it
-    report["serve"] = phase_serve(dev, card)
-    torch.cuda.empty_cache()
+    if ph.on(14):
+        with ph.span(14):
+            report["serve"] = phase_serve(dev, card)
+            torch.cuda.empty_cache()
     # the other four archs served (phase 15), each part's counts read
     # around it
-    report["serve15"] = phase_serve15(dev, card)
-    torch.cuda.empty_cache()
-    serve15_n = report["serve15"]["launches"]
-    serve_n = {k: v + serve15_n.get(k, 0)
-               for k, v in report["serve"]["launches"].items()}
+    if ph.on(15):
+        with ph.span(15):
+            report["serve15"] = phase_serve15(dev, card)
+            torch.cuda.empty_cache()
+    if ph.on(14) and ph.on(15):
+        serve15_n = report["serve15"]["launches"]
+        serve_n = {k: v + serve15_n.get(k, 0)
+                   for k, v in report["serve"]["launches"].items()}
 
     # the checkpoint runtime path, its counts read around it
-    root = ROOT / "build" / "chip_smoke_ckpt"
-    shutil.rmtree(root, ignore_errors=True)
-    try:
-        _reset_counts()
-        ck = run_ckpt_path(dev, root)
-        torch.cuda.synchronize()
-        ck_counts = _counts()
-        quant_names = ("quantize_leaves", "dequantize_leaves", "quantize",
-                       "dequantize", "plain")
-        log("checkpoint path: " + ", ".join(
-            f"{k} {ck_counts[k]}" for k in quant_names[:4])
-            + f" launches, plain-version calls {ck_counts['plain']}")
-        if tuple(ck_counts[k] for k in quant_names) != (1, 1, 0, 0, 0):
-            fail(f"the checkpoint path did not quantize and dequantize its "
-                 f"{_ckpt_sizes()[0]} leaves in one launch each")
-        report["ckpt"] = gate_ckpt(ck, dev)
-        report["ckpt_times"] = report_ckpt(ck)
-        qtimes = phase_quant_times(ck, peaks, dev)
-        del ck
-    finally:
+    if ph.on(6):
+        root = ROOT / "build" / "chip_smoke_ckpt"
         shutil.rmtree(root, ignore_errors=True)
-    torch.cuda.empty_cache()
+        try:
+            with ph.span(6):
+                _reset_counts()
+                ck = run_ckpt_path(dev, root)
+                torch.cuda.synchronize()
+                ck_counts = _counts()
+                quant_names = ("quantize_leaves", "dequantize_leaves",
+                               "quantize", "dequantize", "plain")
+                log("checkpoint path: " + ", ".join(
+                    f"{k} {ck_counts[k]}" for k in quant_names[:4])
+                    + f" launches, plain-version calls {ck_counts['plain']}")
+                if tuple(ck_counts[k] for k in quant_names) != (1, 1, 0, 0,
+                                                                0):
+                    fail(f"the checkpoint path did not quantize and "
+                         f"dequantize its {_ckpt_sizes()[0]} leaves in one "
+                         f"launch each")
+                report["ckpt"] = gate_ckpt(ck, dev)
+                report["ckpt_times"] = report_ckpt(ck)
+            if ph.on(7):
+                with ph.span(7):
+                    qtimes = phase_quant_times(ck, peaks, dev)
+            del ck
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
 
     # the model-zoo kernel layer at full width, its counts read around it
-    inp = zoo_inputs(dev)
-    _reset_counts()
-    zoo_out = run_zoo_path(inp)
-    torch.cuda.synchronize()
-    zoo_counts = _counts()
-    zoo_names = ("rglru_scan", "flash_attention", "decode_attention",
-                 "mlstm_scan")
-    log("zoo path: launches " + ", ".join(
-        f"{n} {zoo_counts[n]}" for n in zoo_names)
-        + f", plain-version calls {zoo_counts['plain']}")
-    if any(zoo_counts[n] <= 0 for n in zoo_names):
-        fail("the zoo path did not launch all four kernels")
-    if zoo_counts["plain"] != 0:
-        fail("the zoo path called a plain version")
-    report["zoo"] = gate_zoo(inp, zoo_out)
-    del zoo_out
-    torch.cuda.empty_cache()
-    report["bench_kernels"] = phase_bench_kernels(dev)
+    if ph.on(8):
+        with ph.span(8):
+            inp = zoo_inputs(dev)
+            _reset_counts()
+            zoo_out = run_zoo_path(inp)
+            torch.cuda.synchronize()
+            zoo_counts = _counts()
+            zoo_names = ("rglru_scan", "flash_attention", "decode_attention",
+                         "mlstm_scan")
+            log("zoo path: launches " + ", ".join(
+                f"{n} {zoo_counts[n]}" for n in zoo_names)
+                + f", plain-version calls {zoo_counts['plain']}")
+            if any(zoo_counts[n] <= 0 for n in zoo_names):
+                fail("the zoo path did not launch all four kernels")
+            if zoo_counts["plain"] != 0:
+                fail("the zoo path called a plain version")
+            report["zoo"] = gate_zoo(inp, zoo_out)
+            del zoo_out
+            torch.cuda.empty_cache()
+            report["bench_kernels"] = phase_bench_kernels(dev)
 
-    variants = phase_times(big, mc_grid, model, runs, peaks, draw_ops, dev)
-    ztimes = phase_zoo_times(inp, peaks, dev)
-    del inp
+    if ph.on(7):
+        with ph.span(7):
+            variants = phase_times(big, mc_grid, model, runs, peaks,
+                                   draw_ops, dev)
+    if ph.on(8):
+        with ph.span(8):
+            ztimes = phase_zoo_times(inp, peaks, dev)
+            del inp
+            torch.cuda.empty_cache()
+
+    # training through attention and the RG-LRU (phase 16), each part's
+    # counts read around it, after every other model is freed
+    if ph.on(16):
+        with ph.span(16):
+            smoke = report.get("ft", {}).get("smoke", {})
+            report["train16"] = phase_train16(dev, card,
+                                              smoke.get("report_keys"))
+
+    if ph.selected != set(PHASES):
+        log(json.dumps({"phase_s": ph.report()}))
+        log("kernels: the kernels line needs every phase; not printed")
+        log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
+    train16_n = report["train16"]["launches"]
 
     # the explicit kernel: launches, times and bound of the figures path
     # (fig5 and the surrogate's argmin); beside them the caller's schedule
@@ -5753,14 +6527,22 @@ def main() -> None:
                         for f in KERNEL_FILES.get(name, (f"{name}.cu",))],
             "replaces": f"src/repro/kernels/{name}.py:{line}",
             "launches": zoo_counts[name] + serve_n[name] + (
-                train_ml + ft_ml if name == "mlstm_scan" else 0),
+                train_ml + ft_ml if name == "mlstm_scan" else 0)
+            + train16_n.get(name, 0),
             "launches_by_path": ({"zoo": zoo_counts[name],
                                   "train": train_ml, "ft": ft_ml,
                                   "serve": serve_n[name]}
                                  if name == "mlstm_scan" else
                                  {"zoo": zoo_counts[name],
                                   "serve": serve_n[name],
-                                  "serve_phase15": serve15_n.get(name, 0)}),
+                                  "serve_phase15": serve15_n.get(name, 0),
+                                  "train16": train16_n.get(name, 0)}),
+            **({"on_train16": {
+                k: {f: v[f] for f in ("shape", "dtype", "mode", "bwd_ms",
+                                      "fwd_ms", "max_abs_err")}
+                for k, v in report["train16"]["checks"].items()
+                if k.startswith("flash_")}} if name == "flash_attention"
+               else {}),
             **({"dh64": ztimes[name + "_dh64"]}
                if name + "_dh64" in ztimes else {}),
             **({"on_train_step": {
@@ -5779,6 +6561,7 @@ def main() -> None:
             "variants": parts})
     print(json.dumps({"gates": report}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    log(json.dumps({"phase_s": ph.report()}))
     log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

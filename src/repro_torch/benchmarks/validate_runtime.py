@@ -12,8 +12,8 @@ executed.
 
 The reduced model is xLSTM-125M (2 layers, d 64, one mLSTM head of 128,
 the card's kernel's narrowest) in place of the reference's reduced
-starcoder2-3b, whose attention has no backward on the card yet
-(ROADMAP A9c).  In scaled time the failure schedule is the only
+starcoder2-3b, whose heads of 16 the card's flash does not take (it
+takes 64, 128 or 256).  In scaled time the failure schedule is the only
 randomness, so the rows do not depend on the model.
 
 Scenarios cover both halves of the acceptance criterion:

@@ -31,6 +31,11 @@ weights is floored at 1e-30 (a row with no allowed key gives zeros).
   4e-3 + 1e-2 relative and a relative Frobenius error of 4e-3: the bf16
   weights of P V put it about 2e-3 (Frobenius) from the plain version.
   ``.calls`` counts its calls.
+* :class:`FlashAttention` is attention with a gradient: its forward is
+  :func:`flash_attention` (the kernel on CUDA, the plain version on the
+  CPU), its backward a blocked one in PyTorch (:func:`flash_backward`),
+  the same code on both devices.  The reference has no backward kernel:
+  its gradient is XLA's autodiff of attention written in jnp.
 """
 from __future__ import annotations
 
@@ -116,10 +121,11 @@ flash_attention.launches = 0
 
 
 def allowed(mode: str, Sq: int, Skv: int, window: int, chunk: int,
-            device) -> torch.Tensor:
-    """The (Sq, Skv) boolean mask of ``mode``."""
-    jq = torch.arange(Sq, device=device)[:, None]
-    jk = torch.arange(Skv, device=device)[None, :]
+            device, q0: int = 0, k0: int = 0) -> torch.Tensor:
+    """The (Sq, Skv) boolean mask of ``mode`` over query rows ``q0 ..
+    q0 + Sq - 1`` and keys ``k0 .. k0 + Skv - 1``."""
+    jq = torch.arange(q0, q0 + Sq, device=device)[:, None]
+    jk = torch.arange(k0, k0 + Skv, device=device)[None, :]
     if mode == "bidir":
         return torch.ones((Sq, Skv), dtype=torch.bool, device=device)
     m = jk <= jq
@@ -149,3 +155,103 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_plain.calls = 0
+
+
+#: f32 elements of one (BH, rows, keys) tensor of a backward block: the
+#: block takes as many query rows (a power of two, at least
+#: ``MIN_BLOCK_ROWS``) as keep it within this; a block holds about five
+#: such tensors at once (scores, weights, their gradient, masks), ~0.7 GB.
+BWD_BLOCK_ELEMS = 2 ** 25
+MIN_BLOCK_ROWS = 16
+
+
+def key_range(mode: str, i0: int, i1: int, Skv: int, window: int,
+              chunk: int) -> tuple:
+    """The keys ``[k0, k1)`` that query rows ``[i0, i1)`` may attend: all
+    for ``bidir``, up to the last row for ``causal``, the band of
+    ``window`` keys for ``sliding``, from the first row's chunk for
+    ``chunked``."""
+    k1 = Skv if mode == "bidir" else min(i1, Skv)
+    if mode == "sliding":
+        k0 = max(0, i0 - window + 1)
+    elif mode == "chunked":
+        k0 = (i0 // chunk) * chunk
+    else:
+        k0 = 0
+    return k0, max(k0, k1)
+
+
+def block_rows(BH: int, Sq: int, band: int) -> int:
+    """Query rows a backward block takes (see ``BWD_BLOCK_ELEMS``)."""
+    rows = max(1, BWD_BLOCK_ELEMS // max(1, BH * band))
+    rows = max(MIN_BLOCK_ROWS, 1 << (rows.bit_length() - 1))
+    return min(rows, Sq)
+
+
+def flash_backward(q, k, v, dout, *, mode: str, window: int = 0,
+                   chunk: int = 0) -> tuple:
+    """The gradients ``(dq, dk, dv)`` of :func:`flash_attention_plain`'s
+    function, in the inputs' dtype, computed in f32 one block of
+    :func:`block_rows` query rows at a time, so that no (Sq, Skv) tensor
+    exists.  A block recomputes its masked scores against the keys
+    its rows may attend (:func:`key_range`, masked by :func:`allowed`) and
+    the normalised weights P, then ``dV += P^T dO``, ``dP = dO V^T``,
+    ``D = rowsum(dO * O)``, ``dS = P * (dP - D)``, ``dQ = dS K * scale``
+    and ``dK += dS^T Q * scale``.  D is summed as ``rowsum(P * dP)``, the
+    same sum with the block's f32 output (O = P V) in place of the
+    forward's, which bf16 rounds."""
+    _check(q, k, v, mode, chunk)
+    f32 = torch.float32
+    BH, Sq, Dh = q.shape
+    Skv = k.shape[1]
+    scale = torch.tensor(Dh ** -0.5, dtype=f32).to(q.device)
+    kf, vf, dof = k.to(f32), v.to(f32), dout.to(f32)
+    dq = torch.zeros((BH, Sq, Dh), dtype=f32, device=q.device)
+    dk = torch.zeros((BH, Skv, Dh), dtype=f32, device=q.device)
+    dv = torch.zeros_like(dk)
+    band = {"sliding": window, "chunked": chunk}.get(mode, Skv)
+    rows = block_rows(BH, Sq, min(Skv, band))
+    for i0 in range(0, Sq, rows):
+        i1 = min(Sq, i0 + rows)
+        k0, k1 = key_range(mode, i0, i1, Skv, window, chunk)
+        if k0 == k1:
+            continue
+        allow = allowed(mode, i1 - i0, k1 - k0, window, chunk, q.device,
+                        q0=i0, k0=k0)
+        qs = q[:, i0:i1].to(f32) * scale
+        kb, vb, do = kf[:, k0:k1], vf[:, k0:k1], dof[:, i0:i1]
+        s = torch.where(allow, torch.matmul(qs, kb.transpose(1, 2)),
+                        NEG_INF)
+        p = torch.where(allow, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+        del s
+        p = p / torch.clamp_min(p.sum(-1, keepdim=True), 1e-30)
+        dv[:, k0:k1] += torch.matmul(p.transpose(1, 2), do)
+        dp = torch.matmul(do, vb.transpose(1, 2))
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        del p, dp
+        dq[:, i0:i1] = torch.matmul(ds, kb) * scale
+        dk[:, k0:k1] += torch.matmul(ds.transpose(1, 2), qs)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a gradient over the flat-head layout: q ``(BH, Sq,
+    Dh)``, k, v ``(BH, Skv, Dh)``.  Forward: :func:`flash_attention` (the
+    kernel on CUDA, counted in ``flash_attention.launches``; the plain
+    version on the CPU).  Backward: :func:`flash_backward` from the saved
+    q, k and v, on either device; it launches no kernel of this module."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mode: str = "causal", window: int = 0,
+                chunk: int = 0):
+        out = flash_attention(q, k, v, mode=mode, window=window,
+                              chunk=chunk)
+        ctx.save_for_backward(q, k, v)
+        ctx.args = dict(mode=mode, window=window, chunk=chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*flash_backward(q, k, v, dout, **ctx.args), None, None,
+                None)

@@ -8,9 +8,12 @@ device of its input: the kernel on CUDA, its plain version on the CPU.
   :func:`decode_attention` a query ``(B, 1, H, Dh)`` against a cache
   ``(B, Sc, H, Dh)``; :func:`mlstm_scan` folds
   ``(B, H, S, Dh)`` and ``(B, H, S)`` gates to ``B*H`` rows;
-  :func:`rglru_scan` is the kernel's own wrapper, whose layout
-  ``(B, S, W)`` is the model's.  :func:`mlstm_scan_trainable` is the
-  mLSTM with a gradient (``mlstm_scan.MLSTMScan``), the models' path.
+  :func:`rglru_scan` takes the kernel's own layout ``(B, S, W)``, which
+  is the model's.  Attention and the RG-LRU scan go through their
+  ``autograd.Function`` (``flash_attention.FlashAttention``,
+  ``rglru_scan.RGLRUScan``), so they have a gradient on either device;
+  :func:`mlstm_scan_trainable` is the mLSTM with a gradient
+  (``mlstm_scan.MLSTMScan``), the models' path.
   The TPU tiling arguments of the
   reference (``qb``, ``kb``, ``bb``, ``sb``, ``wb``) have no counterpart.
 * :func:`quantize_array` and :func:`dequantize_array` take arrays of any
@@ -28,22 +31,29 @@ import torch
 from . import decode_attention as _da
 from . import flash_attention as _fa
 from . import mlstm_scan as _ml
+from . import rglru_scan as _rg
 from .quant_blockwise import (dequantize, dequantize_leaves, quantize,
                               quantize_leaves)
 from .quant_blockwise import pad_of as _pad_of
-from .rglru_scan import rglru_scan  # noqa: F401
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     mode: str = "causal", window: int = 0,
                     chunk: int = 0) -> torch.Tensor:
     """Attention in the model layout: q (B, S, H, Dh), k/v (B, Skv, H, Dh);
-    returns (B, S, H, Dh)."""
+    returns (B, S, H, Dh), with a gradient (``FlashAttention``)."""
     B, S, H, Dh = q.shape
     fold = lambda t: t.transpose(1, 2).reshape(B * H, t.shape[1], Dh)
-    out = _fa.flash_attention(fold(q), fold(k), fold(v), mode=mode,
-                              window=window, chunk=chunk)
+    out = _fa.FlashAttention.apply(fold(q), fold(k), fold(v), mode, window,
+                                   chunk)
     return out.reshape(B, H, S, Dh).transpose(1, 2)
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor,
+               h0: torch.Tensor) -> torch.Tensor:
+    """The RG-LRU scan ``h_t = a_t h_{t-1} + b_t`` in the model layout
+    ``(B, S, W)`` from ``h0`` ``(B, W)``, with a gradient (``RGLRUScan``)."""
+    return _rg.RGLRUScan.apply(a, b, h0)
 
 
 def decode_attention(q1: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

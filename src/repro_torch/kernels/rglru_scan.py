@@ -21,6 +21,11 @@ dtype.
   a time (a product, then a sum, each rounded to f32); the kernel, built
   with ``-fmad=false``, is held bitwise against it.  ``.calls`` counts
   its calls.
+* :class:`RGLRUScan` is the scan with a gradient.  Its backward is the
+  reverse recurrence ``dh_t = g_t + a_{t+1} dh_{t+1}``, a linear scan
+  too, run through :func:`rglru_scan` on the sequence flipped in time
+  (:func:`reverse_scan`): on the card the kernel runs in the backward as
+  well.
 """
 from __future__ import annotations
 
@@ -128,3 +133,39 @@ def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor,
 
 
 rglru_scan_plain.calls = 0
+
+
+def reverse_scan(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``dh`` with ``dh_t = g_t + a_{t+1} dh_{t+1}`` (``a_S`` = 0): one
+    :func:`rglru_scan` over the time-flipped ``g`` with ``a`` shifted by one
+    step, from a zero state.  ``a``, ``g``: ``(B, S, W)`` of one dtype."""
+    shifted = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+    h0 = torch.zeros((a.shape[0], a.shape[2]), dtype=torch.float32,
+                     device=a.device)
+    return rglru_scan(shifted.flip(1), g.flip(1), h0).flip(1)
+
+
+class RGLRUScan(torch.autograd.Function):
+    """:func:`rglru_scan` with a gradient: ``a``, ``b`` ``(B, S, W)``, ``h0``
+    ``(B, W)``; returns ``h`` in ``b``'s dtype.  Forward: the wrapper (the
+    kernel on CUDA, counted in ``rglru_scan.launches``; the plain version
+    on the CPU), keeping ``a``, ``h`` and ``h0``.  Backward, from the
+    cotangent g of h: ``dh = reverse_scan(a, g)`` (one more launch on
+    CUDA), then ``db = dh``, ``da_t = dh_t h_{t-1}`` with ``h_{-1} = h0``,
+    and ``dh0 = a_0 dh_0``."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = rglru_scan(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h, h0 = ctx.saved_tensors
+        dh = reverse_scan(a, g.to(a.dtype)).to(torch.float32)
+        prev = torch.cat([h0.to(torch.float32)[:, None],
+                          h[:, :-1].to(torch.float32)], dim=1)
+        da = dh * prev
+        dh0 = a[:, 0].to(torch.float32) * dh[:, 0]
+        return da.to(a.dtype), dh.to(a.dtype), dh0.to(h0.dtype)

@@ -3,7 +3,8 @@
 Counterpart of the reference's ``repro/launch/train.py``: a thin CLI over
 :class:`repro_torch.ft.run.RunSpec` with the reference's flags, defaults
 and choices, plus ``--device`` (default ``cuda``; ``cpu`` runs on the
-host).  It builds an architecture (full or reduced), wires the FT trainer
+host) and ``--n-heads`` (the reduced config's heads, default the
+reference's 4).  It builds an architecture (full or reduced), wires the FT trainer
 with the checkpoint-period policy (single-level AlgoT/AlgoE/... or the
 joint multilevel ``algo_t_ml`` / ``algo_e_ml`` which also chooses the
 buddy/PFS cadence m), injects failures from any renewal process
@@ -16,13 +17,14 @@ prints the measured report next to the model's predictions
     python -m repro_torch.launch.train --arch xlstm-125m --no-reduce \\
         --batch 8 --seq 256 --steps 12 --strategy algo_e_ml --mtbf 20 \\
         --q 1 --compress --profile paper_ml --sim-step-seconds 0
+    python -m repro_torch.launch.train --arch starcoder2-3b --layers 2 \
+        --d-model 128 --n-heads 2 --steps 40 --mtbf 15
     python -m repro_torch.launch.train --smoke [--device cpu]
 
-On the card only the xLSTM trains in the port so far: the attention and
-RG-LRU kernels have no backward, so an attention or RG-LRU arch raises
-``NotImplementedError`` (ROADMAP A9c) at its first step there (on the CPU
-autograd runs through their plain versions), and an MoE arch raises on
-either device.
+Every arch trains on either device.  On the card a reduced config must
+keep a head width the kernels take (flash: 64, 128 or 256; the mLSTM:
+128, 256 or 384): the reference's reduced default (d 64, 4 heads) has
+heads of 16, which raises there at the first step.
 """
 from __future__ import annotations
 
@@ -35,13 +37,13 @@ from ..core.optimal import STRATEGIES
 #: the ``--smoke`` run: the reference's spec (120 steps of ``algo_t_ml``
 #: at mu 15 s, C 1.5/0.3, R 1.5/0.3, D 0.2/0.1, q 0.15, ``paper_ml``,
 #: seed 3) on reduced xLSTM-125M in place of the reference's reduced
-#: starcoder2-3b, whose attention has no backward on the card yet
-#: (ROADMAP A9c).  In scaled time every duration is virtual, so the
-#: failure schedule is the only randomness and the report (wall, energy,
-#: failures, checkpoints, the operating point) does not depend on the
-#: model: the reference's smoke gives the same report on either arch;
-#: only the losses differ.  One mLSTM head of 2 * 64 = 128 wide (the
-#: card's kernel takes 128, 256 or 384).
+#: starcoder2-3b, whose heads of 32 / 2 = 16 the card's flash does not
+#: take (it takes 64, 128 or 256).  In scaled time every duration is
+#: virtual, so the failure schedule is the only randomness and the report
+#: (wall, energy, failures, checkpoints, the operating point) does not
+#: depend on the model: the reference's smoke gives the same report on
+#: either arch; only the losses differ.  One mLSTM head of 2 * 64 = 128
+#: wide (the card's kernel takes 128, 256 or 384).
 SMOKE_SPEC = dict(arch="xlstm-125m", layers=2, d_model=64, n_heads=1,
                   batch=2, seq=16, total_steps=120, step_s=1.0,
                   strategy="algo_t_ml", mu_s=15.0, C_s=1.5, R_s=1.5,
@@ -60,6 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="reduced same-family config (CPU-sized)")
     ap.add_argument("--layers", type=int, default=d.layers)
     ap.add_argument("--d-model", type=int, default=d.d_model)
+    ap.add_argument("--n-heads", type=int, default=d.n_heads,
+                    help="heads of the reduced config")
     ap.add_argument("--steps", type=int, default=d.total_steps)
     ap.add_argument("--batch", type=int, default=d.batch)
     ap.add_argument("--seq", type=int, default=d.seq)
@@ -124,7 +128,8 @@ def spec_from_args(args) -> "RunSpec":
         pk["sigma"] = args.process_param
     return RunSpec(
         arch=args.arch, reduce=args.reduce, layers=args.layers,
-        d_model=args.d_model, batch=args.batch, seq=args.seq, lr=args.lr,
+        d_model=args.d_model, n_heads=args.n_heads, batch=args.batch,
+        seq=args.seq, lr=args.lr,
         seed=args.seed, total_steps=args.steps,
         strategy=args.strategy, pfs_every=args.pfs_every,
         use_buddy=args.buddy,

@@ -10,9 +10,8 @@ reads it.
   sliding-window or chunked mask narrower than the sequence, online
   softmax otherwise).  Both bodies are one call of
   ``kernels/ops.py::flash_attention`` in the mask's mode: the flash kernel
-  on CUDA, its plain version on the CPU.  The kernel has no backward, so
-  on CUDA an input that requires a gradient raises (ROADMAP A9c's
-  training slice); on the CPU autograd runs through the plain version.
+  on CUDA, its plain version on the CPU, and on either device a blocked
+  backward in PyTorch (``kernels/flash_attention.py::FlashAttention``).
   The masks are the kernel's (the reference's ``_block_mask`` is
   ``kernels/flash_attention.py::allowed``).
 * :func:`decode_attention` maps the reference's ``slot_pos`` mask to the
@@ -30,12 +29,6 @@ import torch
 from ..kernels import ops as kops
 from .layers import rope
 from .spec import ParamSpec
-
-#: the training slice that brings a flash backward.
-_NO_BACKWARD = ("attention has no backward on CUDA yet (ROADMAP A9c: "
-                "training through attention); run under torch.no_grad() "
-                "or on the CPU")
-
 
 # ---------------------------------------------------------------------------
 # Parameter spec
@@ -86,19 +79,13 @@ def expand_kv(cfg, kv: torch.Tensor) -> torch.Tensor:
 # Core attention (flat layout: q/k/v all (B, S, H, Dh))
 # ---------------------------------------------------------------------------
 
-def _flash(q, k, v, **kw) -> torch.Tensor:
-    if q.device.type == "cuda" and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(_NO_BACKWARD)
-    return kops.flash_attention(q, k, v, **kw)
-
-
 def attention_online(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      mode: str = "causal", window: int = 0,
                      chunk: int = 0) -> torch.Tensor:
     """Online-softmax attention (causal or bidirectional) over the whole
     sequence.  q: (B, Sq, H, Dh); k/v: (B, Skv, H, Dh)."""
-    return _flash(q, k, v, mode=mode, window=window, chunk=chunk)
+    return kops.flash_attention(q, k, v, mode=mode, window=window,
+                                chunk=chunk)
 
 
 def attention_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -108,7 +95,8 @@ def attention_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel skips the key tiles outside the band."""
     if mode not in ("sliding", "chunked"):
         raise ValueError(mode)
-    return _flash(q, k, v, mode=mode, window=window, chunk=chunk)
+    return kops.flash_attention(q, k, v, mode=mode, window=window,
+                                chunk=chunk)
 
 
 def attention(q, k, v, *, mode: str, window: int = 0,

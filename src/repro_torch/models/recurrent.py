@@ -13,8 +13,9 @@ recurrences run in float32.
 * The sLSTM is a sequential scan, a Python loop over time steps: neither
   package has a kernel for it.
 * The RG-LRU computes its gates as the reference does and runs its
-  linear scan through ``kernels/ops.py::rglru_scan`` from the state's h
-  (the reference folds h0 into the first step of a log-depth
+  linear scan through ``kernels/ops.py::rglru_scan`` from the state's h,
+  whose gradient is the reverse scan through the same kernel (the
+  reference folds h0 into the first step of a log-depth
   ``associative_scan``: the same function, other rounding).
 """
 from __future__ import annotations
@@ -106,8 +107,8 @@ def _rglru_core(p, xw: torch.Tensor, h0: torch.Tensor):
     Gates are block-diagonal per head, computed with a batched per-block
     product, as the reference's; the scan ``h_t = a_t h_{t-1} + b_t`` from
     ``h0`` runs through ``kernels/ops.py::rglru_scan`` (the kernel on
-    CUDA, which has no backward: an input that requires a gradient
-    raises there)."""
+    CUDA, the plain version on the CPU), whose backward is the reverse
+    scan through the same wrapper."""
     B, S, W = xw.shape
     nb, wb, _ = p["gate_a"].shape
     x4 = xw.reshape(B, S, nb, wb)
@@ -123,12 +124,6 @@ def _rglru_core(p, xw: torch.Tensor, h0: torch.Tensor):
     gated_x = i * xw
     beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
     b = beta * gated_x
-    if xw.device.type == "cuda" and torch.is_grad_enabled() and (
-            a.requires_grad or b.requires_grad):
-        raise NotImplementedError(
-            "the RG-LRU scan has no backward on CUDA yet (ROADMAP A9c: "
-            "training through the RG-LRU); run under torch.no_grad() or on "
-            "the CPU")
     h = kops.rglru_scan(a, b, h0.to(F32))
     return h, h[:, -1]
 

@@ -346,11 +346,19 @@ def _unstack(tree, n: int) -> list:
 
 def _run_stack(cfg, params, x, positions, *, collect_cache: bool,
                max_seq: int, enc_kv=None):
+    """The stages' super-blocks, then the tail.  Under ``remat="full"``
+    with grad, each layer runs under ``torch.utils.checkpoint``; with
+    ``remat_group = g > 1`` dividing the super-blocks, each group of g
+    super-blocks runs under one more checkpoint around those (the
+    reference's two-level remat: the outer level keeps one input a group,
+    the inner one, a layer's, keeps the backward's recompute to one layer,
+    as the reference's per-layer checkpoints of a multi-kind super-block
+    do)."""
     pat, n, tail = super_block(cfg)
     g = max(1, getattr(cfg, "remat_group", 1))
-    if g > 1 and n % g == 0:
-        raise NotImplementedError("remat_group > 1 (two-level remat) is "
-                                  "not ported yet: no ported arch sets it")
+    if n % g:
+        g = 1
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
 
     def layer(kind, xh, psl):
         return apply_layer_full(cfg, kind, psl, xh, positions,
@@ -358,16 +366,31 @@ def _run_stack(cfg, params, x, positions, *, collect_cache: bool,
                                 enc_kv=enc_kv)
 
     def run(kind, xh, psl):
-        if cfg.remat == "full" and torch.is_grad_enabled():
+        if remat:
             return checkpoint(layer, kind, xh, psl, use_reentrant=False)
         return layer(kind, xh, psl)
 
+    def group(xh, *psls):
+        """g super-blocks, ``psls`` their layers' params in order.  Returns
+        (x, their entries by kind)."""
+        out = [[] for _ in pat]
+        for i in range(g):
+            for j, kind in enumerate(pat):
+                xh, entry = run(kind, xh, psls[i * len(pat) + j])
+                out[j].append(entry)
+        return xh, out
+
     slices = [_unstack(stage, n) for stage in params["stages"]]
     entries = [[] for _ in pat]
-    for i in range(n):
-        for j, kind in enumerate(pat):
-            x, entry = run(kind, x, slices[j][i])
-            entries[j].append(entry)
+    for i0 in range(0, n, g):
+        psls = [slices[j][i] for i in range(i0, i0 + g)
+                for j in range(len(pat))]
+        if remat and g > 1:
+            x, got = checkpoint(group, x, *psls, use_reentrant=False)
+        else:
+            x, got = group(x, *psls)
+        for j in range(len(pat)):
+            entries[j] += got[j]
     tail_caches = []
     for kind, psl in zip(tail, params["tail"]):
         x, entry = layer(kind, x, psl)

@@ -19,6 +19,12 @@ from .._device import resolve_device
 from ..ckpt.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 F32 = torch.float32
+#: elements of a leaf updated at once: a larger leaf (recurrentgemma-9b's
+#: 4 GB embedding and head) is updated in slices of this many, each
+#: elementwise step rounding as on the whole leaf, so that its update
+#: holds a few slice-sized temporaries beside its results, not five
+#: leaf-sized ones.
+UPDATE_CHUNK = 2 ** 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,8 +152,9 @@ def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState):
     bc1 = 1.0 - torch.pow(b1, step.to(F32))
     bc2 = 1.0 - torch.pow(b2, step.to(F32))
 
-    def upd(p, g, m, v, w):
-        """w = the f32 master (or the f32 param itself)."""
+    def one(decay: bool, g, m, v, w):
+        """(w_new, m_new, v_new) in f32; w = the f32 master (or the f32
+        param itself)."""
         gf = g.to(F32) * clip_scale
         m_new = b1 * m.to(F32) + (1 - b1) * gf
         if isinstance(v, FactoredV):
@@ -165,9 +172,24 @@ def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState):
             v_new = v_full
         mh = m_new / bc1
         delta = mh / (torch.sqrt(vh) + cfg.eps)
-        if p.ndim >= 2:   # decay matrices only (1-D norms/biases exempt)
+        if decay:   # decay matrices only (1-D norms/biases exempt)
             delta = delta + cfg.weight_decay * w
-        w_new = w - lr * delta
+        return w - lr * delta, m_new, v_new
+
+    def upd(p, g, m, v, w):
+        decay = p.ndim >= 2
+        if isinstance(v, FactoredV) or w.numel() <= UPDATE_CHUNK:
+            w_new, m_new, v_new = one(decay, g, m, v, w)
+        else:
+            w_new, m_new, v_new = (torch.empty(w.shape, dtype=F32,
+                                               device=w.device)
+                                   for _ in range(3))
+            ins = [t.reshape(-1) for t in (g, m, v, w)]
+            outs = [t.view(-1) for t in (w_new, m_new, v_new)]
+            for i in range(0, w.numel(), UPDATE_CHUNK):
+                part = [t[i:i + UPDATE_CHUNK] for t in ins]
+                for out, x in zip(outs, one(decay, *part)):
+                    out[i:i + UPDATE_CHUNK] = x
         return w_new.to(p.dtype), m_new.to(m.dtype), v_new, w_new
 
     flat_p, treedef = tree_flatten(params)

@@ -603,11 +603,10 @@ def test_no_prediction_without_failures(tmp_path):
     assert rep["final_step"] == 5 and rep["spec"] == dataclasses.asdict(spec)
 
 
-def test_attention_arch_raises_naming_a9c(tmp_path):
-    """An MoE arch, which raised before the port's MoE slice, now trains
-    through the runtime on the CPU (autograd through the plain attention
-    and the routing; on the card attention raises for want of a flash
-    backward): every step runs and the losses are finite."""
+def test_moe_attention_arch_trains_through_the_runtime(tmp_path):
+    """An MoE arch trains through the runtime on the CPU (attention's
+    blocked backward, the routing): every step runs and the losses are
+    finite."""
     spec = TR.RunSpec(arch="dbrx-132b", layers=1, d_model=32,
                       n_heads=2, batch=2, seq=16, total_steps=2,
                       ckpt_dir=str(tmp_path))

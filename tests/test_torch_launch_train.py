@@ -45,8 +45,10 @@ def _actions(parser) -> dict:
 def test_parser_has_the_references_flags_plus_device():
     ref, got = _actions(RT.build_parser()), _actions(TT.build_parser())
     device = got.pop("device")
+    n_heads = got.pop("n_heads")
     assert got == ref
     assert device[:3] == (("--device",), "cuda", None)
+    assert n_heads[:4] == (("--n-heads",), 4, None, int)
 
 
 @pytest.mark.parametrize("argv", [
