@@ -357,6 +357,37 @@ Phases (any failure exits non-zero; no result line is printed then):
    against 1 on a 4-super-block reduced recurrentgemma-9b (f32), each
    with its launches as designed (``_train16_launches``).
 
+17. devices and meshes (run last), every line with the card's name and
+   power limit, each part's counts set to 0 just before it and read just
+   after.  (a) the card's facts: ``torch.cuda.device_count()`` and
+   ``sim.dispatch.effective_devices()`` (equal), and the card's
+   ``total_memory`` equal to ``launch.mesh.H100["hbm_bytes"]``.  (b) the
+   grid split: a one-card machine shows one device, so the sweep mesh is
+   patched to ``(cuda:0, cuda:0)`` (``SPLIT_DEVICES``), as the CPU tests
+   patch it to copies of the CPU; under it the mc-1024x4096 cell
+   (``simulate_trajectories`` at the AlgoE periods, Weibull(0.7), f64,
+   in-kernel draws), ``evaluate_grid`` on the 1e6-point grid and
+   ``evaluate_multilevel_grid`` on ml-sweep-262k (f64 and compensated
+   f32 each) are bitwise the unsplit calls, the MC making one
+   sampled-kernel launch a capacity bucket unsplit and one a (bucket,
+   device piece) split; both forms on the host clock.  (c) the elastic
+   restore-and-continue: a world-1 NCCL group on a ``HashStore`` and
+   ``make_test_mesh(1)`` on ``cuda``; xLSTM-125M at phase 12's cut (2
+   layers at full width, ``ELASTIC``), B 8, S 256, trains k = 2 steps,
+   takes a raw and an int8-compressed checkpoint (``ShardedStore``),
+   then ``plan_reshard(mesh, 0)``, ``build_mesh``, a restore of each,
+   ``reshard_tree`` (DTensors; their local tensors train on) and k more
+   steps.  Gates: from the raw checkpoint the losses, params and AdamW
+   state bitwise those of the uninterrupted run; from the int8 one
+   bitwise those of the uninterrupted run whose state at step k went
+   through the same int8 round trip in memory (``ops.quantize_arrays`` /
+   ``dequantize_arrays``; the checkpoint is lossy, so it is this run that
+   the restore must reproduce), and its distance from the uninterrupted
+   run printed; ``mlstm_scan`` launched 5 k times a step's count (the
+   uninterrupted run, the round-trip run and the two restores), two
+   quantize and two dequantize launches, no plain call.  The group is
+   destroyed at the end.
+
 Near the end it prints one JSON line ``{"gates": {...}}`` with every
 gate's numbers, then one ``{"kernels": [...]}`` line, then the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -6071,6 +6102,380 @@ def phase_train16(dev, card: str, smoke_keys=None) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# 17. devices and meshes
+# ---------------------------------------------------------------------------
+
+#: the split's sweep mesh repeats the card this many times (a one-card
+#: machine shows one device; every piece runs what a device of a real
+#: split runs).
+SPLIT_DEVICES = 2
+#: part (c): xLSTM-125M at phase 12's cut (2 layers at full width), B 8,
+#: S 256, k steps before the checkpoint and k after it.
+ELASTIC = dict(arch="xlstm-125m", layers=2, B=8, S=256, k=2, seed=0)
+#: its rehearsal on the CPU: reduced widths (one mLSTM head of 64).
+ELASTIC_SMALL = dict(d_model=64, n_heads=1, B=2, S=32)
+
+
+def _split_over(devices):
+    """A context in which every grid call splits over ``devices`` (the
+    sweep mesh and its size patched, as the tests do on the CPU)."""
+    import contextlib
+    from repro_torch.sim import dispatch
+
+    @contextlib.contextmanager
+    def patched():
+        saved = dispatch.effective_devices, dispatch.sweep_mesh
+        dispatch.effective_devices = \
+            lambda config=None, device="cuda": len(devices)
+        dispatch.sweep_mesh = lambda n: tuple(devices[:n])
+        try:
+            yield
+        finally:
+            dispatch.effective_devices, dispatch.sweep_mesh = saved
+    return patched()
+
+
+def _fields_equal(a, b) -> list:
+    """The tensor fields of two results that differ bitwise (NaN equal to
+    NaN at the same place)."""
+    import torch
+    bad = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if not isinstance(x, torch.Tensor):
+            continue
+        same = x.shape == y.shape and (torch.equal(x, y) or (
+            x.is_floating_point() and torch.equal(x.isnan(), y.isnan())
+            and torch.equal(x[~x.isnan()], y[~y.isnan()])))
+        if not same:
+            bad.append(f.name)
+    return bad
+
+
+def _mesh_split(dev, tlog, rehearse: bool) -> dict:
+    """Part (b): the grid split over ``SPLIT_DEVICES`` copies of ``dev``,
+    bitwise against the unsplit calls, with the sampled kernel's launches
+    counted a piece and both forms timed."""
+    import numpy as np
+    from repro_torch.core import Weibull
+    from repro_torch.sim import (COMPENSATED_F32, F64, evaluate_grid,
+                                 evaluate_multilevel_grid, mu_rho_grid,
+                                 simulate_trajectories)
+    from repro_torch.sim import engine as te
+    n = SPLIT_DEVICES
+    devices = (dev,) * n
+    big_shape = (40, 25) if rehearse else SWEEP_SHAPE
+    mc_shape, trials = ((8, 4), 64) if rehearse else (MC_SHAPE, N_TRIALS)
+    ml_axes = tuple((a, b, 16) for a, b, _ in ML_SWEEP_AXES) if rehearse \
+        else ML_SWEEP_AXES
+    time_s = (lambda fn: _wall_s(fn, dev)) if rehearse else \
+        (lambda fn: _host_s(fn, reps=3))
+    out = {"devices": [str(d) for d in devices]}
+
+    def hold(name, call, fields=None):
+        want = call()
+        with _split_over(devices):
+            got = call()
+        bad = _fields_equal(got, want)
+        t_one = time_s(call)
+        with _split_over(devices):
+            t_split = time_s(call)
+        out[name] = {"bitwise": not bad, "differ": bad, "s": t_one,
+                     "split_s": t_split}
+        tlog(f"mesh split {name}: split over {n} x {dev} bitwise the "
+             f"unsplit call: {not bad} (fields differing: {bad}); host "
+             f"clock unsplit {t_one:.4f} s, split {t_split:.4f} s")
+        if bad:
+            fail(f"mesh split: {name} split over {n} devices differs from "
+                 f"the unsplit call in {bad}")
+        return want
+
+    # the MC cell with in-kernel draws: one process, one policy
+    mc_grid = mu_rho_grid(np.geomspace(120, 1200, mc_shape[0]),
+                          np.linspace(2, 10, mc_shape[1]), device=dev)
+    model = evaluate_grid(mc_grid, T_base=T_BASE, precision=F64, device=dev)
+    proc = Weibull(shape=0.7)
+    mc = lambda: simulate_trajectories(
+        model.T_energy, mc_grid, T_base=T_BASE, n_trials=trials, seed=7,
+        process=proc, precision=F64, device=dev)
+    flat, T_arr, Tb_arr = te._flat_inputs(model.T_energy, mc_grid, T_BASE,
+                                          dev)
+    buckets = [len(idx) for _, _, idx in te._buckets(T_arr, flat, Tb_arr,
+                                                      proc, None)]
+    counts = {}
+    for form, ctx in (("unsplit", ()), ("split", devices)):
+        _reset_counts()
+        if ctx:
+            with _split_over(ctx):
+                mc()
+        else:
+            mc()
+        _dev_sync(dev)
+        counts[form] = _counts()["event_sweep_sampled"]
+    want = {"unsplit": len(buckets),
+            "split": sum(min(n, b) for b in buckets)}
+    tlog(f"mesh split mc-{mc_grid.size}x{trials} (Weibull(0.7), f64, "
+         f"in-kernel draws): {len(buckets)} capacity buckets of "
+         f"{buckets} points; sampled-kernel launches unsplit "
+         f"{counts['unsplit']} (want {want['unsplit']}), split "
+         f"{counts['split']} (want {want['split']}: one a device piece)"
+         + ("; on the CPU the two-step path runs, no launch" if rehearse
+            else ""))
+    if not rehearse and counts != want:
+        fail(f"mesh split: sampled-kernel launches {counts}, want {want}")
+    hold("mc", mc)
+    out["mc"].update(launches=counts, want=want, buckets=buckets)
+
+    big = mu_rho_grid(np.linspace(30, 600, big_shape[0]),
+                      np.linspace(1, 10, big_shape[1]), device=dev)
+    for pol in (F64, COMPENSATED_F32):
+        hold(f"sweep_{pol.name}", lambda: evaluate_grid(
+            big, precision=pol, device=dev))
+    del big
+    ml = _geom_grid(ml_axes, ML_SWEEP_MU, dev)
+    for pol in (F64, COMPENSATED_F32):
+        hold(f"ml_sweep_{pol.name}", lambda: evaluate_multilevel_grid(
+            ml, m_values=ML_M_VALUES, precision=pol, device=dev))
+    out["sizes"] = {"mc": [mc_grid.size, trials], "sweep": big_shape[0]
+                    * big_shape[1], "ml_sweep": ml.size}
+    _free(dev)
+    return out
+
+
+def _elastic_cfg(rehearse: bool):
+    from repro_torch.configs import get_config, reduced
+    E = ELASTIC
+    cfg = get_config(E["arch"])
+    if rehearse:
+        return reduced(cfg, n_layers=E["layers"],
+                       d_model=ELASTIC_SMALL["d_model"],
+                       n_heads=ELASTIC_SMALL["n_heads"])
+    return dataclasses.replace(cfg, n_layers=E["layers"])
+
+
+def run_elastic(dev, root: Path, rehearse: bool = False) -> dict:
+    """Part (c): train k steps on a one-rank mesh, checkpoint (raw and
+    int8-compressed), ``plan_reshard(mesh, 0)``, ``build_mesh``, restore,
+    ``reshard_tree`` and train k more steps; against the run that never
+    stopped (raw) and the run that never stopped but whose state at step k
+    went through the checkpoint's int8 round trip in memory (compressed).
+    A world-1 process group on a ``HashStore`` (NCCL on the card, gloo on
+    the CPU) is made for it and destroyed after it."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.ckpt import ShardedStore, StoreConfig
+    from repro_torch.ckpt.tree import tree_flatten, tree_map, tree_unflatten
+    from repro_torch.data import synthetic
+    from repro_torch.ft import build_mesh, plan_reshard, reshard_tree
+    from repro_torch.kernels import ops
+    from repro_torch.launch import make_test_mesh
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+    E = ELASTIC
+    k = E["k"]
+    B, S = ((ELASTIC_SMALL["B"], ELASTIC_SMALL["S"]) if rehearse
+            else (E["B"], E["S"]))
+    cfg = _elastic_cfg(rehearse)
+    model = build(cfg)
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1)
+    pspec = model.param_spec()
+    spec = (pspec, adamw.state_spec(pspec, ocfg))
+    data = synthetic.for_arch(cfg, batch=B, seq_len=S, seed=E["seed"],
+                              device=dev)
+    step = model.make_train_step(ocfg)
+    out = {"cfg": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "B": B, "S": S, "k": k,
+           "mlstm_per_step": _mlstm_per_step(cfg)}
+
+    def train(state, first: int, n_steps: int):
+        losses = []
+        for i in range(first, first + n_steps):
+            p, o, m = step(*state, data.peek(i))
+            state = (p, o)
+            losses.append(m["loss"])
+        return state, torch.stack(losses)
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        t0 = time.perf_counter()
+        mesh = make_test_mesh(1, device=dev.type)
+        params = model.init(torch.Generator(device=dev).manual_seed(
+            E["seed"]), device=dev)
+        state0 = (params, adamw.init_state(params, ocfg, device=dev))
+        _reset_counts()
+        mid, loss_a = train(state0, 0, k)
+        stores = {name: ShardedStore(StoreConfig(
+            root=str(root / name), compress=name == "compressed",
+            device=dev)) for name in ("raw", "compressed")}
+        for st in stores.values():
+            st.save(k, mid)
+        # the compressed checkpoint's round trip, in memory: the store's
+        # rule (f32 leaves of >= 4096 elements), one launch each way
+        leaves, td = tree_flatten(mid)
+        comp = [i for i, x in enumerate(leaves)
+                if x.dtype == torch.float32 and x.numel() >= 4096]
+        q_arena, s_arena, views = ops.quantize_arrays([leaves[i]
+                                                       for i in comp])
+        deq = ops.dequantize_arrays(
+            [q for q, _, _ in views], [s for _, s, _ in views],
+            shapes=[tuple(leaves[i].shape) for i in comp],
+            dtypes=[torch.float32] * len(comp),
+            pads=[pad for _, _, pad in views])
+        rt = dict(zip(comp, deq))
+        rt = [rt[i] if i in rt else x.clone() for i, x in enumerate(leaves)]
+        rt_state = tree_unflatten(td, rt)
+        del q_arena, s_arena, views, deq, rt
+        u_state, loss_u = train(mid, k, k)
+        q_state, loss_q = train(rt_state, k, k)
+        out["setup_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        plan = plan_reshard(mesh, 0)
+        new_mesh = build_mesh(plan, device=dev.type)
+        out["plan"] = {"old": plan.old_shape, "new": plan.new_shape,
+                       "note": plan.note}
+        runs = {}
+        for name, st in stores.items():
+            restored, at = st.restore(mid)
+            dt = reshard_tree(restored, spec, new_mesh)
+            local = tree_map(lambda x: x.to_local(), dt)
+            out[f"{name}_placements"] = sorted({str(tuple(x.placements))
+                                                for x in tree_flatten(dt)[0]})
+            del restored, dt
+            runs[name] = (at, train(local, k, k))
+        _dev_sync(dev)
+        out["elastic_s"] = time.perf_counter() - t0
+        out["launches"] = _counts()
+    finally:
+        dist.destroy_process_group()
+
+    def same(a, b) -> tuple:
+        la, lb = tree_flatten(a)[0], tree_flatten(b)[0]
+        differ = [i for i, (x, y) in enumerate(zip(la, lb))
+                  if not torch.equal(x, y)]
+        return not differ and len(la) == len(lb), differ
+    (at_r, (r_state, loss_r)), (at_c, (c_state, loss_c)) = \
+        runs["raw"], runs["compressed"]
+    out["restored_at"] = [at_r, at_c]
+    out["raw_equal"], out["raw_differ"] = same(r_state, u_state)
+    out["raw_losses_equal"] = torch.equal(loss_r, loss_u)
+    out["compressed_equal"], out["compressed_differ"] = same(c_state,
+                                                             q_state)
+    out["compressed_losses_equal"] = torch.equal(loss_c, loss_q)
+    out["losses"] = {"before": loss_a.tolist(), "uninterrupted":
+                     loss_u.tolist(), "raw": loss_r.tolist(),
+                     "compressed": loss_c.tolist(),
+                     "round_trip": loss_q.tolist()}
+    pairs = list(zip(tree_flatten(c_state[0])[0],
+                     tree_flatten(u_state[0])[0]))
+    num = sum(float((x.double() - y.double()).square().sum())
+              for x, y in pairs)
+    den = sum(float(y.double().square().sum()) for _, y in pairs)
+    out["compressed_vs_uninterrupted_params_frob"] = math.sqrt(num / den)
+    out["n_compressed_leaves"] = len(comp)
+    out["leaves"] = len(leaves)
+    return out
+
+
+def _mesh_elastic(dev, root: Path, tlog, rehearse: bool) -> dict:
+    """Part (c) with its gates."""
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        out = run_elastic(dev, root, rehearse)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    c = out["launches"]
+    k = out["k"]
+    want = {"mlstm_scan": 5 * k * out["mlstm_per_step"],
+            "quantize_leaves": 2, "dequantize_leaves": 2}
+    tlog(f"mesh elastic: {out['cfg']} at {out['layers']} layers, d "
+         f"{out['d_model']}, B {out['B']}, S {out['S']}, {k} steps, "
+         f"checkpoint, plan {out['plan']}, build_mesh, restore (at steps "
+         f"{out['restored_at']}), reshard_tree (placements "
+         f"{out['raw_placements']}), {k} more steps: raw checkpoint vs the "
+         f"uninterrupted run bitwise: params and AdamW state "
+         f"{out['raw_equal']}, losses {out['raw_losses_equal']}; int8 "
+         f"checkpoint ({out['n_compressed_leaves']} of {out['leaves']} "
+         f"leaves) vs the uninterrupted run through the same round trip "
+         f"bitwise: state {out['compressed_equal']}, losses "
+         f"{out['compressed_losses_equal']}; vs the uninterrupted run: "
+         f"params {out['compressed_vs_uninterrupted_params_frob']:.3e} "
+         f"relative Frobenius apart (the int8 checkpoint's error, carried "
+         f"{k} steps); setup {out['setup_s']:.2f} s, elastic "
+         f"{out['elastic_s']:.2f} s; launches mlstm_scan "
+         f"{c['mlstm_scan']}, quantize {c['quantize_leaves']}, dequantize "
+         f"{c['dequantize_leaves']} (want {want}), plain calls "
+         f"{c['plain']}")
+    if out["restored_at"] != [k, k]:
+        fail(f"mesh elastic: restored at steps {out['restored_at']}")
+    if out["plan"]["new"] != {"data": 1, "model": 1}:
+        fail(f"mesh elastic: plan {out['plan']}")
+    if not (out["raw_equal"] and out["raw_losses_equal"]):
+        fail(f"mesh elastic: the raw restore-and-continue differs from the "
+             f"uninterrupted run (leaves {out['raw_differ']})")
+    if not (out["compressed_equal"] and out["compressed_losses_equal"]):
+        fail(f"mesh elastic: the int8 restore-and-continue differs from "
+             f"the run through its round trip (leaves "
+             f"{out['compressed_differ']})")
+    if dev.type == "cuda" and ({n: c[n] for n in want} != want
+                               or c["plain"]):
+        fail(f"mesh elastic: launches {c}, want {want} and no plain call")
+    return out
+
+
+def phase_mesh(dev, card: str, rehearse: bool = False,
+               root: Path = ROOT / "build" / "chip_smoke_elastic") -> dict:
+    """Phase 17: devices and meshes (see the module docstring), every line
+    with the card's name and power limit; ``rehearse`` runs it on the CPU
+    at reduced sizes (part (c) on a gloo group), its store in ``root``."""
+    import torch
+    from repro_torch.launch import H100
+    from repro_torch.sim import dispatch
+    tlog = lambda msg: log(f"{msg} [{card}]")
+    report, t_phase = {}, time.perf_counter()
+    if dev.type == "cuda":
+        total = torch.cuda.get_device_properties(dev).total_memory
+        facts = {"device_count": torch.cuda.device_count(),
+                 "effective_devices": dispatch.effective_devices(),
+                 "effective_devices_shard_off": dispatch.effective_devices(
+                     dispatch.DispatchConfig(shard=False)),
+                 "total_memory": total, "H100": dict(H100)}
+        tlog(f"mesh facts: torch.cuda.device_count() "
+             f"{facts['device_count']}, effective_devices() "
+             f"{facts['effective_devices']} (shard=False: "
+             f"{facts['effective_devices_shard_off']}), total_memory "
+             f"{total} B against H100['hbm_bytes'] {H100['hbm_bytes']} B "
+             f"({H100['name']}, {H100['power_limit_w']} W)")
+        if total != H100["hbm_bytes"]:
+            fail(f"mesh: the card's total_memory {total} is not "
+                 f"H100['hbm_bytes'] {H100['hbm_bytes']}")
+        if facts["effective_devices"] != facts["device_count"]:
+            fail(f"mesh: effective_devices() {facts['effective_devices']} "
+                 f"against {facts['device_count']} CUDA devices")
+        report["facts"] = facts
+    parts = (("split", lambda: _mesh_split(dev, tlog, rehearse)),
+             ("elastic", lambda: _mesh_elastic(dev, root, tlog,
+                                               rehearse)))
+    for key, part in parts:
+        t0 = time.perf_counter()
+        report[key] = part()
+        report[key]["part_s"] = time.perf_counter() - t0
+    report["phase_s"] = time.perf_counter() - t_phase
+    report["launches"] = {
+        "event_sweep_sampled": report["split"]["mc"]["launches"]["unsplit"]
+        + report["split"]["mc"]["launches"]["split"],
+        **{n: report["elastic"]["launches"][n] for n in (
+            "mlstm_scan", "quantize_leaves", "dequantize_leaves")}}
+    tlog(f"mesh phase {report['phase_s']:.1f} s (split "
+         f"{report['split']['part_s']:.1f}, elastic "
+         f"{report['elastic']['part_s']:.1f})")
+    return report
+
+
 def _kernel_modules():
     from repro_torch.kernels import (decode_attention, event_sweep,
                                      flash_attention, mlstm_scan,
@@ -6123,7 +6528,7 @@ def _reset_counts() -> None:
 PHASES = {1: "device", 2: "build", 3: "parity", 4: "sweep", 5: "mc",
           6: "ckpt", 7: "times", 8: "zoo", 9: "figures", 10: "multilevel",
           11: "advisor", 12: "train", 13: "ft", 14: "serve", 15: "serve15",
-          16: "train16"}
+          16: "train16", 17: "mesh"}
 NEEDS = {4: {5}, 5: {4}, 7: {2, 4, 5, 6}}
 
 
@@ -6418,6 +6823,13 @@ def main(argv=None) -> None:
             report["train16"] = phase_train16(dev, card,
                                               smoke.get("report_keys"))
 
+    # devices and meshes (phase 17): the grid split and the elastic
+    # restore-and-continue, each part's counts read around it
+    if ph.on(17):
+        with ph.span(17):
+            report["mesh"] = phase_mesh(dev, card)
+            torch.cuda.empty_cache()
+
     if ph.selected != set(PHASES):
         log(json.dumps({"phase_s": ph.report()}))
         log("kernels: the kernels line needs every phase; not printed")
@@ -6428,6 +6840,7 @@ def main(argv=None) -> None:
             "count": torch.cuda.device_count()}}), flush=True)
         return
     train16_n = report["train16"]["launches"]
+    mesh_n = report["mesh"]["launches"]
 
     # the explicit kernel: launches, times and bound of the figures path
     # (fig5 and the surrogate's argmin); beside them the caller's schedule
@@ -6469,7 +6882,10 @@ def main(argv=None) -> None:
         "name": "event_sweep_sampled", "route": "cuda",
         "source": "src/repro_torch/csrc/event_sweep.cu",
         "replaces": "src/repro/kernels/event_sweep.py:65",
-        "launches": mc_counts["event_sweep_sampled"],
+        "launches": mc_counts["event_sweep_sampled"]
+        + mesh_n["event_sweep_sampled"],
+        "launches_by_path": {"mc": mc_counts["event_sweep_sampled"],
+                             "mesh": mesh_n["event_sweep_sampled"]},
         "max_abs_err": max_err, "parity": "bitwise",
         "ms": sum(v["fused_ms"] for v in variants),
         "plain_ms": sum(v["fused_plain_ms"] for v in variants),
@@ -6492,10 +6908,12 @@ def main(argv=None) -> None:
                         for f in KERNEL_FILES["quant_blockwise"]],
             "replaces": f"src/repro/kernels/quant_blockwise.py:{line}",
             "launches": ck_counts[f"{name}_leaves"]
-            + train_q[f"{name}_leaves"] + ft_q[f"{name}_leaves"],
+            + train_q[f"{name}_leaves"] + ft_q[f"{name}_leaves"]
+            + mesh_n[f"{name}_leaves"],
             "launches_by_path": {"checkpoint": ck_counts[f"{name}_leaves"],
                                  "train": train_q[f"{name}_leaves"],
-                                 "ft": ft_q[f"{name}_leaves"]},
+                                 "ft": ft_q[f"{name}_leaves"],
+                                 "mesh": mesh_n[f"{name}_leaves"]},
             "max_abs_err": err,
             "parity": "bitwise", "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -6527,11 +6945,13 @@ def main(argv=None) -> None:
                         for f in KERNEL_FILES.get(name, (f"{name}.cu",))],
             "replaces": f"src/repro/kernels/{name}.py:{line}",
             "launches": zoo_counts[name] + serve_n[name] + (
-                train_ml + ft_ml if name == "mlstm_scan" else 0)
+                train_ml + ft_ml + mesh_n[name] if name == "mlstm_scan"
+                else 0)
             + train16_n.get(name, 0),
             "launches_by_path": ({"zoo": zoo_counts[name],
                                   "train": train_ml, "ft": ft_ml,
-                                  "serve": serve_n[name]}
+                                  "serve": serve_n[name],
+                                  "mesh": mesh_n[name]}
                                  if name == "mlstm_scan" else
                                  {"zoo": zoo_counts[name],
                                   "serve": serve_n[name],

@@ -194,6 +194,12 @@ class GapSpec:
         """The spec of points ``idx`` (an index tensor on the spec's device)."""
         return dataclasses.replace(self, a=self.a[idx], b=self.b[idx])
 
+    def to(self, device) -> "GapSpec":
+        """The spec with its tensors on ``device``."""
+        return dataclasses.replace(
+            self, a=self.a.to(device), b=self.b.to(device),
+            trace=None if self.trace is None else self.trace.to(device))
+
 
 def draw_gaps(spec: GapSpec, key: CounterKey, n: int) -> torch.Tensor:
     """``(points, trials, n)`` f64 gaps of ``key``'s lanes under ``spec``,

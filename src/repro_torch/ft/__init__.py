@@ -1,11 +1,12 @@
 """Fault-tolerant training runtime: failure injector, straggler watchdog,
-metrics trackers, the trainer and config-driven runs (``RunSpec``).
+elastic mesh re-planning, metrics trackers, the trainer and config-driven
+runs (``RunSpec``).
 
-Counterpart of the reference's ``repro/ft``; its ``elastic`` (mesh
-re-planning) waits for the port's device meshes (ROADMAP A11).
+Counterpart of the reference's ``repro/ft``.
 """
 from .failures import FailureInjector, FailureModel
 from .watchdog import StepTimeWatchdog, WatchdogConfig
+from .elastic import ElasticPlan, plan_reshard, build_mesh, reshard_tree
 from .trainer import FaultTolerantTrainer, TrainerConfig
 from .tracker import (Tracker, NullTracker, MemoryTracker, StdoutTracker,
                       JsonlTracker, CompositeTracker)

@@ -5,8 +5,8 @@ bundles an :class:`~repro_torch.configs.ArchConfig` with its parameter
 tree, init, loss, forward and an AdamW train step.  Parameters are plain
 trees of tensors (dicts and tuples, leaves in the reference's order);
 gradients come from ``torch.autograd``.  ``prefill`` (in waves) and
-``decode_step`` serve all ten archs; ``input_specs`` (its shardings)
-waits for ROADMAP A11.
+``decode_step`` serve all ten archs; ``input_specs`` gives the stand-ins
+of a workload shape's inputs (with their shardings on a device mesh).
 """
 from __future__ import annotations
 
@@ -19,10 +19,12 @@ from ..ckpt.tree import tree_flatten, tree_unflatten
 from ..configs.base import ArchConfig, ShapeConfig
 from ..optim import adamw
 from . import transformer as tfm
-from .spec import ParamSpec, init_tree, is_spec, torch_dtype, tree_size
+from .spec import (ParamSpec, abstract_tree, init_tree, is_spec,
+                   shardings_tree, torch_dtype, tree_size)
 
-__all__ = ["Model", "build", "batch_spec", "decode_input_spec", "ParamSpec",
-           "init_tree", "is_spec", "tree_size"]
+__all__ = ["Model", "build", "batch_spec", "decode_input_spec",
+           "input_specs", "ParamSpec", "abstract_tree", "init_tree",
+           "is_spec", "shardings_tree", "tree_size"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,3 +164,17 @@ def decode_input_spec(cfg: ArchConfig, shape: ShapeConfig) -> dict:
     if B == 1:
         out["token"] = ParamSpec((B, 1), (None, None), "int32")
     return out
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig, mesh=None, rules=None):
+    """Stand-ins (meta tensors, or meta DTensors on ``mesh``) of one
+    workload shape's inputs: the batch of a train or prefill shape, the
+    cache and the token of a decode shape."""
+    if shape.kind in ("train", "prefill"):
+        spec = batch_spec(cfg, shape)
+    else:
+        spec = {
+            "cache": tfm.cache_spec(cfg, shape.global_batch, shape.seq_len),
+            **decode_input_spec(cfg, shape),
+        }
+    return abstract_tree(spec, mesh, rules)

@@ -4,10 +4,12 @@ Counterpart of the reference's ``repro/models/spec.py``.  Every model
 declares its parameters as a tree of :class:`ParamSpec` (dicts, tuples and
 namedtuples, flattened in the reference's order by
 :mod:`repro_torch.ckpt.tree`); from it come materialised parameters
-(:func:`init_tree`) and exact parameter counts (:func:`tree_size`).  The
-logical axis names are kept as the reference declares them, so the trees
-compare leaf for leaf; the mesh-dependent forms (``abstract_tree``,
-``shardings_tree``, ``pspecs_tree``) wait for a torch device mesh.
+(:func:`init_tree`), exact parameter counts (:func:`tree_size`) and, on a
+device mesh (``launch/mesh.py``), stand-ins that allocate nothing
+(:func:`abstract_tree`: meta tensors, or meta DTensors carrying the
+mesh's placements) and the shardings (:func:`shardings_tree`,
+:func:`pspecs_tree`).  The logical axis names are kept as the reference
+declares them, so the trees compare leaf for leaf.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..ckpt.tree import tree_flatten, tree_leaves, tree_unflatten
+from ..ckpt.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from ..parallel import sharding as shd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +54,36 @@ def torch_dtype(name: str) -> torch.dtype:
     """The torch dtype of a dtype name (``"float32"``, ``"bfloat16"``,
     ``"int8"``, ...)."""
     return getattr(torch, name)
+
+
+def abstract_tree(spec_tree, mesh=None, rules=None):
+    """Stand-ins of every leaf that take no memory: a meta tensor of the
+    global shape and dtype, or, on ``mesh`` (a DeviceMesh), a meta
+    ``DTensor`` with the resolved placements, whose ``to_local()`` has the
+    local shard's shape."""
+    def mk(s: ParamSpec):
+        dt = torch_dtype(s.dtype)
+        if mesh is None:
+            return torch.empty(s.shape, dtype=dt, device="meta")
+        from torch.distributed.tensor import DTensor
+        sh = shd.named_sharding(s.logical, mesh, rules, s.shape)
+        local = torch.empty(sh.shard_shape(s.shape), dtype=dt, device="meta")
+        # resolution keeps only axes that divide a dim, so the shards are
+        # even and the global shape follows from the local one
+        return DTensor.from_local(local, mesh, sh.placements, run_check=False)
+    return tree_map(mk, spec_tree)
+
+
+def shardings_tree(spec_tree, mesh, rules=None):
+    return tree_map(
+        lambda s: shd.named_sharding(s.logical, mesh, rules, s.shape),
+        spec_tree)
+
+
+def pspecs_tree(spec_tree, mesh, rules=None):
+    return tree_map(
+        lambda s: shd.resolve_pspec(s.logical, mesh, rules, s.shape),
+        spec_tree)
 
 
 def _init_leaf(gen: torch.Generator, s: ParamSpec, dev) -> torch.Tensor:

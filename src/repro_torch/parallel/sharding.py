@@ -1,0 +1,272 @@
+"""Logical-axis sharding: MaxText-style rules mapping logical tensor axes to
+mesh axes, with divisibility-aware resolution, on ``torch.distributed``
+device meshes.
+
+Counterpart of the reference's ``repro/parallel/sharding.py``.
+
+Mesh axes (``launch/mesh.py``):
+  single-pod : ("data", "model")           = (16, 16)   -> 256 ranks
+  multi-pod  : ("pod", "data", "model")    = (2, 16, 16) -> 512 ranks
+
+Parallelism mapping:
+  DP   : batch over ("pod", "data")
+  FSDP : weight "embed" axis over "data" (fully-sharded params and
+         optimizer state)
+  TP   : heads / mlp / vocab over "model"
+  EP   : experts over "model"
+  SP   : long-context sequence over "data" when batch == 1; attention
+         batch-split over ("data", "model") when heads don't divide "model"
+
+A resolved spec is a :class:`PartitionSpec`: one entry per tensor dim
+(``None``, a mesh axis name, or a tuple of names), trailing ``None``\\ s
+dropped.  Resolution drops any mesh axis that does not divide the
+dimension, as the reference does (JAX rejects uneven shardings; DTensor
+would pad them).  :func:`placements` turns a spec into DTensor
+placements, one per mesh dim.  A tensor dim over several mesh axes
+(``batch`` -> ``("pod", "data")``) becomes ``Shard(i)`` on each of them;
+DTensor shards over mesh dims left to right, which is JAX's major-to-minor
+layout when the spec's axes come in the mesh's order, as every tuple of
+:data:`DEFAULT_RULES` does (a spec out of that order raises).
+
+Model code never receives a mesh argument: a launcher installs the active
+mesh with :func:`set_active_mesh` (or :class:`use_mesh`), thread-locally,
+and :func:`constrain` reads it.  The port's models do not call
+:func:`constrain` yet; sharded execution of a step is later work.
+
+A mesh is a :class:`torch.distributed.device_mesh.DeviceMesh` with mesh
+dim names, or any mapping ``{axis name: size}`` in mesh order (what a
+resolution needs, with no process group behind it).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import threading
+from collections.abc import Mapping
+from typing import Optional, Sequence
+
+from ..ckpt.tree import tree_map
+
+# Each logical axis maps to a mesh axis (or tuple of axes, or None).
+DEFAULT_RULES: dict[str, object] = {
+    "batch": ("pod", "data"),
+    "batch_split": ("pod", "data", "model"),  # attention batch-split fallback
+    "seq": None,
+    "seq_sp": ("data",),        # sequence-parallel (long-context, batch==1)
+    "kv_seq": None,             # decode KV cache sequence (un-sharded default)
+    "kv_seq_mp": ("model",),    # decode KV cache sharded over model (flash-decode)
+    "embed": ("data",),         # FSDP axis on parameters
+    "act_embed": None,          # activations' d_model stays unsharded
+    "vocab": ("model",),
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "head_dim": None,
+    "mlp": ("model",),
+    "experts": ("model",),
+    "expert_mlp": None,
+    "layers": None,
+    "lru": ("model",),
+    "lru_blocks": ("model",),
+    "conv": None,
+    "stack": None,
+}
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dim: ``None`` (replicated), a mesh axis name,
+    or a tuple of names (the dim split over those axes, major first);
+    trailing ``None``\\ s are dropped by :func:`resolve_pspec`."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+def axis_sizes(mesh) -> dict:
+    """``{axis name: size}`` of ``mesh`` in mesh order."""
+    if isinstance(mesh, Mapping):
+        return dict(mesh)
+    if mesh.mesh_dim_names is None:
+        raise ValueError("a DeviceMesh needs mesh_dim_names to take "
+                         "logical shardings")
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+class _MeshState(threading.local):
+    mesh = None
+    rules: Optional[dict] = None
+
+
+_STATE = _MeshState()
+
+
+def set_active_mesh(mesh, rules: Optional[dict] = None):
+    """Install the mesh :func:`constrain` reads (launchers, this thread)."""
+    _STATE.mesh = mesh
+    _STATE.rules = rules
+
+
+def active_mesh():
+    return getattr(_STATE, "mesh", None)
+
+
+def active_rules() -> dict:
+    return getattr(_STATE, "rules", None) or DEFAULT_RULES
+
+
+class use_mesh:
+    """Context manager: :func:`set_active_mesh` plus ``with mesh:`` (a
+    DeviceMesh's own current-mesh context)."""
+
+    def __init__(self, mesh, rules: Optional[dict] = None):
+        self.mesh, self.rules = mesh, rules
+
+    def __enter__(self):
+        set_active_mesh(self.mesh, self.rules)
+        self.mesh.__enter__()
+        return self.mesh
+
+    def __exit__(self, *exc):
+        set_active_mesh(None, None)
+        return self.mesh.__exit__(*exc)
+
+
+def resolve_pspec(logical: Sequence[Optional[str]], mesh,
+                  rules: Optional[dict] = None,
+                  shape: Optional[Sequence[int]] = None) -> PartitionSpec:
+    """Map logical axis names to a :class:`PartitionSpec` on ``mesh``.
+
+    Rules whose mesh axes are absent from the mesh are dropped (the same
+    logical spec works on the 2D and 3D meshes).  A mesh axis is used at
+    most once; later logical axes that would reuse it are left unsharded.
+    If ``shape`` is given, any mesh axis that does not evenly divide the
+    dimension is dropped.
+    """
+    rules = rules or active_rules()
+    sizes = axis_sizes(mesh)
+    used: set[str] = set()
+    out = []
+    for i, name in enumerate(logical):
+        if name is None:
+            out.append(None)
+            continue
+        target = rules.get(name)
+        if target is None:
+            out.append(None)
+            continue
+        axes = (target,) if isinstance(target, str) else tuple(target)
+        axes = tuple(a for a in axes if a in sizes and a not in used)
+        if shape is not None:
+            keep = []
+            dim = shape[i]
+            for a in axes:
+                if dim % sizes[a] == 0 and dim >= sizes[a]:
+                    keep.append(a)
+                    dim //= sizes[a]
+            axes = tuple(keep)
+        if not axes:
+            out.append(None)
+            continue
+        used.update(axes)
+        out.append(axes[0] if len(axes) == 1 else axes)
+    while out and out[-1] is None:
+        out.pop()
+    return PartitionSpec(*out)
+
+
+def placements(spec: Sequence, mesh) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``: for each mesh dim,
+    ``Shard(i)`` when tensor dim ``i`` is split over it, else
+    ``Replicate()``.  Raises when a dim's axes are not in the mesh's order
+    (DTensor would lay its shards out minor-first there)."""
+    from torch.distributed.tensor import Replicate, Shard
+    order = list(axis_sizes(mesh))
+    dim_of = {}
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        pos = [order.index(a) for a in axes]
+        if pos != sorted(pos):
+            raise ValueError(f"dim {i} is split over {axes}, out of the "
+                             f"mesh's order {tuple(order)}")
+        for a in axes:
+            dim_of[a] = i
+    return tuple(Shard(dim_of[a]) if a in dim_of else Replicate()
+                 for a in order)
+
+
+def shard_shape(spec: Sequence, mesh, shape: Sequence[int]) -> tuple:
+    """The shape of one shard of a ``shape`` tensor under ``spec``."""
+    sizes = axis_sizes(mesh)
+    out = list(shape)
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        n = math.prod(sizes[a] for a in axes)
+        if out[i] % n:
+            raise ValueError(f"dim {i} of {tuple(shape)} does not divide "
+                             f"over {axes} ({n})")
+        out[i] //= n
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh, a spec on it and the spec's DTensor placements."""
+
+    mesh: object
+    spec: PartitionSpec
+    placements: tuple
+
+    def shard_shape(self, shape: Sequence[int]) -> tuple:
+        return shard_shape(self.spec, self.mesh, shape)
+
+
+def named_sharding(logical: Sequence[Optional[str]], mesh,
+                   rules: Optional[dict] = None,
+                   shape: Optional[Sequence[int]] = None) -> NamedSharding:
+    spec = resolve_pspec(logical, mesh, rules, shape)
+    return NamedSharding(mesh, spec, placements(spec, mesh))
+
+
+def constrain(x, logical: Sequence[Optional[str]]):
+    """Redistribute a DTensor to the sharding its logical axes resolve to
+    on the active mesh; the identity without an active mesh.
+
+    The reference hints XLA with ``with_sharding_constraint``; eager
+    PyTorch has no compiler to take such a hint, so a plain tensor is
+    returned as it is, and only a DTensor moves.
+    """
+    mesh = active_mesh()
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    sh = named_sharding(logical, mesh, active_rules(), tuple(x.shape))
+    return x.redistribute(mesh, sh.placements)
+
+
+def can_shard(dim: int, logical_name: str) -> bool:
+    """True if ``dim`` would actually be sharded under the active mesh."""
+    mesh = active_mesh()
+    if mesh is None:
+        return False
+    spec = resolve_pspec((logical_name,), mesh, active_rules(), (dim,))
+    return len(spec) > 0 and spec[0] is not None
+
+
+def tree_pspecs(spec_tree, mesh, rules: Optional[dict] = None):
+    """Map a tree of ParamSpec-like leaves (with .logical/.shape) to
+    PartitionSpecs."""
+    return tree_map(lambda s: resolve_pspec(s.logical, mesh, rules, s.shape),
+                    spec_tree)
+
+
+def tree_shardings(spec_tree, mesh, rules: Optional[dict] = None):
+    return tree_map(lambda s: named_sharding(s.logical, mesh, rules, s.shape),
+                    spec_tree)

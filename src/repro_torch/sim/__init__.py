@@ -25,7 +25,8 @@ engine is held against.
 """
 from .cache import (enable_compile_cache, maybe_enable_from_env,
                     active_cache_dir)
-from .dispatch import (DispatchConfig, resolve_precision, chunk_plan,
+from .dispatch import (DispatchConfig, default_config, effective_devices,
+                       sweep_mesh, resolve_precision, chunk_plan,
                        cache_stats, reset_cache_stats, BackendInfo,
                        backend_info)
 from .precision import PrecisionPolicy, F64, COMPENSATED_F32

@@ -1,6 +1,6 @@
-"""Memory-bounded dispatch knobs for the grid workloads.
+"""Memory-bounded, device-split dispatch knobs for the grid workloads.
 
-The model sweep (``sim.sweep``) and the Monte-Carlo engine
+The model sweeps (``sim.sweep``) and the Monte-Carlo engine
 (``sim.engine``) cut their grid axis, and the engine its trials axis, into
 chunks sized from a device-memory budget, so a 10^6-point grid or a
 multi-gigabyte failure schedule streams through a bounded working set.
@@ -9,6 +9,15 @@ changes a model sweep's results; the engine's auto-sampled gaps are
 counter-based per (point, trial, gap index), so chunk size and budget
 never change its results either.
 
+On a machine with several CUDA devices the same paths split their work
+across the first :func:`effective_devices` of them (:func:`sweep_mesh`,
+the reference's 1-D ``"sweep"`` mesh): the grid axis (the two-level scan:
+its trials axis) is cut into one contiguous piece a device, each piece is
+chunked under the budget on its device, and the results are gathered on
+the caller's device.  The plan (capacity buckets, step budgets) is made
+once for the whole grid and every draw is keyed by the global point
+index, so a split changes no bit: sharded == single-device.
+
 Bounded caches are :class:`LRUCache`; a cache built with a ``name`` lands
 in a registry that :func:`cache_stats` reports (the advisor's fingerprint
 cache is one).  :func:`backend_info` says what a device is.
@@ -16,18 +25,24 @@ cache is one).  :func:`backend_info` says what a device is.
 Configuration resolves from :class:`DispatchConfig` (explicit argument) or
 the environment, as in the reference::
 
+    REPRO_SWEEP_DEVICES    max CUDA devices to split over (1 disables it)
     REPRO_SWEEP_MEMORY_MB  device-memory budget per call (default 2048)
     REPRO_SWEEP_CHUNK      explicit grid-axis chunk size (overrides budget)
     REPRO_PRECISION        precision policy name (f64 / compensated_f32;
                            default = the device's policy)
+
+The reference's ``backend`` knob and ``$REPRO_SWEEP_BACKEND`` pick the
+platform its mesh spans; in the port every entry point takes an explicit
+``device=`` (``"cuda"`` by default), which covers them.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import os
 import warnings
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -183,15 +198,19 @@ def _env_int(name: str) -> Optional[int]:
 
 @dataclasses.dataclass(frozen=True)
 class DispatchConfig:
-    """Execution knobs.  ``memory_mb`` bounds each call's device working set
-    (None = ``$REPRO_SWEEP_MEMORY_MB`` or 2 GiB); ``chunk`` forces a
+    """Execution knobs.  ``memory_mb`` bounds each call's working set on a
+    device (None = ``$REPRO_SWEEP_MEMORY_MB`` or 2 GiB); ``chunk`` forces a
     grid-axis chunk size (None = ``$REPRO_SWEEP_CHUNK`` or the budget);
     ``precision`` pins the :class:`PrecisionPolicy` (a policy, a name, or
-    None = ``$REPRO_PRECISION`` or the device default)."""
+    None = ``$REPRO_PRECISION`` or the device default); ``devices`` caps
+    the CUDA devices a call splits over (None = all of them) and
+    ``shard=False`` keeps it on the caller's device."""
 
     memory_mb: Optional[int] = None
     chunk: Optional[int] = None
     precision: Optional[object] = None
+    devices: Optional[int] = None
+    shard: bool = True
 
     def budget(self) -> int:
         """The device-memory budget in bytes."""
@@ -205,8 +224,79 @@ class DispatchConfig:
             else _env_int("REPRO_SWEEP_CHUNK")
 
 
+def default_config() -> DispatchConfig:
+    """The environment-driven config (see the module docstring)."""
+    return DispatchConfig(memory_mb=_env_int("REPRO_SWEEP_MEMORY_MB"),
+                          chunk=_env_int("REPRO_SWEEP_CHUNK"),
+                          devices=_env_int("REPRO_SWEEP_DEVICES"))
+
+
 def resolve(config: Optional[DispatchConfig]) -> DispatchConfig:
-    return config if config is not None else DispatchConfig()
+    return config if config is not None else default_config()
+
+
+def effective_devices(config: Optional[DispatchConfig] = None,
+                      device="cuda") -> int:
+    """Devices a call on ``device`` splits over under ``config`` (>= 1):
+    1 on the CPU or with ``shard=False``, else the CUDA device count
+    capped by ``config.devices``."""
+    cfg = resolve(config)
+    if not cfg.shard or resolve_device(device).type != "cuda":
+        return 1
+    n = torch.cuda.device_count()
+    if cfg.devices is not None:
+        n = min(n, max(1, int(cfg.devices)))
+    return max(1, n)
+
+
+def sweep_mesh(n_devices: int) -> Tuple[torch.device, ...]:
+    """The 1-D ``"sweep"`` axis: the first ``n_devices`` CUDA devices."""
+    return tuple(torch.device("cuda", i) for i in range(int(n_devices)))
+
+
+def split_devices(config: Optional[DispatchConfig],
+                  device: torch.device) -> Tuple[torch.device, ...]:
+    """The devices a call on ``device`` hands its pieces to: ``device``
+    alone, or the sweep mesh of :func:`effective_devices`."""
+    n = effective_devices(config, device)
+    return (device,) if n == 1 else tuple(sweep_mesh(n))
+
+
+def pieces(size: int, devices: Sequence[torch.device]
+           ) -> List[Tuple[torch.device, int, int]]:
+    """``(device, start, stop)`` contiguous pieces of an axis of ``size``,
+    one a device, their lengths within one of each other; empty pieces
+    (an axis shorter than the device list) are left out."""
+    n = len(devices)
+    q, r = divmod(int(size), n)
+    out, start = [], 0
+    for i, d in enumerate(devices):
+        stop = start + q + (1 if i < r else 0)
+        if stop > start:
+            out.append((d, start, stop))
+        start = stop
+    return out
+
+
+def on_device(device: torch.device):
+    """A context that makes ``device`` current (a CUDA device), so a
+    kernel launched on the current stream lands on it; a no-op for the
+    CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``; a broadcast view (stride 0 on a dim) moves its
+    one stored slice and is expanded there again."""
+    if t.device == device:
+        return t
+    base = t
+    for i, (n, st) in enumerate(zip(t.shape, t.stride())):
+        if st == 0 and n > 1:
+            base = base.narrow(i, 0, 1)
+    return base.to(device).expand(t.shape)
 
 
 def resolve_precision(config: Optional[DispatchConfig] = None,

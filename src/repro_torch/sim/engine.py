@@ -384,6 +384,18 @@ def _blocks(idx: np.ndarray, n_trials: int, per_trial: int, dispatch):
             yield idx[start:stop], trials
 
 
+def _device_blocks(idx: np.ndarray, n_trials: int, per_trial: int,
+                   dispatch, device: torch.device):
+    """(device, point slice of ``idx``, trial range): ``idx`` cut into one
+    contiguous piece a device of the sweep mesh (``device`` alone on one),
+    each piece into :func:`_blocks` under the budget on its device."""
+    for d, lo, hi in _dispatch.pieces(
+            len(idx), _dispatch.split_devices(dispatch, device)):
+        for pts, trials in _blocks(idx[lo:hi], n_trials, per_trial,
+                                   dispatch):
+            yield d, pts, trials
+
+
 def _flat_inputs(T, grid: ParamGrid, T_base, device):
     """Flat f64 (B,) tensors of T and T_base on ``device`` plus the flat
     grid; raises on a period with no work progress."""
@@ -424,19 +436,19 @@ def _process_mean(proc, flat: ParamGrid, dev) -> torch.Tensor:
 def _drawn_blocks(flat: ParamGrid, buckets, n_trials: int, seed: int,
                   process, dispatch, dev) -> Iterator[ScheduleBlock]:
     """The (trial, point) blocks of every ``(capacity, budget, points)``
-    bucket, each drawn on ``dev`` from the counter-based streams of its
-    lanes."""
+    bucket, each drawn on its piece's device (``dev`` on one) from the
+    counter-based streams of its lanes."""
     proc = as_process(process).ravel()
     mean = _process_mean(proc, flat, dev)
     for cap, steps, idx in buckets:
-        for pts, trials in _blocks(idx, n_trials, _lane_bytes(cap),
-                                   dispatch):
-            pts_t = torch.as_tensor(pts, dtype=torch.int64, device=dev)
+        for d, pts, trials in _device_blocks(idx, n_trials, _lane_bytes(cap),
+                                             dispatch, dev):
+            pts_t = torch.as_tensor(pts, dtype=torch.int64, device=d)
             key = CounterKey(int(seed), pts_t, torch.arange(
-                trials.start, trials.stop, dtype=torch.int64, device=dev))
+                trials.start, trials.stop, dtype=torch.int64, device=d))
             gaps = proc.subset(pts).sample_gaps(
-                key, (len(pts), len(trials), cap), mean=mean[pts_t],
-                device=dev)
+                key, (len(pts), len(trials), cap),
+                mean=mean[pts_t.to(dev)].to(d), device=d)
             yield ScheduleBlock(points=pts_t, trials=trials, gaps=gaps,
                                 n_steps=steps)
 
@@ -464,16 +476,18 @@ def sampled_schedules(T, grid: ParamGrid, T_base: float = 1.0,
 
 def _explicit_schedules(gaps: torch.Tensor, size: int, n_steps: int,
                         dispatch) -> Iterator[ScheduleBlock]:
-    """Blocks of a caller-supplied ``(B, N, F)`` schedule."""
+    """Blocks of a caller-supplied ``(B, N, F)`` schedule, each moved to
+    its piece's device (a broadcast schedule moves its one copy)."""
     n_trials, cap = int(gaps.shape[1]), int(gaps.shape[2])
     idx = np.arange(size)
-    for pts, trials in _blocks(idx, n_trials, _lane_bytes(cap), dispatch):
+    for d, pts, trials in _device_blocks(idx, n_trials, _lane_bytes(cap),
+                                         dispatch, gaps.device):
         sl = slice(int(pts[0]), int(pts[-1]) + 1)
         yield ScheduleBlock(
-            points=torch.as_tensor(pts, dtype=torch.int64,
-                                   device=gaps.device),
+            points=torch.as_tensor(pts, dtype=torch.int64, device=d),
             trials=trials,
-            gaps=gaps[sl, trials.start:trials.stop, :], n_steps=n_steps)
+            gaps=_dispatch.to_device(
+                gaps[sl, trials.start:trials.stop, :], d), n_steps=n_steps)
 
 
 def _normalize_gaps(gaps, size: int, device, dtype=F64) -> torch.Tensor:
@@ -489,21 +503,26 @@ def _normalize_gaps(gaps, size: int, device, dtype=F64) -> torch.Tensor:
 
 
 def _point_params(flat: ParamGrid, T_arr, Tb_arr, p, policy) -> tuple:
-    """(T, C, R, D, omega, T_base) of points ``p`` in the compute dtype."""
+    """(T, C, R, D, omega, T_base) of points ``p`` in the compute dtype, on
+    the device of ``p`` (the grid's tensors are indexed where they live)."""
     cast = policy.cast
-    return (cast(T_arr[p]), cast(flat.C[p]), cast(flat.R[p]),
-            cast(flat.D[p]), cast(flat.omega[p]), cast(Tb_arr[p]))
+    d, q = p.device, p.to(T_arr.device)
+    return tuple(cast(x[q]).to(d) for x in (T_arr, flat.C, flat.R, flat.D,
+                                            flat.omega, Tb_arr))
 
 
 def _scatter(acc: dict, out: dict, p, trials: range, size: int,
-             n_trials: int) -> None:
-    """Write a block's ``(len(p), len(trials))`` outputs into ``acc``."""
+             n_trials: int, device: torch.device) -> None:
+    """Write a block's ``(len(p), len(trials))`` outputs into ``acc`` on
+    ``device``, gathering them there."""
     t = slice(trials.start, trials.stop)
+    if isinstance(p, torch.Tensor):
+        p = p.to(device)
     for k, v in out.items():
         if k not in acc:
             acc[k] = torch.empty((size, n_trials), dtype=v.dtype,
-                                 device=v.device)
-        acc[k][p, t] = v
+                                 device=device)
+        acc[k][p, t] = v.to(device)
 
 
 def _sweep(engine_kind: str, params: tuple, gaps: torch.Tensor, n_steps: int,
@@ -519,15 +538,17 @@ def _sweep(engine_kind: str, params: tuple, gaps: torch.Tensor, n_steps: int,
 def _run_blocks(blocks, flat: ParamGrid, T_arr: torch.Tensor,
                 Tb_arr: torch.Tensor, n_trials: int, policy,
                 engine_kind: str = "event") -> dict:
-    """Run the kind's machine over every block of a stored schedule;
-    returns flat ``(B, n_trials)`` output tensors on the grid's device."""
+    """Run the kind's machine over every block of a stored schedule, each
+    on its block's device; returns flat ``(B, n_trials)`` output tensors
+    gathered on ``T_arr``'s device."""
     acc: dict = {}
     for blk in blocks:
         p = blk.points
-        out = _sweep(engine_kind,
-                     _point_params(flat, T_arr, Tb_arr, p, policy),
-                     policy.cast(blk.gaps), blk.n_steps, policy)
-        _scatter(acc, out, p, blk.trials, flat.size, n_trials)
+        with _dispatch.on_device(p.device):
+            out = _sweep(engine_kind,
+                         _point_params(flat, T_arr, Tb_arr, p, policy),
+                         policy.cast(blk.gaps), blk.n_steps, policy)
+        _scatter(acc, out, p, blk.trials, flat.size, n_trials, T_arr.device)
     return acc
 
 
@@ -536,34 +557,40 @@ def sampled_launches(flat: ParamGrid, T_arr: torch.Tensor,
                      process, n_steps, dispatch, policy, buckets=None):
     """The ``event_sweep_sampled`` calls of an auto-sampled run, one per
     block of every (capacity, budget) bucket (``buckets``, default the
-    engine's, :func:`_buckets`): ``(points, trials, args, kwargs)``, in the
-    engine's order."""
+    engine's, :func:`_buckets`) and device piece of the sweep mesh:
+    ``(points, trials, args, kwargs)``, in the engine's order, every
+    tensor on the piece's device.  The points are global indices, so a
+    lane's draws do not depend on the split."""
     dev = T_arr.device
     proc = as_process(process).ravel()
     spec = proc.gap_spec(_process_mean(proc, flat, dev), flat.size, dev)
     if buckets is None:
         buckets = _buckets(T_arr, flat, Tb_arr, process, n_steps)
     for cap, steps, idx in buckets:
-        for pts, trials in _blocks(idx, n_trials,
-                                   _lane_bytes(cap, stored=False), dispatch):
-            p = torch.as_tensor(pts, dtype=torch.int64, device=dev)
+        for d, pts, trials in _device_blocks(
+                idx, n_trials, _lane_bytes(cap, stored=False), dispatch,
+                dev):
+            p = torch.as_tensor(pts, dtype=torch.int64, device=d)
             yield p, trials, _point_params(flat, T_arr, Tb_arr, p, policy), \
                 dict(seed=seed, points=p, trial0=trials.start,
-                     n_trials=len(trials), spec=spec.take(p), capacity=cap,
+                     n_trials=len(trials),
+                     spec=spec.take(p.to(dev)).to(d), capacity=cap,
                      n_steps=steps, compensated=policy.compensated)
 
 
 def _run_sampled(flat: ParamGrid, T_arr: torch.Tensor, Tb_arr: torch.Tensor,
                  n_trials: int, seed: int, process, n_steps, dispatch,
                  policy, buckets=None) -> dict:
-    """Run the event kernel with in-kernel draws, one launch a block;
-    returns flat ``(B, n_trials)`` output tensors."""
+    """Run the event kernel with in-kernel draws, one launch a block and
+    device piece, each under its device; returns flat ``(B, n_trials)``
+    output tensors gathered on ``T_arr``'s device."""
     acc: dict = {}
     for p, trials, args, kw in sampled_launches(
             flat, T_arr, Tb_arr, n_trials, seed, process, n_steps, dispatch,
             policy, buckets):
-        _scatter(acc, event_sweep_sampled(*args, **kw), p, trials, flat.size,
-                 n_trials)
+        with _dispatch.on_device(p.device):
+            out = event_sweep_sampled(*args, **kw)
+        _scatter(acc, out, p, trials, flat.size, n_trials, T_arr.device)
     return acc
 
 
@@ -1022,9 +1049,10 @@ def simulate_trajectories_ml(T, m, grid: MultilevelParamGrid,
     (numpy or tensors, ``(grid.size, n_trials, F)``, or 1-D/2-D broadcast)
     override the schedule; otherwise it is drawn on the host from the
     caller's ``rng`` by :func:`presample_failures`.  The schedule goes to
-    the device once; the scan runs over blocks of trials under the
-    ``dispatch`` memory budget (lanes are independent, so the blocks change
-    no bit).  ``n_steps`` caps the scan (default
+    the device once; the trials are cut into one piece a device of the
+    sweep mesh (``dispatch``; one piece on the CPU), each piece into blocks
+    under the memory budget on its device, and the outputs are gathered on
+    ``device`` (lanes are independent, so neither changes a bit).  ``n_steps`` caps the scan (default
     :func:`default_step_budget_ml`), rounded up to a power of two.
     """
     dev = resolve_device(device)
@@ -1066,13 +1094,18 @@ def simulate_trajectories_ml(T, m, grid: MultilevelParamGrid,
     acc: dict = {}
     steps = 0
     tc = _dispatch.trial_chunk(n_trials, B * _ML_LANE_BYTES, dispatch)
-    for t0 in range(0, n_trials, tc):
-        trials = range(t0, min(t0 + tc, n_trials))
-        sl = slice(trials.start, trials.stop)
-        out, ran = _run_one_ml(*params, gaps[:, sl], hard[:, sl],
-                               n_steps=n_steps)
-        steps = max(steps, ran)
-        _scatter(acc, out, slice(None), trials, B, n_trials)
+    for d, lo, hi in _dispatch.pieces(
+            n_trials, _dispatch.split_devices(dispatch, dev)):
+        on_d = tuple(x.to(d) for x in params)
+        for t0 in range(lo, hi, tc):
+            trials = range(t0, min(t0 + tc, hi))
+            sl = slice(trials.start, trials.stop)
+            with _dispatch.on_device(d):
+                out, ran = _run_one_ml(
+                    *on_d, _dispatch.to_device(gaps[:, sl], d),
+                    _dispatch.to_device(hard[:, sl], d), n_steps=n_steps)
+            steps = max(steps, ran)
+            _scatter(acc, out, slice(None), trials, B, n_trials, dev)
 
     shp = grid.shape + (n_trials,)
     r = lambda k: acc[k].reshape(shp)

@@ -322,10 +322,12 @@ def evaluate_grid(grid: ParamGrid, T_base: float = 1.0, dispatch=None,
                   precision=None, device="cuda") -> GridResult:
     """Periods + time/energy ratios for every grid point, on ``device``.
 
-    The grid axis is cut into chunks that fit the device-memory budget
+    The grid axis is cut into one piece a device of the sweep mesh
     (``dispatch`` is a :class:`~repro_torch.sim.dispatch.DispatchConfig`;
-    None = environment defaults); the computation is elementwise, so the
-    chunk size never changes results.  ``precision`` selects the
+    None = environment defaults; one piece on the CPU), each piece into
+    chunks that fit the device-memory budget, and the results are gathered
+    on ``device``; the computation is elementwise, so neither the split nor
+    the chunk size changes results.  ``precision`` selects the
     :class:`~repro_torch.sim.precision.PrecisionPolicy` (None = config /
     env / device default): a reduced-precision policy computes in its dtype
     with compensated energy sums and returns f64 tensors.
@@ -336,10 +338,14 @@ def evaluate_grid(grid: ParamGrid, T_base: float = 1.0, dispatch=None,
     P = torch.stack([getattr(flat, f) for f in _FIELD_ORDER])
     raw = torch.empty((len(_OUT_ORDER), flat.size), dtype=F64, device=dev)
     with _precision.use_policy(pol):
-        for start, stop in _dispatch.chunk_plan(
-                flat.size, _MODEL_BYTES_PER_POINT, dispatch):
-            raw[:, start:stop] = _evaluate_core(
-                pol.cast(P[:, start:stop]), float(T_base))
+        for d, lo, hi in _dispatch.pieces(
+                flat.size, _dispatch.split_devices(dispatch, dev)):
+            Pd = P[:, lo:hi].to(d)
+            with _dispatch.on_device(d):
+                for start, stop in _dispatch.chunk_plan(
+                        hi - lo, _MODEL_BYTES_PER_POINT, dispatch):
+                    raw[:, lo + start:lo + stop] = _evaluate_core(
+                        pol.cast(Pd[:, start:stop]), float(T_base)).to(dev)
     out = {k: raw[i].reshape(grid.shape) for i, k in enumerate(_OUT_ORDER)}
     out["valid"] = out["valid"] > 0.5
     return GridResult(grid=grid, T_base=float(T_base), **out)
@@ -711,9 +717,11 @@ def evaluate_multilevel_grid(grid: MultilevelParamGrid,
     ``device``.
 
     ``m_values`` is the candidate set of deep-checkpoint cadences.  The
-    grid axis is cut into chunks under the device-memory budget
-    (``dispatch``; ``_ML_BYTES_PER_POINT_M`` a point and cadence); the
-    computation is elementwise, so the chunks never change results.
+    grid axis is cut into one piece a device of the sweep mesh and each
+    piece into chunks under the device-memory budget (``dispatch``;
+    ``_ML_BYTES_PER_POINT_M`` a point and cadence), the results gathered
+    on ``device``; the computation is elementwise, so neither the split
+    nor the chunks change results.
 
     ``m_max`` (optional) caps the cadence per grid point: integers
     broadcastable to ``grid.shape``; candidates ``m > m_max[point]`` are
@@ -740,13 +748,18 @@ def evaluate_multilevel_grid(grid: MultilevelParamGrid,
     scalars = torch.empty((len(_ML_OUT_ORDER), N), dtype=F64, device=dev)
     by_m = torch.empty((len(_ML_BY_M_ORDER), M, N), dtype=F64, device=dev)
     with _precision.use_policy(pol):
-        for start, stop in _dispatch.chunk_plan(
-                N, _ML_BYTES_PER_POINT_M * M, dispatch):
-            s, b = _evaluate_ml_core(
-                pol.cast(P[:, start:stop]), float(T_base), m_values,
-                None if mm is None else pol.cast(mm[start:stop]))
-            scalars[:, start:stop] = s
-            by_m[:, :, start:stop] = b
+        for d, lo, hi in _dispatch.pieces(
+                N, _dispatch.split_devices(dispatch, dev)):
+            Pd = P[:, lo:hi].to(d)
+            mmd = None if mm is None else mm[lo:hi].to(d)
+            with _dispatch.on_device(d):
+                for start, stop in _dispatch.chunk_plan(
+                        hi - lo, _ML_BYTES_PER_POINT_M * M, dispatch):
+                    s, b = _evaluate_ml_core(
+                        pol.cast(Pd[:, start:stop]), float(T_base), m_values,
+                        None if mmd is None else pol.cast(mmd[start:stop]))
+                    scalars[:, lo + start:lo + stop] = s.to(dev)
+                    by_m[:, :, lo + start:lo + stop] = b.to(dev)
     out = {k: scalars[i].reshape(grid.shape)
            for i, k in enumerate(_ML_OUT_ORDER)}
     out["valid"] = out["valid"] > 0.5

@@ -27,6 +27,8 @@ import repro_torch.sim as TS
 from repro_torch import interop
 from repro_torch.ckpt.tree import tree_flatten, tree_leaves
 from repro_torch.data import synthetic
+from repro_torch.ft import ElasticPlan, build_mesh
+from repro_torch.launch import make_production_mesh, make_test_mesh
 from repro_torch.models import build, spec
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw, grad_compress
@@ -267,9 +269,16 @@ def test_table_arch_periods_matches_reference(tmp_path, monkeypatch):
     lambda: interop.opt_state_from_numpy(adamw.AdamWState(0, {}, {}, None)),
     lambda: TS.arch_grid(),
     lambda: TS.multilevel_arch_grid(),
+    lambda: make_test_mesh(1),
+    lambda: make_production_mesh(),
+    lambda: build_mesh(ElasticPlan({"data": 1}, {"data": 1}, 0,
+                                   "keep_global")),
+    lambda: TS.effective_devices(),
 ], ids=["Model.init", "SyntheticLM.peek", "adamw.init_state",
         "grad_compress.init_state", "params_from_numpy",
-        "opt_state_from_numpy", "arch_grid", "multilevel_arch_grid"])
+        "opt_state_from_numpy", "arch_grid", "multilevel_arch_grid",
+        "make_test_mesh", "make_production_mesh", "build_mesh",
+        "effective_devices"])
 def test_new_entry_points_default_to_cuda(call):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

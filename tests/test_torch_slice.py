@@ -127,9 +127,15 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
             "repro_torch.benchmarks.validate_runtime, "
             "repro_torch.benchmarks.train_fault_tolerant, "
             "repro_torch.models.attention, repro_torch.models.transformer, "
-            "repro_torch.models.moe, repro_torch.benchmarks.serve_batched\n"
+            "repro_torch.models.moe, repro_torch.benchmarks.serve_batched, "
+            "repro_torch.parallel, repro_torch.parallel.sharding, "
+            "repro_torch.launch, repro_torch.launch.mesh, "
+            "repro_torch.ft.elastic, repro_torch.models.spec, "
+            "repro_torch.sim.dispatch\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+            "bad += sorted(m for m in sys.modules if m.startswith("
+            "'torch.testing._internal.distributed'))\n"
             "print(','.join(bad))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -154,6 +160,7 @@ def test_no_source_imports_jax_or_reference(path):
     for mod in _imports(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+        assert not mod.startswith("torch.testing"), (path, mod)
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])
