@@ -387,6 +387,27 @@ Phases (any failure exits non-zero; no result line is printed then):
    uninterrupted run, the round-trip run and the two restores), two
    quantize and two dequantize launches, no plain call.  The group is
    destroyed at the end.
+18. the tooling, every line with the card's name and power limit, its
+   counts set to 0 just before it and read just after (the event kernels
+   and flash attention must launch).  (a) ``benchmarks/roofline.py``'s
+   section 2 on the card: ``_evaluate_core``, the step scan, the explicit
+   and the sampled event kernel at 64 points x 64 trials, capacity 32,
+   each costed by ``launch/cost.py`` and timed with CUDA events beside its
+   bound; a kernel row may not beat its ``kernels/cost.py`` bound.  (b)
+   ``repro_torch.sanitize``'s four workloads on the card: every count
+   within its committed budget (``sanitize_budget.json``) and printed
+   beside the count committed from the CPU, the CUDA kernels (profiler)
+   and the sync debug mode's syncs, the leak check by
+   ``memory_allocated``.  (c) the dry run's estimate of a reduced cell
+   (``TOOL_CELL``: starcoder2-3b, 2 layers, train B 2 x 2048, a one-rank
+   mesh on a ``fake`` group) against the same step run for real:
+   ``max_memory_allocated``, less what earlier phases left allocated,
+   within ``TOOL_PEAK_BAND`` of ``peak_bytes_est``.  (d) ``bench_sweep
+   --quick``.  At section 2's 64 x 64 lanes the kernels run hundreds of
+   times above their bounds, so (a)'s rule checks only the plumbing; a
+   run of every phase also holds each kernel's work model where it binds:
+   no row of the kernels line (phases 7-9's timed shapes, each part) runs
+   faster than its bound (``_hold_bounds``).
 
 Near the end it prints one JSON line ``{"gates": {...}}`` with every
 gate's numbers, then one ``{"kernels": [...]}`` line, then the card's name
@@ -407,28 +428,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-#: published peaks per H100 variant (NVIDIA data sheets): device-memory
-#: bytes/s, FP64 and FP32 FLOP/s outside the tensor cores, dense bf16
-#: FLOP/s of the tensor cores, INT32 instructions/s, and dense TF32 FLOP/s
-#: of the tensor cores (half the bf16 rate).  An SM issues 64 INT32 lanes a
-#: clock against 128 FP32 lanes (Hopper architecture white paper, the SM
-#: diagram: 16 INT32 and 32 FP32 units per quarter), and the FP32 peak
-#: counts a fused multiply-add as two, so INT32 = FP32 / 4.
-_PEAKS = {"PCIe": (2.0e12, 25.6e12, 51.2e12, 756e12, 12.8e12, 378e12),
-          "NVL": (3.9e12, 30.0e12, 60.0e12, 835e12, 15.0e12, 417.5e12),
-          "SXM": (3.35e12, 34.0e12, 67.0e12, 989e12, 16.75e12, 494.5e12)}
-
-#: per-lane output bytes of the event kernel: 4 f64 + 2 int32 + 2 bool.
-_OUT_BYTES = 4 * 8 + 2 * 4 + 2 * 1
-
-#: floating-point operations of the event loop's update per gap (one
-#: iteration), in the compute type, counted from the source with a divide
-#: as one: 26 shared by both branches plus up to 14 in the taken branch;
-#: the compensated mode forms 5 increments (~16) and folds each in with a
-#: 6-operation Neumaier step.  Both sources run the same update; the
-#: sampled kernel adds the draw (``_draw_ops``), which the bound counts
-#: apart, each on its own unit.
-_OPS_PER_GAP = {"f64": 40, "compensated_f32": 72}
+#: The peaks of each H100 variant and every kernel's work and bound come
+#: from ``repro_torch/kernels/cost.py`` (``PEAKS``, ``*_work``,
+#: ``bound_ms``); this script passes in what it measures (the draw's
+#: instructions per gap, ``_draw_ops``; the gaps a run's lanes read).
 
 #: the reference's CPU figures for the largest MC-vs-model gaps on the MC
 #: grid (512 trials): AlgoT time/energy, AlgoE time/energy.
@@ -580,9 +583,8 @@ def phase_device():
         f"{sys.version.split()[0]}, device "
         f"{torch.cuda.get_device_name(0)}, count "
         f"{torch.cuda.device_count()}")
-    name = torch.cuda.get_device_name(0)
-    variant = next((k for k in ("PCIe", "NVL") if k in name), "SXM")
-    return card, _PEAKS[variant]
+    from repro_torch.kernels import cost
+    return card, cost.PEAKS[cost.variant(torch.cuda.get_device_name(0))]
 
 
 # ---------------------------------------------------------------------------
@@ -1444,8 +1446,7 @@ def phase_explicit_times(mc_grid, T, gaps, tb, launches: int, peaks,
     count must be the path's): its time, its plain version's (both held
     bitwise first) and its bound, from the gaps this run's lanes read."""
     import torch
-    from repro_torch.kernels import event_sweep as es
-    bw, f64_peak = peaks[0], peaks[1]
+    from repro_torch.kernels import cost, event_sweep as es
     calls = explicit_launches(mc_grid, T, gaps, dev)
     if len(calls) != launches:
         fail(f"the explicit path made {launches} launches, its blocks are "
@@ -1461,13 +1462,11 @@ def phase_explicit_times(mc_grid, T, gaps, tb, launches: int, peaks,
     F = gaps.shape[-1]
     n_gaps = int(torch.clamp_max(tb.n_failures.to(torch.int64) + 1, F).sum())
     lanes = tb.n_failures.numel()
-    nbytes = n_gaps * 8 + lanes * _OUT_BYTES + 6 * mc_grid.size * 8
-    bytes_ms = nbytes / bw * 1e3
-    ops_ms = n_gaps * _OPS_PER_GAP["f64"] / f64_peak * 1e3
+    b = cost.bound_ms(cost.event_sweep_work(mc_grid.size, lanes, n_gaps),
+                      peaks)
     out = {"launches": len(calls), "lanes": lanes, "gaps": n_gaps,
            "ms": _events_ms(run_k), "plain_ms": _events_ms(run_p),
-           "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
            "bitwise": equal, "max_abs_err": err}
     log(f"time explicit path {tuple(gaps.shape)} f64: explicit kernel "
         f"{out['ms']:.4f} ms over {len(calls)} launches, plain "
@@ -1729,31 +1728,28 @@ def _host_s(fn, reps: int = 5) -> float:
 
 def _fused_bound(n_gaps: int, lanes: int, points: int, pol, kind: int,
                  draw_ops: dict, peaks) -> dict:
-    """The sampled kernel's bound: outputs and parameters over the memory
-    rate; the draw's INT32 and f64 instructions per gap (``_draw_ops``,
-    from the SASS) and the update's operations (``_OPS_PER_GAP``), each
-    over its unit's rate.  An f64 instruction takes one slot of the FP64
-    units, whose rate is their FLOP peak over 2 (the peak counts a fused
-    multiply-add as two); the update's operations are FLOPs.  The units
-    run side by side, so the least time is the largest of the four."""
-    bw, f64_peak, f32_peak, _, int_peak, _ = peaks
-    item = 4 if pol.compensated else 8
-    nbytes = lanes * _OUT_BYTES + points * (6 * item + 2 * 8 + 8)
-    int_ops = n_gaps * draw_ops[kind][0]
-    f64_ops = n_gaps * draw_ops[kind][1]
-    update_ops = n_gaps * _OPS_PER_GAP[pol.name]
-    f64_s = f64_ops / (f64_peak / 2)
-    f32_s = update_ops / f32_peak if pol.compensated else 0.0
-    if not pol.compensated:
-        f64_s += update_ops / f64_peak
-    ms = {"bytes": nbytes / bw * 1e3, "int32": int_ops / int_peak * 1e3,
-          "f64": f64_s * 1e3, "f32": f32_s * 1e3}
+    """The sampled kernel's bound (``cost.event_sweep_sampled_work``):
+    outputs and parameters over the memory rate; the draw's INT32 and f64
+    instructions per gap (``_draw_ops``, from the SASS) and the update's
+    operations, each over its unit's rate.  An f64 instruction takes one
+    slot of the FP64 units, whose rate is their FLOP peak over 2 (the peak
+    counts a fused multiply-add as two); the update's operations are
+    FLOPs.  The units run side by side, so the least time is the largest
+    of the four."""
+    from repro_torch.kernels import cost
+    w = cost.event_sweep_sampled_work(points, lanes, n_gaps,
+                                      compensated=pol.compensated,
+                                      draw_ops=draw_ops[kind])
+    b = cost.bound_ms(w, peaks)
+    parts = b["parts_ms"]
+    ms = {"bytes": parts["bytes"], "int32": parts.get("int32", 0.0),
+          "f64": parts.get("fp64", 0.0), "f32": parts.get("fp32", 0.0)}
     top = max(ms, key=ms.get)
-    return {"bound_ms": ms[top],
-            "bound_by": "bytes" if top == "bytes" else "operations",
-            "bound_unit": top, "bound_parts_ms": ms, "bytes": nbytes,
-            "int32_instructions": int_ops, "f64_instructions": f64_ops,
-            "update_ops": update_ops}
+    return {"bound_ms": ms[top], "bound_by": b["bound_by"],
+            "bound_unit": top, "bound_parts_ms": ms, "bytes": w.bytes,
+            "int32_instructions": w.ops["int32"],
+            "f64_instructions": w.ops["f64_instr"],
+            "update_ops": w.ops["f32" if pol.compensated else "f64"]}
 
 
 def phase_times(big, mc_grid, model, runs, peaks, draw_ops, dev) -> list:
@@ -1769,12 +1765,11 @@ def phase_times(big, mc_grid, model, runs, peaks, draw_ops, dev) -> list:
     import torch
     from repro_torch.core import Exponential, Weibull
     from repro_torch.core.failures import draw_gaps
-    from repro_torch.kernels import event_sweep as es
+    from repro_torch.kernels import cost, event_sweep as es
     from repro_torch.sim import (COMPENSATED_F32, F64, evaluate_grid,
                                  fail_capacity_points, sampled_schedules,
                                  simulate_trajectories)
     from repro_torch.sim import engine as te
-    bw, f64_peak, f32_peak, _, _, _ = peaks
     for pol in (F64, COMPENSATED_F32):
         s = _host_s(lambda: evaluate_grid(big, precision=pol, device=dev))
         log(f"time evaluate_grid 1e6 [{pol.name}]: {s:.4f} s (median of 5)")
@@ -1881,7 +1876,6 @@ def phase_times(big, mc_grid, model, runs, peaks, draw_ops, dev) -> list:
                 "energy_integral_s": assemble_s,
                 "other_s": e2e - run_s - assemble_s}
 
-        item = 4 if pol.compensated else 8
         lanes = tb.n_failures.numel()
         F_of = torch.as_tensor(fail_capacity_points(
             T, flat, T_BASE, process=proc), device=dev)
@@ -1892,10 +1886,8 @@ def phase_times(big, mc_grid, model, runs, peaks, draw_ops, dev) -> list:
         # a warp (32 trials of one point) runs as long as its longest lane
         steps = tb.n_failures.reshape(flat.size, -1, 32).to(torch.int64) + 1
         warp_eff = float(steps.sum()) / float(32 * steps.amax(-1).sum())
-        nbytes = n_gaps * item + lanes * _OUT_BYTES + 6 * flat.size * item
-        bytes_ms = nbytes / bw * 1e3
-        ops_ms = n_gaps * _OPS_PER_GAP[pol.name] / (
-            f32_peak if pol.compensated else f64_peak) * 1e3
+        eb = cost.bound_ms(cost.event_sweep_work(
+            flat.size, lanes, n_gaps, compensated=pol.compensated), peaks)
         fb = _fused_bound(n_gaps, lanes, flat.size, pol, kinds[pname],
                           draw_ops, peaks)
         v = {"process": pname, "policy": polname, "period": algo,
@@ -1904,9 +1896,8 @@ def phase_times(big, mc_grid, model, runs, peaks, draw_ops, dev) -> list:
              "fused": fb,
              "explicit_bfn_ms": bfn_ms, "explicit_bnf_ms": bnf_ms,
              "transpose_ms": transpose_ms, "plain_ms": plain_ms,
-             "explicit_bound_ms": max(bytes_ms, ops_ms),
-             "explicit_bound_by": ("bytes" if bytes_ms >= ops_ms
-                                   else "operations"),
+             "explicit_bound_ms": eb["bound_ms"],
+             "explicit_bound_by": eb["bound_by"],
              "sampling_ms": sample_ms,
              "two_step_ms": sample_ms + bnf_ms,
              "host": host, "warp_efficiency": warp_eff, "bitwise": equal,
@@ -1930,11 +1921,6 @@ def phase_times(big, mc_grid, model, runs, peaks, draw_ops, dev) -> list:
         variants.append(v)
         torch.cuda.empty_cache()
     return variants
-
-
-#: floating-point operations per element of quantize (abs, max, divide,
-#: round, two clamps, convert) and of dequantize (convert, multiply).
-_QUANT_OPS = {"quantize": 7, "dequantize": 2}
 
 
 def _leaf_launch(entry: str, rows: list, n_groups: int, dev):
@@ -1966,8 +1952,7 @@ def phase_quant_times(run: dict, peaks, dev) -> dict:
     wrappers' host work."""
     import torch
     from repro_torch.ckpt.tree import tree_leaves
-    from repro_torch.kernels import quant_blockwise as qb
-    bw, _, f32_peak, _, _, _ = peaks
+    from repro_torch.kernels import cost, quant_blockwise as qb
     leaves = [x for x in tree_leaves(run["state"])
               if x.dtype == torch.float32 and x.numel() >= 4096]
     padded = []
@@ -2045,16 +2030,14 @@ def phase_quant_times(run: dict, peaks, dev) -> dict:
             sel = [big] if label == "largest" else range(len(leaves))
             n = sum(leaves[i].numel() for i in sel)
             g = sum(args[1][i].numel() for i in sel)
-            nbytes = 4 * n + 132 * g   # f32 <-> padded int8 + scales
-            bytes_ms = nbytes / bw * 1e3
-            ops_ms = _QUANT_OPS[name] * n / f32_peak * 1e3
+            w = cost.quant_work(name, n, g)   # f32 <-> padded int8 + scales
+            b = cost.bound_ms(w, peaks)
             res[label] = {
-                "leaves": len(sel), "elements": n, "bytes": nbytes,
+                "leaves": len(sel), "elements": n, "bytes": w.bytes,
                 "kernel_ms": _events_ms(wrapper),
                 "table_kernel_ms": _events_ms(ker),
                 "plain_ms": _events_ms(plain),
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
             r = res[label]
             log(f"time {name} [{label}: {r['leaves']} leaves, {n} "
                 f"elements]: kernel {r['kernel_ms']:.4f} ms (wrapper calls, "
@@ -2466,20 +2449,6 @@ def phase_bench_kernels(dev) -> list:
     return rows
 
 
-def _flash_pairs(S: int, window: int) -> int:
-    """(query, key) pairs inside a causal window of ``window``."""
-    return sum(min(i + 1, window) for i in range(S))
-
-
-def _mlstm_flops(BH: int, S: int, Dh: int, L: int) -> int:
-    """The products the chunkwise mLSTM needs: q k^T and S v over each
-    chunk's causal pairs, q C0 into every chunk but the first (C0 = 0) and
-    the state update out of every chunk but the last."""
-    nc = S // L
-    return (4 * Dh * BH * nc * L * (L + 1) // 2
-            + 4 * BH * (nc - 1) * L * Dh * Dh)
-
-
 def _sdpa_ms(name: str, call, want) -> tuple:
     """(ms, backend) of ``call`` -- one ``scaled_dot_product_attention`` on
     4-D tensors -- under the fastest backend that takes it.  Each backend
@@ -2518,14 +2487,13 @@ def phase_zoo_times(inp: dict, peaks, dev) -> dict:
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mlstm_scan as ml
+    from repro_torch.kernels import cost
     from repro_torch.kernels import rglru_scan as rg
-    bw, _, f32_peak, bf16_peak, _, tf32_peak = peaks
 
-    def bound(nbytes, flops, peak):
-        b_ms, o_ms = nbytes / bw * 1e3, flops / peak * 1e3
-        return {"bound_ms": max(b_ms, o_ms),
-                "bound_by": "bytes" if b_ms >= o_ms else "operations",
-                "bytes": nbytes, "flops": flops}
+    def bound(work):
+        b = cost.bound_ms(work, peaks)
+        return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "bytes": work.bytes, "flops": sum(work.ops.values())}
 
     def timed(name, ker, plain, library=None, **b):
         r = {"kernel_ms": _events_ms(ker), "plain_ms": _events_ms(plain),
@@ -2549,7 +2517,7 @@ def phase_zoo_times(inp: dict, peaks, dev) -> dict:
             f"rglru_scan {tuple(a.shape)} f32 {label} h0",
             lambda: rg.rglru_scan(a, b, h0),
             lambda: rg.rglru_scan_plain(a, b, h0),
-            **bound(3 * 4 * n + 4 * h0.numel(), 2 * n, f32_peak)))
+            **bound(cost.rglru_work(*a.shape, a.dtype))))
 
     la = LOCAL_ATTN
     q, k, v = (_fold(inp[x]) for x in ("fa_q", "fa_k", "fa_v"))
@@ -2563,8 +2531,8 @@ def phase_zoo_times(inp: dict, peaks, dev) -> dict:
                                          window=la["window"]),
         lambda: Fn.scaled_dot_product_attention(q[None], k[None], v[None],
                                                 attn_mask=mask),
-        **bound(4 * q.numel() * 2,
-                4 * Dh * BH * _flash_pairs(S, la["window"]), bf16_peak))
+        **bound(cost.flash_work(BH, S, S, Dh, q.dtype, "sliding",
+                                la["window"])))
     del q, k, v
     torch.cuda.empty_cache()
 
@@ -2578,8 +2546,7 @@ def phase_zoo_times(inp: dict, peaks, dev) -> dict:
             lambda: da.decode_attention_plain(q1, kc, vc, length),
             lambda: Fn.scaled_dot_product_attention(
                 q1[None], kc[None, :, :length], vc[None, :, :length]),
-            **bound(2 * (2 * d["BH"] * length * d["Dh"] + 2 * q1.numel()),
-                    4 * d["BH"] * length * d["Dh"], f32_peak)))
+            **bound(cost.decode_work(d["BH"], length, d["Dh"], kc.dtype))))
     res["decode_attention"] = parts
 
     # phase 15's heads of 64 (bf16): whisper's encoder self-attention and
@@ -2592,14 +2559,13 @@ def phase_zoo_times(inp: dict, peaks, dev) -> dict:
                                ("internvl2-1b prefill", 224, 2048,
                                 "causal")):
         q, k, v = (randn(BH, S, 64).to(torch.bfloat16) for _ in range(3))
-        pairs = S * S if mode == "bidir" else _flash_pairs(S, S)
         res["flash_attention_dh64"].append(timed(
             f"flash_attention {mode} {label} {tuple(q.shape)} bf16",
             lambda: fa.flash_attention(q, k, v, mode=mode),
             lambda: fa.flash_attention_plain(q, k, v, mode=mode),
             lambda: Fn.scaled_dot_product_attention(
                 q[None], k[None], v[None], is_causal=mode == "causal"),
-            **bound(4 * q.numel() * 2, 4 * 64 * BH * pairs, bf16_peak)))
+            **bound(cost.flash_work(BH, S, S, 64, q.dtype, mode))))
     del q, k, v
     BH, S = 224, 2080
     q1 = randn(BH, 1, 64).to(torch.bfloat16)
@@ -2610,8 +2576,7 @@ def phase_zoo_times(inp: dict, peaks, dev) -> dict:
         lambda: da.decode_attention_plain(q1, kc, vc, S),
         lambda: Fn.scaled_dot_product_attention(q1[None], kc[None],
                                                 vc[None]),
-        **bound(2 * (2 * BH * S * 64 + 2 * q1.numel()), 4 * BH * S * 64,
-                f32_peak)))
+        **bound(cost.decode_work(BH, S, 64, kc.dtype))))
     del q1, kc, vc
     torch.cuda.empty_cache()
 
@@ -2620,15 +2585,13 @@ def phase_zoo_times(inp: dict, peaks, dev) -> dict:
     fold = lambda t: t.reshape(BH, *t.shape[2:])
     args = tuple(fold(inp[x]) for x in ("ml_q", "ml_k", "ml_v", "ml_li",
                                         "ml_lf"))
-    flops = _mlstm_flops(BH, S, Dh, L)
-    nbytes = 4 * 4 * BH * S * Dh + 2 * 4 * BH * S
     # 3xTF32: three TF32 products on the tensor cores per f32 product
     res["mlstm_scan"] = timed(
         f"mlstm_scan {(BH, S, Dh)} chunk {L} f32",
         lambda: ml.mlstm_scan(*args, chunk=L),
         lambda: ml.mlstm_scan_plain(*args, chunk=L),
-        **bound(nbytes, 3 * flops, tf32_peak))
-    fp32 = bound(nbytes, flops, f32_peak)
+        **bound(cost.mlstm_work(BH, S, Dh, L)))
+    fp32 = bound(cost.mlstm_work(BH, S, Dh, L, route="fp32"))
     res["mlstm_scan"]["fp32_cores_bound_ms"] = fp32["bound_ms"]
     _, scratch = ml.launch_passes(*args, L, ml.ALL_PASSES)
     passes = {name: _events_ms(lambda: ml.launch_passes(
@@ -2858,7 +2821,7 @@ def _launch_bound(calls, peaks) -> dict:
     and the update's f64 operations over the FP64 rate; beside it the
     whole schedule read once a launch."""
     import torch
-    bw, f64_peak = peaks[0], peaks[1]
+    from repro_torch.kernels import cost
     tot = {"bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0, "gaps": 0,
            "schedule_bytes": 0}
     for args, kw, nf in calls:
@@ -2867,15 +2830,14 @@ def _launch_bound(calls, peaks) -> dict:
         used = torch.clamp_max(nf.to(torch.int64) + 1, F)
         read = used.max(dim=0).values.sum() if g.stride(0) == 0 \
             else used.sum()
-        nbytes = int(read) * 8 + rows * N * _OUT_BYTES + 6 * rows * 8
-        b = nbytes / bw * 1e3
-        o = int(used.sum()) * _OPS_PER_GAP["f64"] / f64_peak * 1e3
-        tot["bytes_ms"] += b
-        tot["ops_ms"] += o
-        tot["bound_ms"] += max(b, o)
+        bd = cost.bound_ms(cost.event_sweep_work(
+            rows, rows * N, int(read), int(used.sum())), peaks)
+        tot["bytes_ms"] += bd["parts_ms"]["bytes"]
+        tot["ops_ms"] += bd["parts_ms"]["fp64"]
+        tot["bound_ms"] += bd["bound_ms"]
         tot["gaps"] += int(used.sum())
         tot["schedule_bytes"] += (1 if g.stride(0) == 0 else rows) * N * F * 8
-    tot["schedule_bytes_ms"] = tot["schedule_bytes"] / bw * 1e3
+    tot["schedule_bytes_ms"] = tot["schedule_bytes"] / peaks.hbm_bw * 1e3
     tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
                        else "operations")
     return tot
@@ -4249,11 +4211,10 @@ def phase_train(dev, card: str, peaks=None, cfg=None, B=None, S=None,
             BH, Dh = B * cfg.n_heads, 2 * cfg.d_model // cfg.n_heads
             L = min(cfg.mlstm_chunk, S)
             per = 4 * prof["mlstm_kernel_s"] / prof["mlstm_kernels"] * 1e3
-            b_ms = (4 * 4 * BH * S * Dh + 2 * 4 * BH * S) / peaks[0] * 1e3
-            o_ms = 3 * _mlstm_flops(BH, S, Dh, L) / peaks[5] * 1e3
-            prof.update(mlstm_launch_ms=per, mlstm_bound_ms=max(b_ms, o_ms),
-                        mlstm_bound_by="bytes" if b_ms >= o_ms
-                        else "operations")
+            from repro_torch.kernels import cost
+            b = cost.bound_ms(cost.mlstm_work(BH, S, Dh, L), peaks)
+            prof.update(mlstm_launch_ms=per, mlstm_bound_ms=b["bound_ms"],
+                        mlstm_bound_by=b["bound_by"])
         report["profile"] = prof
         tlog("train step profile: " + ", ".join(
             f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
@@ -6476,6 +6437,222 @@ def phase_mesh(dev, card: str, rehearse: bool = False,
     return report
 
 
+# ---------------------------------------------------------------------------
+# 18. the tooling: roofline, sanitize, the dry run's estimate, bench_sweep
+# ---------------------------------------------------------------------------
+
+#: part (c)'s reduced dry-run cell: starcoder2-3b at its production
+#: numerics (``launch.dryrun.cell_config``: bf16 params, heads padded to
+#: 32, remat), cut to 2 layers, a train step of B 2 x 2048 on a one-rank
+#: mesh, params from seed 0.
+TOOL_CELL = dict(arch="starcoder2-3b", layers=2, B=2, S=2048, seed=0)
+#: the band of the card's measured peak over the dry run's
+#: ``peak_bytes_est``.  The estimate counts every storage the meta trace
+#: makes at its exact bytes and frees it with its last tensor, as the
+#: caching allocator's ``max_memory_allocated`` does; the card adds what
+#: the trace cannot see (allocations rounded up to 512 B, cuBLAS's
+#: workspace, the kernels' aligned copies) and nothing it leaves out
+#: should be larger than a fifth of the step.
+TOOL_PEAK_BAND = (0.8, 1.25)
+
+
+def _tool_roofline(dev, tlog, draw_ops) -> list:
+    """(a): roofline section 2 on ``dev``; on the card each kernel row's
+    time must not beat its bound."""
+    from repro_torch.benchmarks import roofline
+    from repro_torch.kernels import cost
+    info, hpeaks = roofline.host_peaks(dev)
+    dev_peaks = (cost.PEAKS[cost.variant(info.device_kind)]
+                 if dev.type == "cuda" else cost.PEAKS["SXM"])
+    rows = roofline.analyze_sweep_programs(
+        hpeaks, dev, dev_peaks, draw_ops=(draw_ops or {}).get(0))
+    for r in rows:
+        ms = "not timed" if r["ms"] is None else f"{r['ms']:.4f} ms"
+        tlog(f"tooling (a) roofline {r['program']} [{r['shape']}]: "
+             f"{r['kernel_calls']} kernel calls, {r['dot_flops']:.4g} dot "
+             f"FLOPs, {r['hbm_bytes']:.4g} B, bound {r['bound_ms']:.6f} ms "
+             f"({r['bound_by']}), {ms}")
+        if r["ms"] is not None and r["bound_by"] != "model" \
+                and r["ms"] < r["bound_ms"]:
+            fail(f"tooling: {r['program']} ran in {r['ms']} ms, under its "
+                 f"bound {r['bound_ms']} ms: the kernel's model is wrong")
+    return rows
+
+
+def _tool_sanitize(dev, tlog) -> dict:
+    """(b): the four canonical workloads' counts within their committed
+    budgets, and the leak check; on the card also the CUDA kernels and the
+    syncs of the sync debug mode."""
+    from repro_torch import sanitize
+    budgets = sanitize.load_budgets()
+    if not budgets:
+        fail(f"tooling: no budgets in {sanitize.BUDGET_PATH}")
+    out = {}
+    for name, fn in sanitize.CANONICAL_WORKLOADS.items():
+        counts = sanitize.measure_workload(fn, dev)
+        try:
+            sanitize.launch_gate(name, counts, budgets)
+        except sanitize.LaunchBudgetError as e:
+            fail(f"tooling: {e}")
+        committed = {k: budgets[name][k]["measured"] for k in counts}
+        card = sanitize.card_report(fn, dev) if dev.type == "cuda" else {}
+        try:
+            sanitize.run_leak_checked(fn, dev)
+        except sanitize.LeakError as e:
+            fail(f"tooling: {name}: {e}")
+        out[name] = {"counts": counts, "committed": committed,
+                     "equal_to_committed": counts == committed, **card}
+        tlog(f"tooling (b) sanitize {name}: " + ", ".join(
+            f"{k} {v} (budget {budgets[name][k]['budget']}, committed "
+            f"{committed[k]})" for k, v in counts.items())
+            + "".join(f", {k} {v}" for k, v in card.items())
+            + ", no leak")
+    return out
+
+
+def _tool_dryrun(dev, tlog) -> dict:
+    """(c): the dry run of the reduced cell (``TOOL_CELL``) on a one-rank
+    mesh, then the same step for real; on the card the measured peak must
+    lie within ``TOOL_PEAK_BAND`` of the estimate."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, make_test_mesh
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+    c = TOOL_CELL
+    shape = ShapeConfig("train_2k", "train", c["S"], c["B"])
+    owned = not dist.is_initialized()
+    if owned:
+        dryrun.init_fake_group(1)
+    try:
+        mesh = make_test_mesh(1, device=dev.type)
+        rec = dryrun.run_cell(c["arch"], shape.name, shape=shape,
+                              n_layers=c["layers"], mesh=mesh, save=False,
+                              device=dev.type)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+    mem = rec["memory"]
+    out = {"record": {k: rec[k] for k in ("mesh", "n_chips",
+                                           "flops_per_device", "fits_hbm",
+                                           "timings_s")},
+           "memory": mem, "band": TOOL_PEAK_BAND}
+    tlog(f"tooling (c) dry run {c['arch']} {c['layers']} layers, train "
+         f"B {c['B']} x {c['S']} on {rec['mesh']}: arguments "
+         f"{mem['argument_bytes']} B sharded, {mem['rank_argument_bytes']} B "
+         f"as the rank holds them, outputs {mem['output_bytes']} B, temps "
+         f"{mem['temp_bytes']} B, peak estimate {mem['peak_bytes_est']} B, "
+         f"{rec['flops_per_device']:.4g} FLOPs, trace "
+         f"{rec['timings_s']['trace']} s")
+    if dev.type != "cuda":
+        return out
+    cfg = dataclasses.replace(dryrun.cell_config(c["arch"], shape),
+                              n_layers=c["layers"])
+    model = build(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(c["seed"])
+    opt_cfg = dryrun.opt_config(cfg)
+    # what earlier phases left allocated is no part of the step
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    params = model.init(gen, device=dev)
+    opt = adamw.init_state(params, opt_cfg, device=dev)
+    batch = {k: torch.randint(0, cfg.vocab_size, (c["B"], c["S"]),
+                              generator=gen, device=dev, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    step = model.make_train_step(opt_cfg)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev) - base
+    new_p, new_o, metrics = step(params, opt, batch)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    del new_p, new_o, metrics, params, opt, batch
+    torch.cuda.empty_cache()
+    ratio = peak / mem["peak_bytes_est"]
+    out.update(measured_peak_bytes=peak, held_before_bytes=held,
+               earlier_phases_bytes=base, ratio=ratio, loss=loss)
+    tlog(f"tooling (c) the step on the card: loss {loss:.4f}, arguments "
+         f"held {held} B (estimated {mem['rank_argument_bytes']} B), "
+         f"max_memory_allocated {peak} B above the {base} B earlier phases "
+         f"left, {ratio:.4f} of the estimate (band {TOOL_PEAK_BAND})")
+    if not math.isfinite(loss):
+        fail(f"tooling: the reduced cell's loss is {loss}")
+    if not TOOL_PEAK_BAND[0] <= ratio <= TOOL_PEAK_BAND[1]:
+        fail(f"tooling: the measured peak is {ratio:.4f} of the dry run's "
+             f"estimate, outside {TOOL_PEAK_BAND}")
+    return out
+
+
+def phase_tooling(dev, card: str, draw_ops=None) -> dict:
+    """Phase 18: the tooling against the kernels and steps it models (see
+    the module docstring), every line with the card's name and power
+    limit; on the CPU (``dev`` cpu) it rehearses: no times, no measured
+    peak."""
+    from repro_torch.benchmarks import bench_sweep
+    tlog = lambda msg: log(f"{msg} [{card}]")
+    report, t_phase = {}, time.perf_counter()
+    _reset_counts()
+    for key, part in (("roofline", lambda: _tool_roofline(dev, tlog,
+                                                          draw_ops)),
+                      ("sanitize", lambda: _tool_sanitize(dev, tlog)),
+                      ("dryrun", lambda: _tool_dryrun(dev, tlog)),
+                      ("bench_sweep", lambda: bench_sweep.run(dev,
+                                                              quick=True))):
+        t0 = time.perf_counter()
+        report[key] = part()
+        report.setdefault("part_s", {})[key] = time.perf_counter() - t0
+    _dev_sync(dev)
+    report["launches"] = c = _counts()
+    b = report["bench_sweep"]
+    tlog("tooling (d) bench_sweep --quick: " + ", ".join(
+        f"{k} {v['speedup_warm']:.2f}x ({b['entry_s'].get(k, 0.0):.1f} s)"
+        for k, v in b.items()
+        if isinstance(v, dict) and "speedup_warm" in v))
+    report["phase_s"] = time.perf_counter() - t_phase
+    tlog(f"tooling phase {report['phase_s']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in report["part_s"].items())
+        + f"); launches event_sweep {c['event_sweep']}, event_sweep_sampled "
+        f"{c['event_sweep_sampled']}, flash_attention "
+        f"{c['flash_attention']}, plain-version calls {c['plain']}")
+    if dev.type == "cuda" and not (c["event_sweep_sampled"]
+                                   and c["event_sweep"]
+                                   and c["flash_attention"]):
+        fail(f"tooling: the phase did not launch the event kernels and "
+             f"flash attention: {c}")
+    return report
+
+
+def _hold_bounds(kernels: list) -> list:
+    """Each timed row of the kernels line (a kernel's total and each part
+    with its own time and bound) as (name, ms, bound ms); fails if a row
+    ran faster than its bound: its ``kernels/cost.py`` model or the
+    card's peaks would then be wrong."""
+    rows = []
+    for k in kernels:
+        rows.append((k["name"], k["ms"], k["bound_ms"]))
+        cs = k.get("caller_schedule")
+        if cs:
+            rows.append((f"{k['name']} caller schedule", cs["ms"],
+                         cs["bound_ms"]))
+        parts = k.get("variants")
+        for i, v in enumerate(parts if isinstance(parts, list) else []):
+            if "kernel_ms" in v and "bound_ms" in v:
+                rows.append((f"{k['name']} part {i}", v["kernel_ms"],
+                             v["bound_ms"]))
+    beaten = [r for r in rows if not r[1] >= r[2]]
+    if not beaten:
+        tight = max(rows, key=lambda r: r[2] / r[1])
+        log(f"bounds: {len(rows)} kernel rows, the tightest {tight[0]} at "
+            f"{tight[2] / tight[1]:.3f} of its bound's rate")
+    if beaten:
+        fail(f"bounds: rows faster than their bound (the work model is "
+             f"wrong): {beaten}")
+    return rows
+
+
 def _kernel_modules():
     from repro_torch.kernels import (decode_attention, event_sweep,
                                      flash_attention, mlstm_scan,
@@ -6528,7 +6705,7 @@ def _reset_counts() -> None:
 PHASES = {1: "device", 2: "build", 3: "parity", 4: "sweep", 5: "mc",
           6: "ckpt", 7: "times", 8: "zoo", 9: "figures", 10: "multilevel",
           11: "advisor", 12: "train", 13: "ft", 14: "serve", 15: "serve15",
-          16: "train16", 17: "mesh"}
+          16: "train16", 17: "mesh", 18: "tooling"}
 NEEDS = {4: {5}, 5: {4}, 7: {2, 4, 5, 6}}
 
 
@@ -6604,7 +6781,7 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
-    report = {}
+    report, draw_ops = {}, None
     if ph.on(2):
         with ph.span(2):
             build_s, draw_ops = phase_build()
@@ -6830,6 +7007,14 @@ def main(argv=None) -> None:
             report["mesh"] = phase_mesh(dev, card)
             torch.cuda.empty_cache()
 
+    # the tooling (phase 18): roofline's section 2, sanitize, the dry run's
+    # estimate against a measured step, bench_sweep --quick; its counts
+    # read around it
+    if ph.on(18):
+        with ph.span(18):
+            report["tooling"] = phase_tooling(dev, card, draw_ops)
+            torch.cuda.empty_cache()
+
     if ph.selected != set(PHASES):
         log(json.dumps({"phase_s": ph.report()}))
         log("kernels: the kernels line needs every phase; not printed")
@@ -6841,6 +7026,7 @@ def main(argv=None) -> None:
         return
     train16_n = report["train16"]["launches"]
     mesh_n = report["mesh"]["launches"]
+    tool_n = report["tooling"]["launches"]
 
     # the explicit kernel: launches, times and bound of the figures path
     # (fig5 and the surrogate's argmin); beside them the caller's schedule
@@ -6855,7 +7041,9 @@ def main(argv=None) -> None:
         "name": "event_sweep", "route": "cuda",
         "source": "src/repro_torch/csrc/event_sweep.cu",
         "replaces": "src/repro/kernels/event_sweep.py:65",
-        "launches": fig_counts["event_sweep"],
+        "launches": fig_counts["event_sweep"] + tool_n["event_sweep"],
+        "launches_by_path": {"figures": fig_counts["event_sweep"],
+                             "tooling": tool_n["event_sweep"]},
         "max_abs_err": max_err, "parity": "bitwise",
         "ms": on_figs("kernel_ms"), "wrapper_ms": on_figs("ms"),
         "plain_ms": on_figs("plain_ms"),
@@ -6883,9 +7071,10 @@ def main(argv=None) -> None:
         "source": "src/repro_torch/csrc/event_sweep.cu",
         "replaces": "src/repro/kernels/event_sweep.py:65",
         "launches": mc_counts["event_sweep_sampled"]
-        + mesh_n["event_sweep_sampled"],
+        + mesh_n["event_sweep_sampled"] + tool_n["event_sweep_sampled"],
         "launches_by_path": {"mc": mc_counts["event_sweep_sampled"],
-                             "mesh": mesh_n["event_sweep_sampled"]},
+                             "mesh": mesh_n["event_sweep_sampled"],
+                             "tooling": tool_n["event_sweep_sampled"]},
         "max_abs_err": max_err, "parity": "bitwise",
         "ms": sum(v["fused_ms"] for v in variants),
         "plain_ms": sum(v["fused_plain_ms"] for v in variants),
@@ -6947,16 +7136,18 @@ def main(argv=None) -> None:
             "launches": zoo_counts[name] + serve_n[name] + (
                 train_ml + ft_ml + mesh_n[name] if name == "mlstm_scan"
                 else 0)
-            + train16_n.get(name, 0),
+            + train16_n.get(name, 0) + tool_n[name],
             "launches_by_path": ({"zoo": zoo_counts[name],
                                   "train": train_ml, "ft": ft_ml,
                                   "serve": serve_n[name],
-                                  "mesh": mesh_n[name]}
+                                  "mesh": mesh_n[name],
+                                  "tooling": tool_n[name]}
                                  if name == "mlstm_scan" else
                                  {"zoo": zoo_counts[name],
                                   "serve": serve_n[name],
                                   "serve_phase15": serve15_n.get(name, 0),
-                                  "train16": train16_n.get(name, 0)}),
+                                  "train16": train16_n.get(name, 0),
+                                  "tooling": tool_n[name]}),
             **({"on_train16": {
                 k: {f: v[f] for f in ("shape", "dtype", "mode", "bwd_ms",
                                       "fwd_ms", "max_abs_err")}
@@ -6979,6 +7170,7 @@ def main(argv=None) -> None:
             "library_ms": None if None in lib else sum(lib),
             "build_s": build_s[f"{name}.cu"],
             "variants": parts})
+    report["tooling"]["bound_rows"] = _hold_bounds(kernels)
     print(json.dumps({"gates": report}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(json.dumps({"phase_s": ph.report()}))

@@ -17,4 +17,9 @@ reference:
 
 ``ref`` holds the oracles and ``ops`` the public wrappers in the models'
 layouts.  Kernels are built at first use (``_build``), never at import.
+Every wrapper also takes ``meta`` tensors, or fake ones under
+``FakeTensorMode``: it returns empty outputs of the right shapes and
+dtypes.  ``cost`` holds each kernel's work and the H100's peaks; under an
+active counter (``cost.counting``) a wrapper call reports itself as one
+unit of that work, whatever device it runs on.
 """

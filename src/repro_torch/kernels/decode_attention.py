@@ -28,7 +28,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, cost
 
 NEG_INF = -1.0e30
 DTYPES = (torch.float32, torch.bfloat16)
@@ -60,9 +60,9 @@ def _check(q1, k, v) -> None:
         raise TypeError(f"q1, k, v must share a dtype among {DTYPES}")
     if not (q1.device == k.device == v.device):
         raise ValueError("q1, k and v must lie on one device")
-    if q1.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"decode_attention runs on cuda or cpu tensors, "
-                         f"not {q1.device}")
+    if q1.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"decode_attention runs on cuda or cpu tensors (or "
+                         f"meta ones, for shapes), not {q1.device}")
 
 
 def decode_attention(q1: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -71,9 +71,14 @@ def decode_attention(q1: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``length``: an int or a 0-d integer tensor)."""
     _check(q1, k, v)
     length = int(length)
-    if q1.device.type == "cpu":
-        return decode_attention_plain(q1, k, v, length)
-    return _kernel(q1, k, v, length)
+    BH, S, Dh = k.shape
+    work = lambda: cost.decode_work(BH, min(max(length, 0), S), Dh, k.dtype)
+    with cost.unit("decode_attention", work, (q1, k, v)):
+        if cost.shape_only(q1):
+            return torch.empty_like(q1)
+        if q1.device.type == "cpu":
+            return decode_attention_plain(q1, k, v, length)
+        return _kernel(q1, k, v, length)
 
 
 def _kernel(q1, k, v, length: int) -> torch.Tensor:

@@ -46,7 +46,7 @@ import torch
 
 from ..core.failures import GapSpec, draw_gaps
 from ..core.philox import CounterKey
-from . import _build
+from . import _build, cost
 
 #: work-completion slack — matches the engine's epsilon term for term.
 _EPS = 1e-12
@@ -124,24 +124,40 @@ def event_sweep(T, C, R, D, omega, T_base, gaps: torch.Tensor, *,
     """
     params = (T, C, R, D, omega, T_base)
     _check(params, gaps, n_steps)
-    if gaps.device.type == "cpu":
-        return event_sweep_plain(T, C, R, D, omega, T_base, gaps,
-                                 n_steps=n_steps, compensated=compensated)
-    if gaps.device.type != "cuda":
-        raise ValueError(f"event_sweep runs on cuda or cpu tensors, "
-                         f"not {gaps.device}")
-    lib = load_library()
+    if gaps.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"event_sweep runs on cuda or cpu tensors (or meta "
+                         f"ones, for shapes), not {gaps.device}")
     B, N, F = gaps.shape
-    dev = gaps.device
-    params = [x.contiguous() for x in params]
-    outs = _outputs(B, N, dev)
-    _build.launch(lib.repro_event_sweep, int(gaps.dtype == torch.float64),
-                  int(bool(compensated)), *[x.data_ptr() for x in params],
-                  gaps.data_ptr(), *gaps.stride(), B, N, F, int(n_steps),
-                  *[o.data_ptr() for o in outs], device=dev,
-                  name="event_sweep")
-    event_sweep.launches += 1
-    return dict(zip(OUTPUT_KEYS, outs))
+    with cost.unit("event_sweep", lambda: _sweep_work(
+            B, N, F, n_steps, compensated, gaps), (*params, gaps)):
+        if cost.shape_only(gaps):
+            return dict(zip(OUTPUT_KEYS, _outputs(B, N, gaps.device)))
+        if gaps.device.type == "cpu":
+            return event_sweep_plain(T, C, R, D, omega, T_base, gaps,
+                                     n_steps=n_steps, compensated=compensated)
+        lib = load_library()
+        dev = gaps.device
+        params = [x.contiguous() for x in params]
+        outs = _outputs(B, N, dev)
+        _build.launch(lib.repro_event_sweep, int(gaps.dtype == torch.float64),
+                      int(bool(compensated)), *[x.data_ptr() for x in params],
+                      gaps.data_ptr(), *gaps.stride(), B, N, F, int(n_steps),
+                      *[o.data_ptr() for o in outs], device=dev,
+                      name="event_sweep")
+        event_sweep.launches += 1
+        return dict(zip(OUTPUT_KEYS, outs))
+
+
+def _sweep_work(B: int, N: int, F: int, n_steps: int, compensated: bool,
+                gaps: torch.Tensor) -> cost.Work:
+    """The explicit kernel's work from shapes alone: every lane reading
+    ``min(F, n_steps)`` gaps, the most it may (what a run reads depends on
+    its failures); a point stride of 0 reads one schedule row."""
+    per = min(F, int(n_steps))
+    rows = 1 if gaps.stride(0) == 0 else B
+    return cost.event_sweep_work(B, B * N, rows * N * per, B * N * per,
+                                 compensated=compensated,
+                                 gap_item=gaps.element_size())
 
 
 event_sweep.launches = 0
@@ -217,13 +233,27 @@ def event_sweep_sampled(T, C, R, D, omega, T_base, *, seed: int,
               spec=spec, capacity=capacity, n_steps=n_steps,
               compensated=compensated)
     dev = points.device
-    if dev.type == "cpu":
-        return event_sweep_sampled_plain(*params, **kw)
-    if dev.type != "cuda":
-        raise ValueError(f"event_sweep_sampled runs on cuda or cpu tensors, "
-                         f"not {dev}")
-    lib = load_library()
+    if dev.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"event_sweep_sampled runs on cuda or cpu tensors "
+                         f"(or meta ones, for shapes), not {dev}")
     B, N = int(points.numel()), int(n_trials)
+    per = min(int(capacity), int(n_steps))
+    work = lambda: cost.event_sweep_sampled_work(B, B * N, B * N * per,
+                                                 compensated=compensated)
+    with cost.unit("event_sweep_sampled", work, (*params, points)):
+        if cost.shape_only(points):
+            return dict(zip(OUTPUT_KEYS, _outputs(B, N, dev)))
+        if dev.type == "cpu":
+            return event_sweep_sampled_plain(*params, **kw)
+        return _sampled_kernel(params, spec, points, seed, trial0, B, N,
+                               capacity, n_steps, compensated)
+
+
+def _sampled_kernel(params, spec, points, seed, trial0, B, N, capacity,
+                    n_steps, compensated) -> dict:
+    """Launch the sampled kernel on the points' CUDA device."""
+    T, dev = params[0], points.device
+    lib = load_library()
     # every buffer stays referenced until the launch is queued
     params = [x.contiguous() for x in params]
     a, b, points = spec.a.contiguous(), spec.b.contiguous(), \
@@ -274,14 +304,25 @@ def event_draws(spec: GapSpec, *, seed: int, points: torch.Tensor,
     CPU ``draw_gaps``.  A check, not a path: the engine never calls it."""
     _check_sampled(spec, points, trial0, n_trials, capacity)
     dev = points.device
-    if dev.type == "cpu":
-        return draw_gaps(spec, _key(seed, points, trial0, n_trials),
-                         int(capacity))
-    if dev.type != "cuda":
-        raise ValueError(f"event_draws runs on cuda or cpu tensors, not "
-                         f"{dev}")
-    lib = load_library()
+    if dev.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"event_draws runs on cuda or cpu tensors (or meta "
+                         f"ones, for shapes), not {dev}")
     B, N, F = int(points.numel()), int(n_trials), int(capacity)
+    work = lambda: cost.event_draws_work(B, B * N, F)
+    with cost.unit("event_draws", work, (points,)):
+        if cost.shape_only(points):
+            return torch.empty((B, F, N), dtype=torch.float64,
+                               device=dev).transpose(1, 2)
+        if dev.type == "cpu":
+            return draw_gaps(spec, _key(seed, points, trial0, n_trials),
+                             int(capacity))
+        return _draws_kernel(spec, points, seed, trial0, B, N, F)
+
+
+def _draws_kernel(spec, points, seed, trial0, B, N, F) -> torch.Tensor:
+    """Launch the draw-only entry on the points' CUDA device."""
+    dev = points.device
+    lib = load_library()
     out = torch.empty((B, F, N), dtype=torch.float64, device=dev)
     a, b, points = spec.a.contiguous(), spec.b.contiguous(), \
         points.contiguous()

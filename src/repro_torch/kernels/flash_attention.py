@@ -44,7 +44,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, cost
 
 NEG_INF = -1.0e30
 MODES = ("causal", "sliding", "chunked", "bidir")
@@ -83,9 +83,9 @@ def _check(q, k, v, mode: str, chunk: int) -> None:
         raise ValueError(f"chunked attention needs chunk > 0, got {chunk}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must lie on one device")
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, not "
-                         f"{q.device}")
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors (or "
+                         f"meta ones, for shapes), not {q.device}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -94,10 +94,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (BH, Sq, Dh), k/v: (BH, Skv, Dh).  Returns (BH, Sq, Dh) in
     ``q``'s dtype."""
     _check(q, k, v, mode, chunk)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, mode=mode, window=window,
-                                     chunk=chunk)
-    return _kernel(q, k, v, mode, window, chunk)
+    work = lambda: cost.flash_work(q.shape[0], q.shape[1], k.shape[1],
+                                   q.shape[2], q.dtype, mode, window, chunk)
+    with cost.unit("flash_attention", work, (q, k, v)):
+        if cost.shape_only(q):
+            return torch.empty_like(q)
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, mode=mode, window=window,
+                                         chunk=chunk)
+        return _kernel(q, k, v, mode, window, chunk)
 
 
 def _kernel(q, k, v, mode: str, window: int, chunk: int) -> torch.Tensor:

@@ -48,7 +48,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, cost
 
 NEG_INF = -1.0e30
 DTYPES = (torch.float32, torch.bfloat16)
@@ -91,9 +91,9 @@ def _check(q, k, v, li, lf, chunk: int) -> int:
         raise TypeError(f"li and lf must share a dtype among {DTYPES}")
     if len({x.device for x in (q, k, v, li, lf)}) != 1:
         raise ValueError("q, k, v, li and lf must lie on one device")
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"mlstm_scan runs on cuda or cpu tensors, not "
-                         f"{q.device}")
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"mlstm_scan runs on cuda or cpu tensors (or meta "
+                         f"ones, for shapes), not {q.device}")
     S = q.shape[1]
     L = min(int(chunk), S)
     if L <= 0 or S % L:
@@ -136,9 +136,13 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                chunk: int = 256) -> torch.Tensor:
     """Returns ``h`` of shape ``(BH, S, Dh)`` in ``q``'s dtype."""
     L = _check(q, k, v, li, lf, chunk)
-    if q.device.type == "cpu":
-        return mlstm_scan_plain(q, k, v, li, lf, chunk=chunk)
-    return _kernel(q, k, v, li, lf, L)
+    work = lambda: cost.mlstm_work(*q.shape, L, q.dtype, li.dtype)
+    with cost.unit("mlstm_scan", work, (q, k, v, li, lf)):
+        if cost.shape_only(q):
+            return torch.empty_like(q)
+        if q.device.type == "cpu":
+            return mlstm_scan_plain(q, k, v, li, lf, chunk=chunk)
+        return _kernel(q, k, v, li, lf, L)
 
 
 #: the scratch tensors of the C entry, in its order.
@@ -282,16 +286,25 @@ class MLSTMScan(torch.autograd.Function):
         fold = lambda t: t.reshape(B * H, *t.shape[2:])
         L = _check(fold(q), fold(k), fold(v), fold(li), fold(lf), chunk)
         nc = S // L
-        if q.device.type == "cpu":
-            h, (C, n, m) = mlstm_scan_plain(fold(q), fold(k), fold(v),
-                                            fold(li), fold(lf), chunk=L,
-                                            states=True)
-        else:
-            h, scratch = launch_passes(fold(q), fold(k), fold(v), fold(li),
-                                       fold(lf), L, ALL_PASSES)
-            mlstm_scan.launches += 1
-            C = scratch["C"].transpose(-1, -2)
-            n, m = scratch["n"], scratch["m"][:, :nc]
+        work = lambda: cost.mlstm_work(B * H, S, Dh, L, q.dtype, li.dtype)
+        with cost.unit("mlstm_scan", work, (q, k, v, li, lf)):
+            if cost.shape_only(q):
+                f32 = dict(dtype=torch.float32, device=q.device)
+                h = torch.empty((B * H, S, Dh), dtype=q.dtype,
+                                device=q.device)
+                C = torch.empty((B * H, nc, Dh, Dh), **f32)
+                n = torch.empty((B * H, nc, Dh), **f32)
+                m = torch.empty((B * H, nc), **f32)
+            elif q.device.type == "cpu":
+                h, (C, n, m) = mlstm_scan_plain(fold(q), fold(k), fold(v),
+                                                fold(li), fold(lf), chunk=L,
+                                                states=True)
+            else:
+                h, scratch = launch_passes(fold(q), fold(k), fold(v),
+                                           fold(li), fold(lf), L, ALL_PASSES)
+                mlstm_scan.launches += 1
+                C = scratch["C"].transpose(-1, -2)
+                n, m = scratch["n"], scratch["m"][:, :nc]
         C, n, m = (C.reshape(B, H, nc, Dh, Dh), n.reshape(B, H, nc, Dh),
                    m.reshape(B, H, nc))
         ctx.save_for_backward(q, k, v, li, lf, C, n, m)

@@ -40,7 +40,7 @@ import threading
 
 import torch
 
-from . import _build
+from . import _build, cost
 
 LANE_GROUP = 128
 
@@ -110,8 +110,9 @@ def _check(x: torch.Tensor, dtype: torch.dtype, name: str) -> None:
                          f"got {tuple(x.shape)}")
     if x.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} on {x.device}: cuda or cpu tensors only")
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{name} on {x.device}: cuda or cpu tensors only "
+                         f"(or meta ones, for shapes)")
 
 
 def _check_kernel_input(x: torch.Tensor, name: str, align: int) -> None:
@@ -126,19 +127,24 @@ def quantize(x: torch.Tensor):
     """``x`` f32 ``(N, D)`` -> (int8 ``(N, D)``, f32 scales ``(N, D/128)``)
     on the device of ``x``."""
     _check(x, torch.float32, "x")
-    if x.device.type == "cpu":
-        return quantize_plain(x)
-    _check_kernel_input(x, "x", 16)
     N, D = x.shape
-    q = torch.empty((N, D), dtype=torch.int8, device=x.device)
-    s = torch.empty((N, D // LANE_GROUP), dtype=torch.float32,
-                    device=x.device)
-    if s.numel():
-        _launch("repro_quantize_leaves",
-                [[x.data_ptr(), q.data_ptr(), s.data_ptr(), x.numel(), D, 0]],
-                s.numel(), x.device, "quantize")
-        _bump(quantize, "launches")
-    return q, s
+    work = lambda: cost.quant_work("quantize", x.numel(),
+                                   x.numel() // LANE_GROUP)
+    with cost.unit("quantize", work, (x,)):
+        if x.device.type == "cpu" and not cost.shape_only(x):
+            return quantize_plain(x)
+        q = torch.empty((N, D), dtype=torch.int8, device=x.device)
+        s = torch.empty((N, D // LANE_GROUP), dtype=torch.float32,
+                        device=x.device)
+        if cost.shape_only(x):
+            return q, s
+        _check_kernel_input(x, "x", 16)
+        if s.numel():
+            _launch("repro_quantize_leaves",
+                    [[x.data_ptr(), q.data_ptr(), s.data_ptr(), x.numel(), D,
+                      0]], s.numel(), x.device, "quantize")
+            _bump(quantize, "launches")
+        return q, s
 
 
 quantize.launches = 0
@@ -147,17 +153,21 @@ quantize.launches = 0
 def dequantize(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """int8 ``q`` ``(N, D)`` and f32 scales ``(N, D/128)`` -> f32 ``(N, D)``."""
     _check_payload(q, s)
-    if q.device.type == "cpu":
-        return dequantize_plain(q, s)
-    _check_kernel_input(q, "q", 16)
-    _check_kernel_input(s, "scales", 4)
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    if s.numel():
-        _launch("repro_dequantize_leaves",
-                [[out.data_ptr(), q.data_ptr(), s.data_ptr(), q.numel(),
-                  q.shape[1], 0]], s.numel(), q.device, "dequantize")
-        _bump(dequantize, "launches")
-    return out
+    work = lambda: cost.quant_work("dequantize", q.numel(), s.numel())
+    with cost.unit("dequantize", work, (q, s)):
+        if cost.shape_only(q):
+            return torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        if q.device.type == "cpu":
+            return dequantize_plain(q, s)
+        _check_kernel_input(q, "q", 16)
+        _check_kernel_input(s, "scales", 4)
+        out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        if s.numel():
+            _launch("repro_dequantize_leaves",
+                    [[out.data_ptr(), q.data_ptr(), s.data_ptr(), q.numel(),
+                      q.shape[1], 0]], s.numel(), q.device, "dequantize")
+            _bump(dequantize, "launches")
+        return out
 
 
 dequantize.launches = 0
@@ -179,16 +189,17 @@ def _one_device(ts: list, name: str) -> torch.device:
     if len(devs) != 1:
         raise ValueError(f"{name} must lie on one device, got {devs}")
     dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} on {dev}: cuda or cpu tensors only")
+    if dev.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{name} on {dev}: cuda or cpu tensors only (or "
+                         f"meta ones, for shapes)")
     return dev
 
 
-def _quantize_table(xs: list, device):
+def _quantize_table(xs: list, device, rows: bool = True):
     """The packed arenas of ``xs`` (flat f32 leaves), the leaf table's rows
-    and each leaf's (payload, scales, pad) views into the arenas.  A leaf's
-    payload starts at 128 bytes times its first group, so 16-byte
-    aligned."""
+    (none when ``rows`` is false: tensors without data) and each leaf's
+    (payload, scales, pad) views into the arenas.  A leaf's payload starts
+    at 128 bytes times its first group, so 16-byte aligned."""
     layout = [pad_of(x.numel()) for x in xs]
     groups = [(x.numel() + pad) // LANE_GROUP for x, (pad, _) in zip(xs,
                                                                      layout)]
@@ -197,7 +208,7 @@ def _quantize_table(xs: list, device):
     s = torch.empty(firsts[-1], dtype=torch.float32, device=device)
     rows = [[x.data_ptr(), q.data_ptr() + LANE_GROUP * f,
              s.data_ptr() + 4 * f, x.numel(), D, f]
-            for x, (_, D), f in zip(xs, layout, firsts)]
+            for x, (_, D), f in zip(xs, layout, firsts)] if rows else []
     views = [(lq.view(-1, D), ls.view(-1, D // LANE_GROUP), pad)
              for lq, ls, (pad, D) in zip(
                  q.split([LANE_GROUP * g for g in groups]), s.split(groups),
@@ -221,15 +232,22 @@ def quantize_leaves(xs: list):
     them, shaped as the reference's ``quantize_array`` gives them:
     ``((n + pad) / D, D)`` and ``((n + pad) / D, D / 128)``."""
     xs, dev = _flat_leaves(xs)
-    if dev.type == "cpu":
-        return quantize_leaves_plain(xs)
-    xs = [_build.aligned(x) for x in xs]   # the kernel bulk-copies 16 B
-    q, s, rows, views = _quantize_table(xs, dev)
-    if s.numel():
-        _launch("repro_quantize_leaves", rows, s.numel(), dev,
-                "quantize_leaves")
-        _bump(quantize_leaves, "launches")
-    return q, s, views
+    n = sum(x.numel() for x in xs)
+    work = lambda: cost.quant_work("quantize", n, sum(
+        (x.numel() + pad_of(x.numel())[0]) // LANE_GROUP for x in xs))
+    with cost.unit("quantize_leaves", work, xs):
+        if xs and cost.shape_only(xs[0]):
+            q, s, _, views = _quantize_table(xs, dev, rows=False)
+            return q, s, views
+        if dev.type == "cpu":
+            return quantize_leaves_plain(xs)
+        xs = [_build.aligned(x) for x in xs]   # the kernel bulk-copies 16 B
+        q, s, rows, views = _quantize_table(xs, dev)
+        if s.numel():
+            _launch("repro_quantize_leaves", rows, s.numel(), dev,
+                    "quantize_leaves")
+            _bump(quantize_leaves, "launches")
+        return q, s, views
 
 
 quantize_leaves.launches = 0
@@ -251,7 +269,7 @@ def quantize_leaves_plain(xs: list):
 
 def _dequantize_table(qs: list, ss: list, shapes, pads):
     """Checked payloads, the f32 outputs in the leaves' shapes and the leaf
-    table's rows."""
+    table's rows (none for tensors without data)."""
     if not len(qs) == len(ss) == len(shapes) == len(pads):
         raise ValueError("qs, ss, shapes and pads must have one entry a "
                          "leaf")
@@ -267,8 +285,9 @@ def _dequantize_table(qs: list, ss: list, shapes, pads):
         if not 0 <= pad < q.shape[1] or out.numel() + pad != q.numel():
             raise ValueError(f"a payload of {tuple(q.shape)} does not hold "
                              f"{tuple(shape)} with pad {pad}")
-        rows.append([out.data_ptr(), q.data_ptr(), s.data_ptr(), out.numel(),
-                     q.shape[1], first])
+        if not cost.shape_only(q):
+            rows.append([out.data_ptr(), q.data_ptr(), s.data_ptr(),
+                         out.numel(), q.shape[1], first])
         outs.append(out)
         first += s.numel()
     return qs, ss, outs, rows, first
@@ -279,14 +298,21 @@ def dequantize_leaves(qs: list, ss: list, shapes, pads) -> list:
     ``(rows, D/128)`` each, as :func:`quantize_leaves` gives them) in one
     launch; returns one f32 tensor a leaf, of its ``shape``, its ``pad``
     trailing elements cut."""
-    qs, ss, outs, rows, n_groups = _dequantize_table(qs, ss, shapes, pads)
-    if rows and qs[0].device.type == "cpu":
-        return _dequantize_rows_plain(qs, ss, outs, rows)
-    if n_groups:
-        _launch("repro_dequantize_leaves", rows, n_groups, qs[0].device,
-                "dequantize_leaves")
-        _bump(dequantize_leaves, "launches")
-    return outs
+    work = lambda: cost.quant_work(
+        "dequantize", sum(torch.Size(sh).numel() for sh in shapes),
+        sum(s.numel() for s in ss))
+    with cost.unit("dequantize_leaves", work, list(qs) + list(ss)):
+        qs, ss, outs, rows, n_groups = _dequantize_table(qs, ss, shapes,
+                                                         pads)
+        if qs and cost.shape_only(qs[0]):
+            return outs
+        if rows and qs[0].device.type == "cpu":
+            return _dequantize_rows_plain(qs, ss, outs, rows)
+        if n_groups:
+            _launch("repro_dequantize_leaves", rows, n_groups, qs[0].device,
+                    "dequantize_leaves")
+            _bump(dequantize_leaves, "launches")
+        return outs
 
 
 dequantize_leaves.launches = 0

@@ -34,7 +34,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, cost
 
 _SOURCE = "rglru_scan.cu"
 DTYPES = (torch.float32, torch.bfloat16)
@@ -69,9 +69,9 @@ def _check(a, b, h0) -> None:
         raise TypeError(f"h0 must be floating point, got {h0.dtype}")
     if not (a.device == b.device == h0.device):
         raise ValueError("a, b and h0 must lie on one device")
-    if a.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"rglru_scan runs on cuda or cpu tensors, not "
-                         f"{a.device}")
+    if a.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"rglru_scan runs on cuda or cpu tensors (or meta "
+                         f"ones, for shapes), not {a.device}")
 
 
 def launch_plan(B: int, S: int, W: int, dtype: torch.dtype) -> dict:
@@ -95,9 +95,13 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
                h0: torch.Tensor) -> torch.Tensor:
     """``h`` of shape ``(B, S, W)`` in ``b``'s dtype."""
     _check(a, b, h0)
-    if a.device.type == "cpu":
-        return rglru_scan_plain(a, b, h0)
-    return _kernel(a, b, h0)
+    work = lambda: cost.rglru_work(*a.shape, b.dtype)
+    with cost.unit("rglru_scan", work, (a, b, h0)):
+        if cost.shape_only(a):
+            return torch.empty(b.shape, dtype=b.dtype, device=b.device)
+        if a.device.type == "cpu":
+            return rglru_scan_plain(a, b, h0)
+        return _kernel(a, b, h0)
 
 
 def _kernel(a, b, h0) -> torch.Tensor:

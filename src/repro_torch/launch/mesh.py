@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 
 from .._device import resolve_device
+from ..kernels.cost import PEAKS
 
 
 def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
@@ -76,9 +77,10 @@ def _mesh(shape, axes, device="cuda"):
                       mesh_dim_names=tuple(axes))
 
 
-#: One NVIDIA H100 SXM5 80 GB, per card.  ``name`` and ``power_limit_w``
-#: are what ``nvidia-smi --query-gpu=name,power.limit`` reads on the card
-#: these numbers stand for; ``hbm_bytes`` is
+#: One NVIDIA H100 SXM5 80 GB, per card, read from
+#: ``kernels/cost.py::PEAKS["SXM"]``.  ``name`` and ``power_limit_w`` are
+#: what ``nvidia-smi --query-gpu=name,power.limit`` reads on the card these
+#: numbers stand for; ``hbm_bytes`` is
 #: ``torch.cuda.get_device_properties(0).total_memory`` there.  The peak
 #: bf16 rate (dense, no sparsity), the HBM3 bandwidth and the NVLink
 #: bandwidth (fourth-generation NVLink, both directions summed) are from
@@ -86,8 +88,8 @@ def _mesh(shape, axes, device="cuda"):
 H100 = {
     "name": "NVIDIA H100 80GB HBM3",
     "power_limit_w": 700.0,
-    "peak_bf16_flops": 989e12,       # FLOP/s
-    "hbm_bandwidth": 3.35e12,        # B/s
-    "nvlink_bandwidth": 900e9,       # B/s per GPU
-    "hbm_bytes": 85_017_493_504,     # B (79.18 GiB)
+    "peak_bf16_flops": PEAKS["SXM"].bf16,           # FLOP/s
+    "hbm_bandwidth": PEAKS["SXM"].hbm_bw,           # B/s
+    "nvlink_bandwidth": PEAKS["SXM"].nvlink_bw,     # B/s per GPU
+    "hbm_bytes": PEAKS["SXM"].hbm_bytes,            # B (79.18 GiB)
 }

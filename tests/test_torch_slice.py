@@ -131,7 +131,10 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
             "repro_torch.parallel, repro_torch.parallel.sharding, "
             "repro_torch.launch, repro_torch.launch.mesh, "
             "repro_torch.ft.elastic, repro_torch.models.spec, "
-            "repro_torch.sim.dispatch\n"
+            "repro_torch.sim.dispatch, repro_torch.kernels.cost, "
+            "repro_torch.launch.cost, repro_torch.launch.dryrun, "
+            "repro_torch.sanitize, repro_torch.benchmarks.roofline, "
+            "repro_torch.benchmarks.bench_sweep\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "bad += sorted(m for m in sys.modules if m.startswith("
@@ -214,6 +217,24 @@ def test_serving_entry_points_need_a_gpu_by_default():
                  "internvl2-1b"):
         with pytest.raises(RuntimeError, match="cuda"):
             serve.main(["--arch", arch, "--batch", "1", "--prompt-len", "8"])
+
+
+@pytest.mark.parametrize("module", [
+    "launch.dryrun", "sanitize", "benchmarks.roofline",
+    "benchmarks.bench_sweep"])
+def test_tool_entry_points_need_a_gpu_by_default(module):
+    """The tools' command lines default to ``cuda`` and raise without a
+    GPU before any work; none falls back to the CPU."""
+    import importlib
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    mod = importlib.import_module(f"repro_torch.{module}")
+    args = {"launch.dryrun": ["--arch", "whisper-tiny", "--shape",
+                              "decode_32k"],
+            "benchmarks.bench_sweep": ["--quick"]}.get(module, [])
+    with pytest.raises(RuntimeError, match="cuda"):
+        mod.main(args)
 
 
 @pytest.mark.parametrize("wrapper", ["flash_attention", "decode_attention"])
