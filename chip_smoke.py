@@ -102,7 +102,8 @@ Phases (any failure exits non-zero; no result line is printed then):
    "ok"; the policy's (T, m) solved on the card within 1e-8 of the CPU's
    on the same observations.  Prints the save and restore splits and
    their peak device memory.
-7. times: CUDA-event medians of 5 samples of each kernel and of its
+7. times: CUDA-event medians of 5 samples (3 for a call of 100 ms or
+   more: the plain versions and the two-step path) of each kernel and of its
    plain version (a sample: calls back to back over 20 ms or more, see
    ``_events_ms``) at the main-path shapes (compared again): per MC call
    the sampled kernel and its bound (operations), the explicit kernel on
@@ -251,7 +252,7 @@ Phases (any failure exits non-zero; no result line is printed then):
    and ``run`` (``execute``'s two halves, the train-step calls counted) of
    ``FT_RUN``: xLSTM-125M at full width, B 8, S 256, measured time,
    ``algo_e_ml`` with a buddy level, q = 1, the compressed store, mu
-   25 s, seed 18, 10 steps.  Gates: all steps done; at least one failure,
+   25 s, seed 18, 6 steps.  Gates: all steps done; at least one failure,
    every rollback a deep restore; losses finite; ``mlstm_scan`` launched
    12 times for each train step run (replays and interrupted steps
    included), no plain version; one quantize launch for each deep
@@ -408,6 +409,26 @@ Phases (any failure exits non-zero; no result line is printed then):
    run of every phase also holds each kernel's work model where it binds:
    no row of the kernels line (phases 7-9's timed shapes, each part) runs
    faster than its bound (``_hold_bounds``).
+19. the train step sharded (run last), every line with the card's name
+   and power limit, each run's counts set to 0 just before it and read
+   just after.  A world-1 NCCL group on a ``HashStore`` and
+   ``make_test_mesh(1)`` on ``cuda``; (a) starcoder2-3b at full width
+   (d 3072, 24 heads of 128 over 2, d_ff 12288, window 4096, vocab
+   49,152) cut to 2 of 30 layers, B 4 x S 4096; (b) recurrentgemma-9b at
+   full width cut to one super-block with its vocab cut to 4096, B 1 x S
+   4096; bf16 compute, ``remat="full"``, AdamW (lr 1e-3, warm-up 1), 2
+   steps (``SHARD``).  Each runs twice from the same seeded params and
+   batch, one run freed before the next: on DTensors placed by
+   ``sharding.place_tree`` under ``use_mesh`` (flash and the RG-LRU on
+   each rank's local shard, ``sharding.on_local_shards``), then on plain
+   tensors.  Gates: every loss within 2e-2 (relative) and every parameter
+   leaf within 5e-2 (max-abs) of the plain run's (the reference test's
+   bounds; every leaf's difference and whether the runs were bitwise are
+   printed), losses and grad norms finite, every leaf of the DTensor run
+   a DTensor, flash launched twice an attention layer a step and the
+   RG-LRU scan three times an RG-LRU layer a step in each run, no other
+   kernel and no plain version.  Each run prints its step seconds and
+   peak memory.  The group is destroyed at the end.
 
 Near the end it prints one JSON line ``{"gates": {...}}`` with every
 gate's numbers, then one ``{"kernels": [...]}`` line, then the card's name
@@ -1690,6 +1711,11 @@ def report_ckpt(run: dict) -> dict:
 
 #: the least span of one timing sample, ms.
 SAMPLE_MS = 20.0
+#: a call that alone spans ``SLOW_MS`` or more (the plain versions, the
+#: two-step path: 0.3-1.2 s a call at the MC shapes) is sampled
+#: ``SLOW_REPS`` times, not five: the timing of such yardsticks took most
+#: of phase 7's 106 s.
+SLOW_MS, SLOW_REPS = 100.0, 3
 
 
 def _events_ms(fn, reps: int = 5) -> float:
@@ -1697,7 +1723,8 @@ def _events_ms(fn, reps: int = 5) -> float:
     events.  A sample times ``n`` calls back to back and divides by ``n``,
     with ``n`` sized by a warm call so that a sample spans ``SAMPLE_MS`` or
     more: the host's cost of each call then overlaps the device's work
-    instead of opening an idle gap inside the timed span."""
+    instead of opening an idle gap inside the timed span.  A call of
+    ``SLOW_MS`` or more takes ``SLOW_REPS`` samples."""
     import torch
 
     def sample(n: int) -> float:
@@ -1709,7 +1736,10 @@ def _events_ms(fn, reps: int = 5) -> float:
         b.record()
         b.synchronize()
         return a.elapsed_time(b) / n
-    n = max(1, math.ceil(SAMPLE_MS / sample(1)))
+    first = sample(1)
+    n = max(1, math.ceil(SAMPLE_MS / first))
+    if first >= SLOW_MS:
+        reps = min(reps, SLOW_REPS)
     return statistics.median(sample(n) for _ in range(reps))
 
 
@@ -4352,13 +4382,17 @@ def phase_train(dev, card: str, peaks=None, cfg=None, B=None, S=None,
 #: C and R on the host clock feed the policy), the joint energy solver
 #: with a buddy level, q = 1 (every failure drops the buddy and restores
 #: deep), the compressed store.  mu 25 s at seed 18: numpy's exponential
-#: stream draws 15.94, 13.74 and 14.61 s, so the first two failures land
-#: near steps 5 and 8 of 10 on the run's clock.  The priors C, R, D (s)
-#: stand until the first measurements replace them.
+#: stream draws 15.94, 13.74 and 14.61 s, so the first failure lands near
+#: step 4 on the run's clock (3.5-6 s a step), after the first deep
+#: checkpoint.  6 steps, cut from 10 to make room for phase 19: at 10 the
+#: failures every ~14 s made the run replay to 16-17 steps (112.6 s on
+#: the host clock; a cut to 6 of the 12 layers shortened a step by a
+#: quarter but not the run).  The priors C, R, D (s) stand until the first measurements
+#: replace them.
 FT_RUN = dict(arch="xlstm-125m", reduce=False, batch=8, seq=256,
               step_s=None, strategy="algo_e_ml", use_buddy=True, q=1.0,
               compress=True, profile="paper_ml", mu_s=25.0, seed=18,
-              total_steps=10, C_s=3.0, R_s=2.5, D_s=1.0, C1_s=1.0,
+              total_steps=6, C_s=3.0, R_s=2.5, D_s=1.0, C1_s=1.0,
               R1_s=1.0)
 #: part (a) rehearsed on the CPU: the same spec at the smoke's widths,
 #: whose steps take ~20 ms there, so more of them at a shorter mu.
@@ -6625,6 +6659,185 @@ def phase_tooling(dev, card: str, draw_ops=None) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# 19. the train step sharded on a world-1 NCCL mesh
+# ---------------------------------------------------------------------------
+
+#: phase 19's runs at full width: starcoder2-3b (d 3072, 24 heads of 128
+#: over 2, d_ff 12288, window 4096, vocab 49,152) cut to 2 of 30 layers,
+#: B 4 x S 4096; recurrentgemma-9b cut to one super-block (rglru, rglru,
+#: sliding) with its vocab cut to 4096 (phase 14 (c)'s cut), B 1 x S 4096;
+#: bf16 compute, ``remat="full"``, AdamW (``TRAIN_OPT``), ``SHARD_STEPS``
+#: steps.  The CPU rehearsal takes the same archs at phase 16 (d)'s reduced
+#: widths (d 128, 2 heads of 64) and ``SHARD_SMALL``'s batch.
+SHARD = {"starcoder2-3b": dict(cut=dict(n_layers=2), B=4, S=4096),
+         "recurrentgemma-9b": dict(cut=dict(n_layers=3, vocab_size=4096),
+                                   B=1, S=4096)}
+SHARD_STEPS = 2
+SHARD_SMALL = dict(B=2, S=64)
+#: the reference test's bounds (``tests/test_sharded_execution.py``): the
+#: loss relative, every parameter leaf max-abs.
+SHARD_LOSS_RTOL, SHARD_LEAF_ATOL = 2e-2, 5e-2
+
+
+def _shard_cfg(name: str, rehearse: bool):
+    cut = SHARD[name]["cut"]
+    if rehearse:
+        return _train16_reduced(name, "bfloat16", **cut)
+    return _train16_cfg(name, **cut)
+
+
+def _shard_run(name: str, dev, mesh, rehearse: bool) -> dict:
+    """``SHARD_STEPS`` train steps from the seeded params and batch: on
+    DTensors placed on ``mesh`` under ``use_mesh`` (``mesh`` given), or on
+    plain tensors.  The final params come back on the host; everything
+    else is freed before returning."""
+    import contextlib
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.ckpt.tree import tree_leaves
+    from repro_torch.data import synthetic
+    from repro_torch.models import build
+    from repro_torch.models.spec import ParamSpec
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    cfg = _shard_cfg(name, rehearse)
+    B, S = ((SHARD_SMALL["B"], SHARD_SMALL["S"]) if rehearse
+            else (SHARD[name]["B"], SHARD[name]["S"]))
+    model = build(cfg)
+    on_card = dev.type == "cuda"
+    _free(dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(
+        TRAIN["seed"]), device=dev)
+    batch = synthetic.for_arch(cfg, batch=B, seq_len=S, seed=TRAIN["seed"],
+                               device=dev).peek(0)
+    ocfg = adamw.AdamWConfig(**TRAIN_OPT)
+    step = model.make_train_step(ocfg)
+    out = {"sharded": mesh is not None, "losses": [], "grad_norms": [],
+           "step_s": []}
+    with (shd.use_mesh(mesh) if mesh is not None
+          else contextlib.nullcontext()):
+        if mesh is not None:
+            params = shd.place_tree(params, model.param_spec(), mesh)
+            batch = shd.place_tree(batch, {
+                k: ParamSpec(tuple(v.shape), ("batch", "seq"), "int32")
+                for k, v in batch.items()}, mesh)
+        opt = adamw.init_state(params, ocfg, device=dev)
+        _dev_sync(dev)
+        out["setup_s"] = time.perf_counter() - t0
+        _reset_counts()
+        for _ in range(SHARD_STEPS):
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, batch)
+            out["losses"].append(float(met["loss"]))
+            out["grad_norms"].append(float(met["grad_norm"]))
+            _dev_sync(dev)
+            out["step_s"].append(time.perf_counter() - t0)
+        out["launches"] = _counts()
+        leaves = tree_leaves(params)
+        out["dtensors"] = sum(isinstance(x, DTensor) for x in leaves)
+        out["params"] = [(x.full_tensor() if mesh is not None else x)
+                         .detach().to("cpu") for x in leaves]
+    out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                       if on_card else float("nan"))
+    out["cfg"] = {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                  "n_heads": cfg.n_heads, "vocab": cfg.vocab_size, "B": B,
+                  "S": S}
+    out["want_per_step"] = _train16_want(cfg, dev)
+    del params, opt, batch, step, model, met, leaves
+    _free(dev)
+    return out
+
+
+def _shard_part(name: str, dev, mesh, tlog, rehearse: bool) -> dict:
+    """One arch: the DTensor run, then the plain run, held together."""
+    import torch
+    runs = {"dtensor": _shard_run(name, dev, mesh, rehearse),
+            "plain": _shard_run(name, dev, None, rehearse)}
+    d, p = runs["dtensor"], runs["plain"]
+    leaf_diff = [float((a.float() - b.float()).abs().max())
+                 for a, b in zip(d.pop("params"), p.pop("params"))]
+    bitwise = all(x == 0.0 for x in leaf_diff) and d["losses"] == p["losses"]
+    loss_rel = [abs(a / b - 1.0) for a, b in zip(d["losses"], p["losses"])]
+    out = {"runs": runs, "leaf_max_abs": leaf_diff, "loss_rel": loss_rel,
+           "bitwise": bitwise}
+    for key, r in runs.items():
+        tlog(f"shard {name} {key}: {r['cfg']}, {SHARD_STEPS} steps, losses "
+             f"{r['losses']}, grad norms {r['grad_norms']}, step s "
+             f"{r['step_s']}, setup {r['setup_s']:.2f} s, peak "
+             f"{r['peak_gib']:.2f} GiB, DTensor leaves {r['dtensors']}; "
+             f"launches flash {r['launches']['flash_attention']}, rglru "
+             f"{r['launches']['rglru_scan']} (want "
+             f"{r['want_per_step']} a step), plain calls "
+             f"{r['launches']['plain']}")
+    tlog(f"shard {name}: DTensor vs plain: bitwise {bitwise}; loss rel "
+         f"{loss_rel}; every leaf's max |diff| {leaf_diff}")
+    if not leaf_diff:
+        fail(f"shard {name}: no parameter leaves compared")
+    if max(loss_rel) > SHARD_LOSS_RTOL or not max(leaf_diff) \
+            < SHARD_LEAF_ATOL:
+        fail(f"shard {name}: the DTensor step left the plain one: loss rel "
+             f"{loss_rel}, leaf max-abs {max(leaf_diff)}")
+    if not all(math.isfinite(x) for r in runs.values()
+               for x in r["losses"] + r["grad_norms"]):
+        fail(f"shard {name}: a loss or grad norm is not finite")
+    if d["dtensors"] != len(leaf_diff) or p["dtensors"]:
+        fail(f"shard {name}: the DTensor run kept {d['dtensors']} of "
+             f"{len(leaf_diff)} leaves as DTensors, the plain run "
+             f"{p['dtensors']}")
+    for key, r in runs.items():
+        c, want = r["launches"], r["want_per_step"]
+        others = {k: v for k, v in c.items() if v and k not in (
+            "flash_attention", "rglru_scan") and (k != "plain"
+                                                  or dev.type == "cuda")}
+        if (c["flash_attention"] != want["flash_attention"] * SHARD_STEPS
+                or c["rglru_scan"] != want["rglru_scan"] * SHARD_STEPS
+                or others):
+            fail(f"shard {name} {key}: launches {c}, want {want} a step "
+                 f"and nothing else")
+    return out
+
+
+def phase_shard(dev, card: str, rehearse: bool = False) -> dict:
+    """Phase 19: the train step on DTensors on a world-1 mesh against the
+    same step on plain tensors (see the module docstring), every line with
+    the card's name and power limit; ``rehearse`` runs it on the CPU at
+    reduced widths on a gloo group.  The group is made on a ``HashStore``
+    and destroyed at the end."""
+    import torch.distributed as dist
+    from repro_torch.launch import make_test_mesh
+    tlog = lambda msg: log(f"{msg} [{card}]")
+    report, t_phase = {"parts": {}}, time.perf_counter()
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_test_mesh(1, device=dev.type)
+        report["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        for name in SHARD:
+            t0 = time.perf_counter()
+            report["parts"][name] = _shard_part(name, dev, mesh, tlog,
+                                                rehearse)
+            report["parts"][name]["part_s"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    report["launches"] = {
+        k: sum(r["launches"][k] for part in report["parts"].values()
+               for r in part["runs"].values())
+        for k in ("flash_attention", "rglru_scan")}
+    report["phase_s"] = time.perf_counter() - t_phase
+    tlog(f"shard phase {report['phase_s']:.1f} s on a {backend} mesh "
+         f"{report['mesh']} (" + ", ".join(
+             f"{k} {v['part_s']:.1f}" for k, v in report["parts"].items())
+         + f"); bitwise " + ", ".join(
+             f"{k} {v['bitwise']}" for k, v in report["parts"].items())
+         + f"; launches {report['launches']}")
+    return report
+
+
 def _hold_bounds(kernels: list) -> list:
     """Each timed row of the kernels line (a kernel's total and each part
     with its own time and bound) as (name, ms, bound ms); fails if a row
@@ -6705,7 +6918,7 @@ def _reset_counts() -> None:
 PHASES = {1: "device", 2: "build", 3: "parity", 4: "sweep", 5: "mc",
           6: "ckpt", 7: "times", 8: "zoo", 9: "figures", 10: "multilevel",
           11: "advisor", 12: "train", 13: "ft", 14: "serve", 15: "serve15",
-          16: "train16", 17: "mesh", 18: "tooling"}
+          16: "train16", 17: "mesh", 18: "tooling", 19: "shard"}
 NEEDS = {4: {5}, 5: {4}, 7: {2, 4, 5, 6}}
 
 
@@ -7015,6 +7228,13 @@ def main(argv=None) -> None:
             report["tooling"] = phase_tooling(dev, card, draw_ops)
             torch.cuda.empty_cache()
 
+    # the train step sharded (phase 19): DTensors on a world-1 NCCL mesh
+    # against the plain step, each run's counts read around it
+    if ph.on(19):
+        with ph.span(19):
+            report["shard"] = phase_shard(dev, card)
+            torch.cuda.empty_cache()
+
     if ph.selected != set(PHASES):
         log(json.dumps({"phase_s": ph.report()}))
         log("kernels: the kernels line needs every phase; not printed")
@@ -7025,6 +7245,7 @@ def main(argv=None) -> None:
             "count": torch.cuda.device_count()}}), flush=True)
         return
     train16_n = report["train16"]["launches"]
+    shard_n = report["shard"]["launches"]
     mesh_n = report["mesh"]["launches"]
     tool_n = report["tooling"]["launches"]
 
@@ -7136,7 +7357,7 @@ def main(argv=None) -> None:
             "launches": zoo_counts[name] + serve_n[name] + (
                 train_ml + ft_ml + mesh_n[name] if name == "mlstm_scan"
                 else 0)
-            + train16_n.get(name, 0) + tool_n[name],
+            + train16_n.get(name, 0) + shard_n.get(name, 0) + tool_n[name],
             "launches_by_path": ({"zoo": zoo_counts[name],
                                   "train": train_ml, "ft": ft_ml,
                                   "serve": serve_n[name],
@@ -7147,6 +7368,7 @@ def main(argv=None) -> None:
                                   "serve": serve_n[name],
                                   "serve_phase15": serve15_n.get(name, 0),
                                   "train16": train16_n.get(name, 0),
+                                  "shard": shard_n.get(name, 0),
                                   "tooling": tool_n[name]}),
             **({"on_train16": {
                 k: {f: v[f] for f in ("shape", "dtype", "mode", "bwd_ms",

@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import dataclasses
 
-from ..ckpt.tree import tree_flatten, tree_unflatten
 from ..launch.mesh import _mesh
 from ..parallel import sharding as shd
 
@@ -62,17 +61,5 @@ def build_mesh(plan: ElasticPlan, device="cuda"):
 def reshard_tree(tree, spec_tree, new_mesh, rules=None):
     """``distribute_tensor`` every leaf of ``tree`` under the new mesh's
     shardings of its ParamSpec in ``spec_tree`` (same structure); returns
-    the tree of DTensors."""
-    from torch.distributed.tensor import distribute_tensor
-    specs, _ = tree_flatten(spec_tree)
-    leaves, treedef = tree_flatten(tree)
-    if len(specs) != len(leaves):
-        raise ValueError(f"{len(leaves)} leaves against {len(specs)} specs")
-    out = []
-    for s, x in zip(specs, leaves):
-        if tuple(x.shape) != tuple(s.shape):
-            raise ValueError(f"leaf of shape {tuple(x.shape)} against its "
-                             f"spec's {tuple(s.shape)}")
-        sh = shd.named_sharding(s.logical, new_mesh, rules, s.shape)
-        out.append(distribute_tensor(x, new_mesh, sh.placements))
-    return tree_unflatten(treedef, out)
+    the tree of DTensors (``parallel/sharding.py::place_tree``)."""
+    return shd.place_tree(tree, spec_tree, new_mesh, rules)

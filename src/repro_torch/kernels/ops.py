@@ -13,7 +13,11 @@ device of its input: the kernel on CUDA, its plain version on the CPU.
   ``autograd.Function`` (``flash_attention.FlashAttention``,
   ``rglru_scan.RGLRUScan``), so they have a gradient on either device;
   :func:`mlstm_scan_trainable` is the mLSTM with a gradient
-  (``mlstm_scan.MLSTMScan``), the models' path.
+  (``mlstm_scan.MLSTMScan``), the models' path.  :func:`flash_attention`
+  and :func:`rglru_scan` also take DTensors (a sharded train step): they
+  run the same code on each rank's local shard
+  (``parallel/sharding.py::on_local_shards``), batch and heads (or the
+  LRU width) split, and raise for a split sequence or head vector.
   The TPU tiling arguments of the
   reference (``qb``, ``kb``, ``bb``, ``sb``, ``wb``) have no counterpart.
 * :func:`quantize_array` and :func:`dequantize_array` take arrays of any
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.sharding import on_local_shards
 from . import decode_attention as _da
 from . import flash_attention as _fa
 from . import mlstm_scan as _ml
@@ -41,19 +46,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     mode: str = "causal", window: int = 0,
                     chunk: int = 0) -> torch.Tensor:
     """Attention in the model layout: q (B, S, H, Dh), k/v (B, Skv, H, Dh);
-    returns (B, S, H, Dh), with a gradient (``FlashAttention``)."""
-    B, S, H, Dh = q.shape
-    fold = lambda t: t.transpose(1, 2).reshape(B * H, t.shape[1], Dh)
-    out = _fa.FlashAttention.apply(fold(q), fold(k), fold(v), mode, window,
-                                   chunk)
-    return out.reshape(B, H, S, Dh).transpose(1, 2)
+    returns (B, S, H, Dh), with a gradient (``FlashAttention``).  On
+    DTensors the kernel runs on each rank's (B / data, S, H / model, Dh)
+    shard."""
+    def local(q, k, v):
+        B, S, H, Dh = q.shape
+        fold = lambda t: t.transpose(1, 2).reshape(B * H, t.shape[1], Dh)
+        out = _fa.FlashAttention.apply(fold(q), fold(k), fold(v), mode,
+                                       window, chunk)
+        return out.reshape(B, H, S, Dh).transpose(1, 2)
+    axes = ("batch", "seq", "heads", "head_dim")
+    return on_local_shards(local, (q, k, v), (axes,) * 3, "flash_attention")
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor,
                h0: torch.Tensor) -> torch.Tensor:
     """The RG-LRU scan ``h_t = a_t h_{t-1} + b_t`` in the model layout
-    ``(B, S, W)`` from ``h0`` ``(B, W)``, with a gradient (``RGLRUScan``)."""
-    return _rg.RGLRUScan.apply(a, b, h0)
+    ``(B, S, W)`` from ``h0`` ``(B, W)``, with a gradient (``RGLRUScan``).
+    On DTensors the kernel runs on each rank's (B / data, S, W / model)
+    shard."""
+    axes = ("batch", "seq", "lru")
+    return on_local_shards(_rg.RGLRUScan.apply, (a, b, h0),
+                           (axes, axes, ("batch", "lru")), "rglru_scan")
 
 
 def decode_attention(q1: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

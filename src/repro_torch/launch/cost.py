@@ -31,9 +31,12 @@ work (``kernels/cost.py``):
 ``CostVec`` adds and scales as the reference's does; it also keeps
 ``ops`` (the kernels' typed operations, ``kernels/cost.py``), ``kernels``
 (calls by wrapper) and ``modelled`` (which collectives were modelled
-rather than seen).  The port's models do not run on DTensors yet, so a
-step's tensor-parallel activation collectives are not seen: they wait for
-sharded execution (ROADMAP A12).
+rather than seen).  The port's models run on DTensors (a step whose
+parameters and batch are placed on a mesh, ``sharding.place_tree``), and
+:func:`analyze` sees the collectives such a step dispatches; the dry run
+(``launch/dryrun.py``) still traces a data-parallel rank on plain meta
+tensors, so its cells' tensor-parallel activation collectives are not
+seen: tracing the tensor-parallel step is later work (ROADMAP A12b).
 """
 from __future__ import annotations
 

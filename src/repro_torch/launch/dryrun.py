@@ -14,19 +14,20 @@ memory and cost analyses.  The port compiles nothing, so:
   (``models.spec.abstract_tree``: meta DTensors with the mesh's
   placements), and ``memory.argument_bytes`` is the exact sum of one
   rank's local shard bytes of them;
-* the step is traced once on ``meta`` tensors (every kernel wrapper has a
-  shape-only path, ``kernels/cost.py``) for one rank: the port's models do
-  not run tensor-parallel yet (ROADMAP A12), so a rank runs the whole
-  model at the global widths on its data shard (the batch cut by the
-  ``pod`` and ``data`` axes).  ``memory.temp_bytes`` is the high-water
+* the step is traced once on plain ``meta`` tensors (every kernel wrapper
+  has a shape-only path, ``kernels/cost.py``) for one rank: the models run
+  tensor-parallel on DTensors (ROADMAP A12), but this trace is of a
+  data-parallel rank, which runs the whole model at the global widths on
+  its data shard (the batch cut by the ``pod`` and ``data`` axes); tracing
+  the tensor-parallel step on the ``fake`` group is later work (A12b).  ``memory.temp_bytes`` is the high-water
   mark of the live storages the trace makes beyond what the step returns
   (``output_bytes``), and ``walked`` is ``launch/cost.py``'s count of the
   same trace, the train step's gradient reduction modelled from each
   leaf's sharding (``cost.grad_reduction``).  The record's
   ``memory.method`` says so.  For a mesh of more than one rank that is an
   upper bound of a tensor-parallel step's temporaries;
-* ``memory.peak_bytes_est`` and ``fits_hbm`` are of that same rank, the
-  one the port runs until A12: its whole arguments
+* ``memory.peak_bytes_est`` and ``fits_hbm`` are of that same
+  data-parallel rank: its whole arguments
   (``memory.rank_argument_bytes``: every parameter and optimizer leaf
   whole, the inputs or cache at its batch) plus the trace's outputs and
   temporaries.  ``argument_bytes`` stays the sharded layout's, the
@@ -69,9 +70,9 @@ MEMORY_METHOD = (
     "AdamW state, the inputs or cache at its batch); temp_bytes: "
     "high-water mark of live storages in a meta trace of that rank's step "
     "(global widths, the batch cut by the data axes) beyond its outputs; "
-    "peak_bytes_est: rank_argument_bytes + output_bytes + temp_bytes, the "
-    "data-parallel rank the port runs (no tensor-parallel step before "
-    "A12); alias_bytes: 0 (the port donates no buffer)")
+    "peak_bytes_est: rank_argument_bytes + output_bytes + temp_bytes, of "
+    "a data-parallel rank (the tensor-parallel step is not traced); "
+    "alias_bytes: 0 (the port donates no buffer)")
 
 
 def results_dir() -> Path:

@@ -7,6 +7,15 @@ trees of tensors (dicts and tuples, leaves in the reference's order);
 gradients come from ``torch.autograd``.  ``prefill`` (in waves) and
 ``decode_step`` serve all ten archs; ``input_specs`` gives the stand-ins
 of a workload shape's inputs (with their shardings on a device mesh).
+
+The train step also runs sharded: with parameters, optimizer state and a
+batch that are DTensors (``parallel/sharding.py::place_tree``) under an
+active mesh, each microbatch takes each rank's own rows, the gradients
+come back in their parameters' placements (the data-parallel sums reduced
+there) and the loss is a replicated scalar.  Those microbatches hold other
+rows than the unsharded split's, which gives the same step only while
+every microbatch of either split has as many unmasked labels; a sharded
+step with ``microbatches > 1`` raises otherwise.
 """
 from __future__ import annotations
 
@@ -18,6 +27,7 @@ import torch
 from ..ckpt.tree import tree_flatten, tree_unflatten
 from ..configs.base import ArchConfig, ShapeConfig
 from ..optim import adamw
+from ..parallel import sharding as shd
 from . import transformer as tfm
 from .spec import (ParamSpec, abstract_tree, init_tree, is_spec,
                    shardings_tree, torch_dtype, tree_size)
@@ -103,23 +113,16 @@ class Model:
         k = microbatches
         adt = torch_dtype(accum_dtype)
 
-        def value_and_grad(params, batch):
-            leaves, td = tree_flatten(params)
-            leaves = [x.detach().requires_grad_() for x in leaves]
-            with torch.enable_grad():
-                loss = tfm.loss_fn(cfg, tree_unflatten(td, leaves), batch)
-                grads = torch.autograd.grad(loss, leaves)
-            return loss.detach(), grads, td
-
         def train_step(params, opt_state, batch):
             if k == 1:
-                loss, grads, td = value_and_grad(params, batch)
+                loss, grads, td = value_and_grad(cfg, params, batch)
             else:
-                mbs = [{key: x.chunk(k, dim=0)[i] for key, x in
+                _check_split(batch["labels"], k)
+                mbs = [{key: _microbatch(x, k, i) for key, x in
                         batch.items()} for i in range(k)]
                 acc, losses = None, []
                 for mb in mbs:
-                    l, g, td = value_and_grad(params, mb)
+                    l, g, td = value_and_grad(cfg, params, mb)
                     g = [gi.to(adt) for gi in g]
                     acc = g if acc is None else [a + gi for a, gi in
                                                  zip(acc, g)]
@@ -133,6 +136,66 @@ class Model:
             return new_params, new_state, dict(metrics, loss=loss)
 
         return train_step
+
+
+def value_and_grad(cfg: ArchConfig, params, batch):
+    """``(loss, grads, treedef)`` of the mean next-token loss: the grads a
+    flat list in the parameters' leaf order, each in its parameter's
+    placements when the parameters are DTensors (where a parameter is
+    replicated, its gradient's partial sums are reduced there), and the
+    loss a replicated scalar then."""
+    leaves, td = tree_flatten(params)
+    leaves = [x.detach().requires_grad_() for x in leaves]
+    with torch.enable_grad():
+        loss = tfm.loss_fn(cfg, tree_unflatten(td, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+    grads = [shd.like_placements(g, p) for g, p in zip(grads, leaves)]
+    return shd.replicate(loss.detach()), grads, td
+
+
+def _microbatch(x, k: int, i: int):
+    """Rows ``i`` of ``k`` equal parts of a batch leaf.  Of a DTensor, each
+    rank's part ``i`` of its own rows (no rows cross ranks): the
+    microbatches then differ from the unsharded split's, and their mean
+    loss and summed gradients are the same sums in another order when
+    every microbatch has as many unmasked labels (:func:`_check_split`)."""
+    from torch.distributed.tensor import DTensor
+    part = shd.local(x).chunk(k, dim=0)[i]
+    if not isinstance(x, DTensor):
+        return part
+    return DTensor.from_local(part, x.device_mesh, x.placements,
+                              run_check=False)
+
+
+def _check_split(labels, k: int) -> None:
+    """Raise unless :func:`_microbatch`'s split of a batch-sharded
+    ``labels`` gives the unsharded split's step: the loss is a mean of the
+    ``k`` microbatches' masked means, so the two agree only when every
+    microbatch of both splits holds as many labels >= 0 (or when the
+    batch is not split, and the splits are one).  Reads the labels' row
+    counts on the host."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(labels, DTensor):
+        return
+    mesh = labels.device_mesh
+    shards = 1
+    for dim, p in enumerate(labels.placements):
+        if p.is_shard(0):
+            shards *= mesh.size(dim)
+    B = labels.shape[0]
+    if B % (shards * k):
+        raise ValueError(f"a batch of {B} rows on {shards} shards does not "
+                         f"split into {k} microbatches a shard")
+    if shards == 1:
+        return
+    rows = (labels >= 0).sum(-1).full_tensor()          # (B,) every rank
+    counts = torch.cat([rows.reshape(shards, k, -1).sum((0, 2)),
+                        rows.reshape(k, -1).sum(1)]).tolist()
+    if len(set(counts)) > 1:
+        raise ValueError(
+            f"unmasked labels per microbatch {counts[:k]} (sharded split) "
+            f"and {counts[k:]} (unsharded split) differ: the sharded step "
+            f"would weigh the rows otherwise than the unsharded one")
 
 
 def build(cfg: ArchConfig) -> Model:

@@ -21,12 +21,18 @@ reads it.
 * :func:`cross_attention` (whisper's decoder over the encoder output) is
   flash in the ``bidir`` mode with Sq != Skv; its decode
   (:func:`cross_decode_attention`) reads all of the cross cache.
+
+The reference's sharding constraints stand at its points
+(``parallel/sharding.py::constrain``): the expanded K/V, q and the output
+projection.  On DTensors the heads stay split over ``model`` through
+``expand_kv`` and into the kernel, which runs on each rank's shard.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels import ops as kops
+from ..parallel.sharding import constrain, replicated
 from .layers import rope
 from .spec import ParamSpec
 
@@ -72,7 +78,8 @@ def expand_kv(cfg, kv: torch.Tensor) -> torch.Tensor:
     heads = heads.contiguous().view(B, Hkv * G, S, Dh)
     if pad:
         heads = torch.cat([heads, heads[:, -1:].expand(B, pad, S, Dh)], 1)
-    return heads.transpose(1, 2)
+    return constrain(heads.transpose(1, 2),
+                     ("batch", "seq", "heads", "head_dim"))
 
 
 # ---------------------------------------------------------------------------
@@ -164,30 +171,40 @@ def decode_attention(cfg, q1: torch.Tensor, ck: torch.Tensor,
 # Full multi-head layer (projections + rope + core + output)
 # ---------------------------------------------------------------------------
 
-def project_heads(x: torch.Tensor, w: torch.Tensor, cd) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk", x, w.astype(cd))."""
+def project_heads(x: torch.Tensor, w: torch.Tensor, cd,
+                  axis: str = "heads") -> torch.Tensor:
+    """einsum("bsd,dhk->bshk", x, w.astype(cd)); on DTensors the product's
+    (heads x head_dim) columns are split over the mesh axes that divide
+    the heads (``axis``, their logical name) before they unflatten."""
     d, h, dh = w.shape
-    return (x @ w.to(cd).reshape(d, h * dh)).unflatten(-1, (h, dh))
+    w2 = constrain(w.to(cd).reshape(d, h * dh), ("embed", axis), (d, h))
+    y = x @ w2
+    y = constrain(y, ("batch", "seq", axis), y.shape[:-1] + (h,))
+    return y.unflatten(-1, (h, dh))
 
 
 def project_qkv(cfg, p: dict, x: torch.Tensor, positions, *,
                 use_rope: bool, compute_dtype):
     """x: (B,S,d) -> q (B,S,Hq_pad,Dh), k/v (B,S,Hkv,Dh)."""
     cd = compute_dtype
-    q, k, v = (project_heads(x, p[w], cd) for w in ("wq", "wk", "wv"))
+    q, k, v = (project_heads(x, p[w], cd, a) for w, a in (
+        ("wq", "heads"), ("wk", "kv_heads"), ("wv", "kv_heads")))
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return constrain(q, ("batch", "seq", "heads", "head_dim")), k, v
 
 
 def output_proj(cfg, p: dict, out: torch.Tensor,
                 compute_dtype) -> torch.Tensor:
     if padded_heads(cfg) != cfg.n_heads:   # a mask of ones is a no-op
-        mask = _head_mask(cfg, out.device)
+        mask = replicated(_head_mask(cfg, out.device), out)
         out = out * mask[None, None, :, None].to(out.dtype)
     h, dh, d = p["wo"].shape
-    return out.flatten(-2) @ p["wo"].to(compute_dtype).reshape(h * dh, d)
+    wo = constrain(p["wo"].to(compute_dtype).reshape(h * dh, d),
+                   ("heads", "embed"), (h, d))
+    y = out.flatten(-2) @ wo
+    return constrain(y, ("batch", "seq", "act_embed"))
 
 
 def self_attention(cfg, p: dict, x: torch.Tensor, positions, *,
@@ -205,8 +222,8 @@ def self_attention(cfg, p: dict, x: torch.Tensor, positions, *,
 def cross_kv(cfg, p: dict, enc_out: torch.Tensor, compute_dtype):
     """Project the encoder output (B, F, d) to un-expanded cross K/V
     (B, F, Hkv, Dh)."""
-    return project_heads(enc_out, p["wk"], compute_dtype), project_heads(
-        enc_out, p["wv"], compute_dtype)
+    return tuple(project_heads(enc_out, p[w], compute_dtype, "kv_heads")
+                 for w in ("wk", "wv"))
 
 
 def cross_attention(cfg, p: dict, x: torch.Tensor, enc_out: torch.Tensor,
@@ -214,7 +231,8 @@ def cross_attention(cfg, p: dict, x: torch.Tensor, enc_out: torch.Tensor,
     """Decoder-to-encoder attention (whisper): every query row sees all F
     encoder positions (flash in the ``bidir`` mode, Sq != Skv).  Returns
     (y, (k, v)), the un-expanded cross K/V for the cache."""
-    q = project_heads(x, p["wq"], compute_dtype)
+    q = constrain(project_heads(x, p["wq"], compute_dtype),
+                  ("batch", "seq", "heads", "head_dim"))
     k, v = cross_kv(cfg, p, enc_out, compute_dtype)
     out = attention(q, expand_kv(cfg, k), expand_kv(cfg, v), mode="bidir")
     return output_proj(cfg, p, out, compute_dtype), (k, v)

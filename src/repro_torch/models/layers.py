@@ -1,8 +1,11 @@
 """Shared neural-net layers (functional PyTorch, explicit dtypes).
 
 Counterpart of the reference's ``repro/models/layers.py``: the same specs,
-the same math and dtypes at each step.  The reference's sharding
-constraints have no counterpart on one device and are left out.
+the same math and dtypes at each step, and the reference's sharding
+constraints (``parallel/sharding.py::constrain``: a DTensor is
+redistributed there under an active mesh, anything else passes as it is).
+Fresh tensors that meet DTensors (``rope``'s tables and positions, the
+tokens) enter as replicated DTensors (``sharding.replicated``).
 """
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import constrain, replicated
 from .spec import ParamSpec
 
 F32 = torch.float32
@@ -78,10 +82,17 @@ def apply_mlp(p: dict, x: torch.Tensor, kind: str, act: str,
               compute_dtype: torch.dtype) -> torch.Tensor:
     a = act_fn(act)
     cd = compute_dtype
+    decode = x.shape[1] == 1
+    if decode:
+        # weight-stationary decode: the token replicated, the weights stay
+        x = constrain(x, (None, "seq", "act_embed"))
     if kind == "glu":
         h = a(x @ p["wg"].to(cd)) * (x @ p["wu"].to(cd))
-        return h @ p["wd"].to(cd)
-    return a(x @ p["wi"].to(cd)) @ p["wo"].to(cd)
+        out = constrain(h, ("batch", "seq", "mlp")) @ p["wd"].to(cd)
+    else:
+        h = a(x @ p["wi"].to(cd))
+        out = constrain(h, ("batch", "seq", "mlp")) @ p["wo"].to(cd)
+    return constrain(out, ("batch", "seq", "act_embed")) if decode else out
 
 
 # ---------------------------------------------------------------------------
@@ -94,6 +105,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     half = x.shape[-1] // 2
     freqs = (1.0 / theta) ** (torch.arange(half, dtype=F32,
                                            device=x.device) / half)
+    freqs, positions = replicated(freqs, x), replicated(positions, x)
     ang = positions[..., None].to(F32) * freqs        # (..., S, half)
     for _ in range(x.ndim - ang.ndim - 1):            # over the head axes
         ang = ang[..., None, :]
@@ -132,14 +144,16 @@ def embed_spec(vocab: int, d: int, dtype: str) -> ParamSpec:
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
                  compute_dtype: torch.dtype) -> torch.Tensor:
-    return table[tokens].to(compute_dtype)
+    out = table[replicated(tokens, table)].to(compute_dtype)
+    return constrain(out, ("batch", "seq", "act_embed"))
 
 
 def unembed(table_or_head: torch.Tensor, x: torch.Tensor,
             compute_dtype: torch.dtype, transpose: bool) -> torch.Tensor:
     """Logits = x @ W^T (tied) or x @ W (untied head)."""
     w = table_or_head.to(compute_dtype)
-    return x @ (w.t() if transpose else w)
+    return constrain(x @ (w.t() if transpose else w),
+                     ("batch", "seq", "vocab"))
 
 
 # ---------------------------------------------------------------------------
@@ -154,7 +168,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     columns are left out of the log-sum-exp: the reference sums the logit
     with zeros over the vocab axis and adds exp(-1e30 - max) = 0 for each
     padded column, the same values, through full-vocab boolean and
-    ``where`` temporaries that this version does not make."""
+    ``where`` temporaries that this version does not make.
+
+    Vocab-sharded logits (a DTensor) are gathered over the vocab first
+    (an all-gather of the logits over ``model``, the ``vocab`` axis's mesh
+    axis); the rest runs on batch-sharded DTensors."""
+    logits = constrain(logits, ("batch", "seq", None))
+    labels = replicated(labels, logits)
+    mask = mask if mask is None else replicated(mask, logits)
     lf = logits.to(F32)
     labels = labels[..., None].long()
     picked = torch.gather(lf, -1, labels)[..., 0]

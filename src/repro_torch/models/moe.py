@@ -20,14 +20,17 @@ so an expert over capacity keeps its lowest-index tokens.
 
 The expert weights are cast to the compute dtype once a call (the
 reference casts them at each use inside its scans, the same values).  The
-reference's sharding constraints have no counterpart on one device.  The
-expert products are plain large GEMMs, which the reference also computes
-outside any Pallas kernel.
+reference's sharding constraints stand at its points
+(``parallel/sharding.py::constrain``), and the tensors each path makes
+(the top-1 inverse index, the top-k scatter target) are made on the
+input's mesh when it is a DTensor.  The expert products are plain large
+GEMMs, which the reference also computes outside any Pallas kernel.
 """
 from __future__ import annotations
 
 import torch
 
+from ..parallel.sharding import constrain, replicated, sharded_full
 from .layers import act_fn
 from .spec import ParamSpec
 
@@ -102,13 +105,17 @@ def _shared(cfg, p, x, compute_dtype):
     a = act_fn(cfg.act)
     cd = compute_dtype
     h = a(x @ sp["wg"].to(cd)) * (x @ sp["wu"].to(cd))
-    return h @ sp["wd"].to(cd)
+    return constrain(h, ("batch", "seq", "mlp")) @ sp["wd"].to(cd)
 
 
 def moe_dense(cfg, p: dict, x: torch.Tensor, compute_dtype,
               token_chunk: int = TOKEN_CHUNK) -> torch.Tensor:
     """Dense-compute MoE with sequence chunking.  x: (B, S, d)."""
     B, S, d = x.shape
+    decode = S == 1
+    if decode:
+        # weight-stationary decode: the tokens replicated, the experts stay
+        x = constrain(x, (None, "seq", "act_embed"))
     combine = _router(cfg, p, x)
     sc = min(token_chunk, S)
     if S % sc:
@@ -118,7 +125,7 @@ def moe_dense(cfg, p: dict, x: torch.Tensor, compute_dtype,
                         compute_dtype) for i in range(0, S, sc)], dim=1)
     if cfg.shared_expert:
         y = y + _shared(cfg, p, x, compute_dtype)
-    return y
+    return constrain(y, ("batch", "seq", "act_embed"))
 
 
 def moe_capacity(cfg, p: dict, x: torch.Tensor, compute_dtype,
@@ -138,7 +145,8 @@ def moe_capacity(cfg, p: dict, x: torch.Tensor, compute_dtype,
     top_w, top_idx = _top(combine.transpose(1, 2), C)     # (B, E, C)
     idx_flat = top_idx.reshape(B, E * C)
     gathered = torch.gather(x, 1, idx_flat[..., None].expand(B, E * C, d))
-    gathered = gathered.reshape(B, E, C, d)
+    gathered = constrain(gathered.reshape(B, E, C, d),
+                         ("batch", "experts", None, "act_embed"))
 
     a = act_fn(cfg.act)
     wg, wu, wd = _cast_experts(p, cd)
@@ -159,26 +167,31 @@ def moe_capacity(cfg, p: dict, x: torch.Tensor, compute_dtype,
         out = expert_glu(gathered, top_w)
 
     vals = out.reshape(B, E * C, d)
+    if cfg.remat == "none":
+        # serving: the slot values gathered before the combine
+        vals = constrain(vals, ("batch", None, "act_embed"))
     if k == 1:
         # top-1: a token holds at most one nonzero-weight slot, so the
         # combine is an inverse gather.  Zero-weight slots (the padding of
         # other experts) point at a scratch column S, cut off after.
         idx_inv = torch.where(top_w.reshape(B, E * C) > 0, idx_flat, S)
-        slots = torch.arange(E * C, device=x.device).expand(B, E * C)
-        inv = torch.full((B, S + 1), -1, dtype=slots.dtype,
-                         device=x.device).scatter_reduce(
+        slots = replicated(torch.arange(E * C, device=x.device),
+                           x).expand(B, E * C)
+        inv = sharded_full((B, S + 1), -1, ("batch", None), x,
+                           slots.dtype).scatter_reduce(
             1, idx_inv, slots, "amax")[:, :S]
         y = torch.gather(vals, 1, inv.clamp_min(0)[..., None].expand(
             B, S, d))
         y = torch.where((inv >= 0)[..., None], y, torch.zeros((), dtype=cd,
                                                               device=x.device))
     else:
-        y = torch.zeros((B, S, d), dtype=cd, device=x.device).scatter_add(
+        y = sharded_full((B, S, d), 0, ("batch", None, "act_embed"), x,
+                         cd).scatter_add(
             1, idx_flat[..., None].expand(B, E * C, d), vals)
 
     if cfg.shared_expert:
         y = y + _shared(cfg, p, x, cd)
-    return y
+    return constrain(y, ("batch", "seq", "act_embed"))
 
 
 def moe_ffn(cfg, p: dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:

@@ -17,6 +17,13 @@ recurrences run in float32.
   whose gradient is the reverse scan through the same kernel (the
   reference folds h0 into the first step of a log-depth
   ``associative_scan``: the same function, other rounding).
+
+The reference's sharding constraints stand at its points
+(``parallel/sharding.py::constrain``).  On DTensors the RG-LRU's initial
+state h0 and conv pad are made on the input's mesh, batch and width split as
+the activations are (``sharding.sharded_full``), and its scan runs on
+each rank's shard; the mLSTM and sLSTM carry their constraints, but their
+DTensor run is not held yet.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kops
+from ..parallel.sharding import constrain, sharded_full
 from .layers import act_fn
 from .spec import ParamSpec
 
@@ -87,7 +95,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     XLA's fusion of the reference's sum rounds them."""
     cw = w.shape[0]
     if tail is None:
-        pad = x.new_zeros((x.shape[0], cw - 1, x.shape[2]))
+        pad = sharded_full((x.shape[0], cw - 1, x.shape[2]), 0,
+                           ("batch", None, "lru"), x)
     else:
         pad = tail.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)                  # (B, S+cw-1, w)
@@ -111,7 +120,8 @@ def _rglru_core(p, xw: torch.Tensor, h0: torch.Tensor):
     scan through the same wrapper."""
     B, S, W = xw.shape
     nb, wb, _ = p["gate_a"].shape
-    x4 = xw.reshape(B, S, nb, wb)
+    x4 = constrain(xw.reshape(B, S, nb, wb),
+                   ("batch", "seq", "lru_blocks", None))
 
     def gate(w, bias):           # einsum("bshw,hwv->bshv") + bias
         y = torch.einsum("bshw,hwv->bshv", x4, w.to(F32))
@@ -135,20 +145,22 @@ def rglru_block(cfg, p: dict, x: torch.Tensor, compute_dtype,
     B = x.shape[0]
     cd = compute_dtype
     y_branch = act_fn("gelu")(x @ p["in_y"].to(cd))
-    xw = x @ p["in_x"].to(cd)
+    xw = constrain(x @ p["in_x"].to(cd), ("batch", "seq", "lru"))
     tail = state.conv if state is not None else None
     xw, new_tail = _causal_conv(xw, p["conv_w"].to(cd), p["conv_b"].to(cd),
                                 tail)
     W = xw.shape[-1]
     h0 = (state.h if state is not None
-          else torch.zeros((B, W), dtype=F32, device=x.device))
+          else sharded_full((B, W), 0, ("batch", "lru"), xw, F32))
     h, h_last = _rglru_core(p, xw.to(F32), h0)
-    out = (h.to(cd) * y_branch) @ p["out"].to(cd)
+    h = constrain(h.to(cd), ("batch", "seq", "lru"))
+    out = (h * y_branch) @ p["out"].to(cd)
     new_state = RGLRUState(
         h=h_last,
         conv=(new_tail.to(F32) if new_tail is not None
-              else torch.zeros((B, 0, W), dtype=F32, device=x.device)))
-    return out, new_state
+              else sharded_full((B, 0, W), 0, ("batch", None, "lru"), xw,
+                                F32)))
+    return constrain(out, ("batch", "seq", "act_embed")), new_state
 
 
 # ===========================================================================
@@ -245,7 +257,7 @@ def mlstm_inputs(cfg, p: dict, x: torch.Tensor, compute_dtype):
     cd = compute_dtype
     H = cfg.n_heads
     Dh = 2 * d // H
-    xm = x @ p["up"].to(cd)
+    xm = constrain(x @ p["up"].to(cd), ("batch", "seq", "lru"))
 
     def heads(w):
         y = xm @ w.to(cd)
@@ -282,7 +294,7 @@ def mlstm_block(cfg, p: dict, x: torch.Tensor, compute_dtype,
     h_seq = h_out.transpose(1, 2).reshape(B, S, 2 * d).to(cd)
     o = torch.sigmoid(x @ p["w_o"].to(cd))
     y = (h_seq * o) @ p["down"].to(cd)
-    return y, st
+    return constrain(y, ("batch", "seq", "act_embed")), st
 
 
 # ===========================================================================
@@ -367,4 +379,4 @@ def slstm_block(cfg, p: dict, x: torch.Tensor, compute_dtype,
     g = h_seq @ p["ffn_g"].to(cd)
     u = h_seq @ p["ffn_u"].to(cd)
     y = (a(g) * u) @ p["ffn_d"].to(cd)
-    return y, st
+    return constrain(y, ("batch", "seq", "act_embed")), st

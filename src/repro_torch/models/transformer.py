@@ -25,6 +25,12 @@ decoder (``xattn``: self-attention, then cross-attention over the
 encoder output, whose K/V the cache keeps unquantized), and the
 recurrent kinds; ``forward`` takes internvl's prefix embeddings and
 whisper's frames.
+
+The reference's sharding constraints stand at its points
+(``parallel/sharding.py::constrain``); with parameters and a batch that
+are DTensors (``sharding.place_tree``) under an active mesh, ``forward``
+and the train step run sharded, the positions and position tables entering
+as replicated DTensors.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from ..ckpt.tree import tree_flatten, tree_map, tree_unflatten
 from . import attention as attn
 from . import moe as moe_mod
 from . import recurrent as rec
+from ..parallel.sharding import constrain, replicated
 from .layers import (apply_norm, norm_spec, mlp_spec, apply_mlp, embed_spec,
                      embed_lookup, unembed, cross_entropy,
                      sinusoidal_positions)
@@ -306,7 +313,8 @@ def apply_layer_full(cfg, kind: str, p: dict, x: torch.Tensor,
     if not collect_cache or kind == "enc":
         return x, None
     Sc = _cache_len(cfg, kind, max_seq)
-    kc, vc = _to_cache(k, Sc), _to_cache(v, Sc)
+    kc, vc = (constrain(_to_cache(t, Sc), ("batch", "kv_seq_mp", "kv_heads",
+                                           "head_dim")) for t in (k, v))
     if cfg.kv_cache_dtype == "int8":
         kc, ks = _kv_quant(kc)
         vc, vs = _kv_quant(vc)
@@ -422,9 +430,9 @@ def _run_encoder(cfg, params, frames: torch.Tensor) -> torch.Tensor:
     cd = torch_dtype(cfg.compute_dtype)
     x = frames.to(cd)
     F = x.shape[1]
-    x = x + sinusoidal_positions(F, cfg.d_model,
-                                 device=x.device).to(cd)[None]
-    positions = torch.arange(F, device=x.device)
+    x = x + replicated(sinusoidal_positions(F, cfg.d_model,
+                                            device=x.device).to(cd)[None], x)
+    positions = replicated(torch.arange(F, device=x.device), x)
     stage = params["encoder"]["stage"]
 
     def layer(xh, psl):
@@ -447,7 +455,8 @@ def _embed_inputs(cfg, params, tokens, prefix=None):
         # constant would be a host-to-device copy, which synchronises)
         x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=cd))
     if prefix is not None:
-        x = torch.cat([prefix.to(cd), x], dim=1)
+        x = torch.cat([replicated(prefix.to(cd), x), x], dim=1)
+        x = constrain(x, ("batch", "seq", "act_embed"))
     return x
 
 
@@ -480,9 +489,9 @@ def forward(cfg, params, tokens, *, prefix=None, frames=None,
     x = _embed_inputs(cfg, params, tokens, prefix)
     S = x.shape[1]
     if cfg.is_encoder_decoder:
-        x = x + sinusoidal_positions(S, cfg.d_model,
-                                     device=x.device).to(cd)[None]
-    positions = torch.arange(S, device=x.device)
+        x = x + replicated(sinusoidal_positions(
+            S, cfg.d_model, device=x.device).to(cd)[None], x)
+    positions = replicated(torch.arange(S, device=x.device), x)
     max_seq = max_cache_seq or S
     x, caches = _run_stack(cfg, params, x, positions,
                            collect_cache=collect_cache, max_seq=max_seq,

@@ -6,6 +6,12 @@ order), the same arithmetic in f32, an f32 master copy when the params are
 not f32, the optional Adafactor-style factored second moment and
 reduced-precision momentum.  Like the reference it decays every leaf of
 two or more dimensions, the stacked (layers, d) norms included.
+
+On DTensor parameters (a sharded train step) the state is DTensors with
+each parameter's placements, the step a replicated scalar, the global norm
+the norm of the whole gradients, and the elementwise update runs on each
+rank's local shard; a factored second moment's means over a split dim are
+reduced across it.  Every new leaf has the placements its old one had.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import torch
 
 from .._device import resolve_device
 from ..ckpt.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from ..parallel import sharding as shd
 
 F32 = torch.float32
 #: elements of a leaf updated at once: a larger leaf (recurrentgemma-9b's
@@ -68,24 +75,49 @@ def _is_v_leaf(x) -> bool:
 
 def init_state(params, cfg: AdamWConfig = None, device="cuda") -> AdamWState:
     """Zero moments on ``device`` (and the f32 master copy when a param is
-    not f32)."""
+    not f32).  For DTensor params (which carry their device) each state
+    leaf is a DTensor with its param's placements (a factored v's row and
+    col with those of the dims they keep) and the step a replicated
+    one."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
     cfg = cfg or AdamWConfig()
-    dev = resolve_device(device)
+    leaves = tree_leaves(params)
+    like = next((x for x in leaves if isinstance(x, DTensor)), None)
+    dev = resolve_device(device) if like is None else like.device
     mdt = getattr(torch, cfg.momentum_dtype)
     zeros = lambda shape, dt: torch.zeros(tuple(shape), dtype=dt, device=dev)
-    m = tree_map(lambda p: zeros(p.shape, mdt), params)
+
+    def zeros_of(p, dt, drop: int = None):
+        """Zeros shaped as p (without dim ``drop``), p's sharding kept on
+        the other dims."""
+        shape = list(p.shape)
+        if drop is not None:
+            del shape[drop]
+        if not isinstance(p, DTensor):
+            return zeros(shape, dt)
+        drop = None if drop is None else drop % p.ndim
+        pl = [Replicate() if isinstance(q, Shard) and q.dim == drop
+              else Shard(q.dim - 1) if (isinstance(q, Shard) and drop
+                                        is not None and q.dim > drop)
+              else q for q in p.placements]
+        from torch.distributed.tensor import zeros as dzeros
+        return dzeros(tuple(shape), dtype=dt, device_mesh=p.device_mesh,
+                      placements=pl)
+    m = tree_map(lambda p: zeros_of(p, mdt), params)
 
     def mk_v(p):
         if cfg.factored_second_moment and _wants_factored(p.shape):
-            return FactoredV(row=zeros(p.shape[:-1], F32),
-                             col=zeros(p.shape[:-2] + p.shape[-1:], F32))
-        return zeros(p.shape, F32)
+            return FactoredV(row=zeros_of(p, F32, -1),
+                             col=zeros_of(p, F32, -2))
+        return zeros_of(p, F32)
     v = tree_map(mk_v, params)
     needs_master = cfg.master_weights and any(
-        x.dtype != F32 for x in tree_leaves(params))
-    master = (tree_map(lambda p: p.to(device=dev, dtype=F32).clone(),
-                       params) if needs_master else None)
-    return AdamWState(step=zeros((), torch.int32), m=m, v=v, master=master)
+        x.dtype != F32 for x in leaves)
+    master = (tree_map(lambda p: p.to(dtype=F32).clone() if isinstance(
+        p, DTensor) else p.to(device=dev, dtype=F32).clone(), params)
+        if needs_master else None)
+    return AdamWState(step=shd.replicated(zeros((), torch.int32), like),
+                      m=m, v=v, master=master)
 
 
 def state_spec(param_spec_tree, cfg: AdamWConfig = None):
@@ -127,7 +159,11 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    leaves = [x.to(F32).square().sum() for x in tree_leaves(tree)]
+    """The f32 norm of all leaves; of DTensor leaves, the norm of the
+    whole tensors (each leaf's partial sums reduced to a replicated
+    scalar)."""
+    leaves = [shd.replicate(x.to(F32).square().sum()) for x in
+              tree_leaves(tree)]
     return torch.sqrt(torch.stack(leaves).sum())
 
 
@@ -151,6 +187,9 @@ def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState):
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1.0 - torch.pow(b1, step.to(F32))
     bc2 = 1.0 - torch.pow(b2, step.to(F32))
+    # the scalars as plain tensors: a replicated DTensor's local value
+    clip_scale, lr_, bc1, bc2 = (shd.local(x) for x in (clip_scale, lr,
+                                                        bc1, bc2))
 
     def one(decay: bool, g, m, v, w):
         """(w_new, m_new, v_new) in f32; w = the f32 master (or the f32
@@ -174,11 +213,25 @@ def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState):
         delta = mh / (torch.sqrt(vh) + cfg.eps)
         if decay:   # decay matrices only (1-D norms/biases exempt)
             delta = delta + cfg.weight_decay * w
-        return w - lr * delta, m_new, v_new
+        return w - lr_ * delta, m_new, v_new
 
     def upd(p, g, m, v, w):
-        decay = p.ndim >= 2
-        if isinstance(v, FactoredV) or w.numel() <= UPDATE_CHUNK:
+        if isinstance(v, FactoredV):
+            w_new, m_new, v_new = one(p.ndim >= 2, g, m, v, w)
+            v_new = FactoredV(row=shd.like_placements(v_new.row, v.row),
+                              col=shd.like_placements(v_new.col, v.col))
+            return (shd.like_placements(w_new.to(p.dtype), p),
+                    shd.like_placements(m_new.to(m.dtype), m), v_new,
+                    shd.like_placements(w_new, w))
+        # elementwise: on each rank's shard, every operand in p's placements
+        g, m_, v_, w_ = (shd.local(shd.like_placements(t, p))
+                         for t in (g, m, v, w))
+        out = upd_local(p.ndim >= 2, p.dtype, g, m_, v_, w_)
+        return tuple(shd.from_local(t, ref) for t, ref in
+                     zip(out, (p, m, v, w)))
+
+    def upd_local(decay: bool, dtype, g, m, v, w):
+        if w.numel() <= UPDATE_CHUNK:
             w_new, m_new, v_new = one(decay, g, m, v, w)
         else:
             w_new, m_new, v_new = (torch.empty(w.shape, dtype=F32,
@@ -190,7 +243,7 @@ def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState):
                 part = [t[i:i + UPDATE_CHUNK] for t in ins]
                 for out, x in zip(outs, one(decay, *part)):
                     out[i:i + UPDATE_CHUNK] = x
-        return w_new.to(p.dtype), m_new.to(m.dtype), v_new, w_new
+        return w_new.to(dtype), m_new.to(m.dtype), v_new, w_new
 
     flat_p, treedef = tree_flatten(params)
     flat_g = tree_leaves(grads)

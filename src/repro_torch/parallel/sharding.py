@@ -30,8 +30,14 @@ layout when the spec's axes come in the mesh's order, as every tuple of
 
 Model code never receives a mesh argument: a launcher installs the active
 mesh with :func:`set_active_mesh` (or :class:`use_mesh`), thread-locally,
-and :func:`constrain` reads it.  The port's models do not call
-:func:`constrain` yet; sharded execution of a step is later work.
+and :func:`constrain` reads it.  The models call :func:`constrain` at the
+reference's points, so that a train step whose parameters and batch are
+DTensors (:func:`place_tree`, the reference's ``jax.device_put``) runs
+sharded: DTensor's own rules propagate the placements between those
+points, and a fresh tensor that meets a DTensor enters as a replicated
+one (:func:`replicated`, :func:`sharded_full`).  The kernels run on each
+rank's local shard (:func:`on_local_shards`).  Without an active mesh every
+one of these is the identity.
 
 A mesh is a :class:`torch.distributed.device_mesh.DeviceMesh` with mesh
 dim names, or any mapping ``{axis name: size}`` in mesh order (what a
@@ -45,7 +51,9 @@ import threading
 from collections.abc import Mapping
 from typing import Optional, Sequence
 
-from ..ckpt.tree import tree_map
+import torch
+
+from ..ckpt.tree import tree_flatten, tree_map, tree_unflatten
 
 # Each logical axis maps to a mesh axis (or tuple of axes, or None).
 DEFAULT_RULES: dict[str, object] = {
@@ -179,10 +187,13 @@ def resolve_pspec(logical: Sequence[Optional[str]], mesh,
 def placements(spec: Sequence, mesh) -> tuple:
     """DTensor placements of ``spec`` on ``mesh``: for each mesh dim,
     ``Shard(i)`` when tensor dim ``i`` is split over it, else
-    ``Replicate()``.  Raises when a dim's axes are not in the mesh's order
-    (DTensor would lay its shards out minor-first there)."""
+    ``Replicate()``; a mesh dim of size 1 holds the whole tensor either
+    way and takes ``Replicate()`` (DTensor's views refuse to merge a dim
+    sharded over it).  Raises when a dim's axes are not in the mesh's
+    order (DTensor would lay its shards out minor-first there)."""
     from torch.distributed.tensor import Replicate, Shard
-    order = list(axis_sizes(mesh))
+    sizes = axis_sizes(mesh)
+    order = list(sizes)
     dim_of = {}
     for i, entry in enumerate(spec):
         if entry is None:
@@ -194,8 +205,8 @@ def placements(spec: Sequence, mesh) -> tuple:
                              f"mesh's order {tuple(order)}")
         for a in axes:
             dim_of[a] = i
-    return tuple(Shard(dim_of[a]) if a in dim_of else Replicate()
-                 for a in order)
+    return tuple(Shard(dim_of[a]) if a in dim_of and sizes[a] > 1
+                 else Replicate() for a in order)
 
 
 def shard_shape(spec: Sequence, mesh, shape: Sequence[int]) -> tuple:
@@ -233,9 +244,13 @@ def named_sharding(logical: Sequence[Optional[str]], mesh,
     return NamedSharding(mesh, spec, placements(spec, mesh))
 
 
-def constrain(x, logical: Sequence[Optional[str]]):
+def constrain(x, logical: Sequence[Optional[str]],
+              shape: Optional[Sequence[int]] = None):
     """Redistribute a DTensor to the sharding its logical axes resolve to
-    on the active mesh; the identity without an active mesh.
+    on the active mesh; the identity without an active mesh.  ``shape``
+    (default ``x``'s) is what the axes' divisibility is resolved against:
+    a flattened (heads x head_dim) dim is split over the axes that divide
+    its heads.
 
     The reference hints XLA with ``with_sharding_constraint``; eager
     PyTorch has no compiler to take such a hint, so a plain tensor is
@@ -247,8 +262,36 @@ def constrain(x, logical: Sequence[Optional[str]]):
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
-    sh = named_sharding(logical, mesh, active_rules(), tuple(x.shape))
-    return x.redistribute(mesh, sh.placements)
+    sh = named_sharding(logical, mesh, active_rules(),
+                        tuple(x.shape if shape is None else shape))
+    return _Constrain.apply(x, mesh, tuple(sh.placements))
+
+
+def _redistribute(x, mesh, placements):
+    if tuple(x.placements) == tuple(placements):
+        return x
+    return x.redistribute(mesh, placements)
+
+
+class _Constrain(torch.autograd.Function):
+    """``with_sharding_constraint`` on a DTensor: the value redistributed
+    to ``placements``, and its cotangent too (then back to the input's
+    placements, a partial sum there taken as replicated), so that a
+    gradient meets the views and reshapes before it in a layout they
+    take."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, placements):
+        from torch.distributed.tensor import Replicate
+        ctx.mesh, ctx.placements = mesh, placements
+        ctx.in_placements = tuple(Replicate() if p.is_partial() else p
+                                  for p in x.placements)
+        return _redistribute(x, mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _redistribute(g, ctx.mesh, ctx.placements)
+        return _redistribute(g, ctx.mesh, ctx.in_placements), None, None
 
 
 def can_shard(dim: int, logical_name: str) -> bool:
@@ -270,3 +313,148 @@ def tree_pspecs(spec_tree, mesh, rules: Optional[dict] = None):
 def tree_shardings(spec_tree, mesh, rules: Optional[dict] = None):
     return tree_map(lambda s: named_sharding(s.logical, mesh, rules, s.shape),
                     spec_tree)
+
+
+def place_tree(tree, spec_tree, mesh, rules: Optional[dict] = None):
+    """``distribute_tensor`` every leaf of ``tree`` under its ParamSpec's
+    sharding on ``mesh`` (``spec_tree`` has the same structure): the tree
+    of DTensors, the reference's ``jax.tree.map(jax.device_put, params,
+    shardings_tree(spec, mesh))``.  Every rank passes the same values."""
+    from torch.distributed.tensor import distribute_tensor
+    specs, _ = tree_flatten(spec_tree)
+    leaves, treedef = tree_flatten(tree)
+    if len(specs) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves against {len(specs)} specs")
+    out = []
+    for s, x in zip(specs, leaves):
+        if tuple(x.shape) != tuple(s.shape):
+            raise ValueError(f"leaf of shape {tuple(x.shape)} against its "
+                             f"spec's {tuple(s.shape)}")
+        sh = named_sharding(s.logical, mesh, rules, s.shape)
+        out.append(distribute_tensor(x, mesh, sh.placements))
+    return tree_unflatten(treedef, out)
+
+
+def _dtensor():
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def replicated(t, like):
+    """``t``, a plain tensor with the same values on every rank (an
+    ``arange``, a table of constants), as a DTensor replicated on the mesh
+    of ``like`` when ``like`` is a DTensor; else ``t`` itself."""
+    DTensor = _dtensor()
+    if not isinstance(like, DTensor) or isinstance(t, DTensor):
+        return t
+    from torch.distributed.tensor import Replicate
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def sharded_full(shape: Sequence[int], value, logical: Sequence[Optional[str]],
+                 like, dtype=None):
+    """``shape`` filled with ``value`` (``dtype``, default ``like``'s): a
+    DTensor on ``like``'s mesh under the sharding ``logical`` resolves to
+    there when ``like`` is a DTensor (each rank makes its own shard), else
+    a plain tensor on ``like``'s device."""
+    dtype = dtype or like.dtype
+    DTensor = _dtensor()
+    if not isinstance(like, DTensor):
+        return torch.full(tuple(shape), value, dtype=dtype,
+                          device=like.device)
+    from torch.distributed.tensor import full
+    mesh = like.device_mesh
+    sh = named_sharding(logical, mesh, active_rules(), tuple(shape))
+    return full(tuple(shape), value, dtype=dtype, device_mesh=mesh,
+                placements=sh.placements)
+
+
+def like_placements(x, ref):
+    """``x`` redistributed to ``ref``'s placements where both are DTensors
+    and theirs differ (a gradient's ``Partial`` sums reduced onto its
+    parameter's sharding); else ``x``."""
+    DTensor = _dtensor()
+    if isinstance(x, DTensor) and isinstance(ref, DTensor):
+        return _redistribute(x, ref.device_mesh, ref.placements)
+    return x
+
+
+def replicate(x):
+    """A DTensor redistributed to be replicated on every mesh dim (a loss,
+    a norm); anything else as it is."""
+    DTensor = _dtensor()
+    if not isinstance(x, DTensor):
+        return x
+    from torch.distributed.tensor import Replicate
+    return _redistribute(x, x.device_mesh, (Replicate(),) * x.device_mesh.ndim)
+
+
+def local(x):
+    """The local tensor of a DTensor (for a replicated scalar, its value);
+    anything else as it is."""
+    return x.to_local() if isinstance(x, _dtensor()) else x
+
+
+def from_local(t, ref):
+    """``t``, a local shard laid out as ``ref``'s (a DTensor), as a DTensor
+    of ``ref``'s mesh, placements and global shape; ``t`` itself when
+    ``ref`` is no DTensor."""
+    DTensor = _dtensor()
+    if not isinstance(ref, DTensor):
+        return t
+    return DTensor.from_local(t, ref.device_mesh, ref.placements,
+                              run_check=False, shape=ref.shape,
+                              stride=ref.stride())
+
+
+#: logical axes along which a kernel's input may not be split: a kernel
+#: reads a whole sequence and a whole head vector.
+UNSPLIT = ("seq", "head_dim")
+
+
+def _local_placements(x, logical, mesh, what: str) -> tuple:
+    """The placements ``x`` takes on its way into a kernel: the sharding
+    of ``logical`` on ``mesh``.  Raises where ``x`` is split, or would be,
+    along an axis of :data:`UNSPLIT` (gathering it would be a quiet
+    all-gather of a whole sequence)."""
+    from torch.distributed.tensor import Shard
+    sh = named_sharding(logical, mesh, active_rules(), tuple(x.shape))
+    for p in tuple(x.placements) + tuple(sh.placements):
+        if isinstance(p, Shard) and logical[p.dim] in UNSPLIT:
+            raise ValueError(f"{what}: an input is split along its "
+                             f"{logical[p.dim]!r} axis (placements "
+                             f"{tuple(x.placements)} -> "
+                             f"{tuple(sh.placements)}); the kernel takes a "
+                             f"whole one")
+    return sh.placements
+
+
+def on_local_shards(fn, args: Sequence, in_logical: Sequence,
+                    what: str = "fn"):
+    """``fn(*args)`` on each rank's local shards.
+
+    Where an argument is a DTensor, each argument is placed under the
+    sharding its logical axes (``in_logical``, one tuple an argument)
+    resolve to on its mesh under the active rules (a plain tensor enters as
+    a replicated DTensor first), ``fn`` runs on the local tensors, and its
+    one output, of the first argument's shape, comes back as a DTensor
+    with the first argument's placements
+    (``torch.distributed.tensor.experimental.local_map``, whose autograd
+    carries the local gradients through).  Without a DTensor argument this
+    is ``fn(*args)``."""
+    DTensor = _dtensor()
+    like = next((a for a in args if isinstance(a, DTensor)), None)
+    if like is None:
+        return fn(*args)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = like.device_mesh
+    placed, in_pl = [], []
+    for a, lg in zip(args, in_logical):
+        a = replicated(a, like)
+        pl = _local_placements(a, lg, mesh, what)
+        placed.append(_redistribute(a, mesh, pl))
+        in_pl.append(pl)
+    return local_map(fn, out_placements=(in_pl[0],),
+                     in_placements=tuple(in_pl), device_mesh=mesh)(*placed)

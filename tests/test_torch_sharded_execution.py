@@ -1,0 +1,592 @@
+"""Sharded execution of the port's train step on eight ranks, against the
+single-device step (the counterpart of the reference's
+``tests/test_sharded_execution.py``).
+
+One module fixture starts eight processes of a ``gloo`` group (they meet
+on a ``FileStore`` under a temporary directory, so no port is taken) and
+runs every case in that one spawn.  Their mesh is
+``make_test_mesh(8, device="cpu")``: data 2 x model 4.  The archs are the
+reference test's: reduced starcoder2-3b, dbrx-132b and recurrentgemma-9b
+with ``head_pad_multiple=4``, AdamW (lr 1e-3, warm-up 1), microbatches 2,
+a batch of 8 x 64 drawn from a numpy seed; the parameters are the
+reference's ``init`` carried over by ``interop.params_from_numpy``, placed
+on the mesh by ``sharding.place_tree``, and the batch is placed along its
+``batch`` axis.
+
+* (a) the mesh is (2, 4) on eight ranks;
+* (b) bf16 compute: the sharded step against the port's single-device
+  step (loss rel 2e-2, every parameter leaf max-abs < 5e-2, the
+  reference test's bounds) and against the reference's jitted
+  single-device step from the same numpy parameters (the loss and the
+  first leaf);
+* (c) f32 compute, the train step with microbatches 2 on both sides (each
+  rank's microbatch holds its own rows, the single device's contiguous
+  global rows): the loss and the gradient norm within 1e-6 (relative) and
+  every accumulated gradient leaf AdamW is handed within 1e-5 (relative
+  Frobenius) of the single-device port's, also for dbrx on the capacity
+  path.  These bounds are near the f32 noise of
+  these random models: at the reference's init, attention is near
+  one-hot, and one ulp of the embedding table moves some gradient leaf by
+  more than 1e-5 on one device.  The q and k projections are therefore
+  scaled by ``QK_SCALE`` for this case (the same ulp then moves every leaf
+  by under a third of the bound; a test holds both); a wrong reduction
+  moves a leaf by O(1) at either scale;
+* (d) every parameter and AdamW leaf after the step has the placements
+  ``shardings_tree`` and the state spec give, the gradients their
+  parameters' and the loss is replicated;
+* (e) the flash and RG-LRU wrappers ran on local shards (batch / 2,
+  heads / 4, LRU width / 4), and a sequence split raises;
+* a sharded step with microbatches whose unmasked label counts differ
+  between the sharded and the unsharded split raises;
+* AdamW alone on placed params: a factored second moment against the
+  plain update (1e-6), the global norm (1e-6 relative), and the update
+  sliced by ``UPDATE_CHUNK`` on each shard bitwise the whole-leaf one;
+* a mesh dim of size 1 takes ``Replicate()`` (no group needed).
+
+The rank processes import neither ``jax`` nor ``repro``; the reference
+runs in the test process.  The file takes 80 to 140 s alone on eight CPU cores.
+"""
+import dataclasses
+import logging
+import traceback
+
+import numpy as np
+import pytest
+import torch
+
+ARCHS = ("starcoder2-3b", "dbrx-132b", "recurrentgemma-9b")
+#: the f32 gradient cases: each arch, and dbrx through the capacity path
+#: (the top-k scatter-add).
+F32_CASES = {arch: {} for arch in ARCHS}
+F32_CASES["dbrx-132b capacity"] = {"moe_impl": "capacity"}
+WORLD = 8
+B, S, MICRO = 8, 64, 2
+OPT = dict(lr=1e-3, warmup_steps=1)
+LOSS_RTOL, LEAF_ATOL = 2e-2, 5e-2
+F32_LOSS_RTOL, F32_GRAD_TOL = 1e-6, 1e-5
+QK_SCALE = 0.25
+#: the fixture's limit on the ranks' run, in seconds.
+SPAWN_TIMEOUT = 900
+
+
+def _arch(case: str) -> str:
+    return case.split()[0]
+
+
+def _cfg(case: str, compute_dtype: str, ref: bool = False):
+    """The reduced config of ``case`` with the reference test's settings
+    (the reference's own config when ``ref``)."""
+    if ref:
+        from repro.configs import get_config, reduced
+    else:
+        from repro_torch.configs import get_config, reduced
+    extra = F32_CASES.get(case, {})
+    return dataclasses.replace(reduced(get_config(_arch(case))),
+                               head_pad_multiple=4,
+                               compute_dtype=compute_dtype, **extra)
+
+
+def _scale_qk(tree, f: float):
+    """A copy of a numpy parameter tree with every attention layer's q and
+    k projections scaled by ``f``."""
+    def layer(p):
+        p = dict(p)
+        if "attn" in p:
+            p["attn"] = dict(p["attn"], wq=p["attn"]["wq"] * np.float32(f),
+                             wk=p["attn"]["wk"] * np.float32(f))
+        return p
+    out = dict(tree)
+    for key in ("stages", "tail"):
+        out[key] = tuple(layer(p) for p in tree[key])
+    return out
+
+
+def _batch(arch: str) -> dict:
+    rng = np.random.default_rng(ARCHS.index(arch) + 1)
+    return {k: rng.integers(0, 512, (B, S)).astype(np.int32)
+            for k in ("tokens", "labels")}
+
+
+# ---------------------------------------------------------------------------
+# The ranks (no jax here)
+# ---------------------------------------------------------------------------
+
+def _np(x) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
+    return x.detach().float().numpy()
+
+
+def _record_local_shapes() -> dict:
+    """Wrap the flash and RG-LRU kernel wrappers (the functions their
+    autograd Functions call) to record the shapes they are called on."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
+    seen = {"flash_attention": [], "rglru_scan": []}
+
+    def wrap(mod, name):
+        inner = getattr(mod, name)
+
+        def rec(x, *args, **kw):
+            seen[name].append(tuple(x.shape))
+            return inner(x, *args, **kw)
+        setattr(mod, name, rec)
+    wrap(fa, "flash_attention")
+    wrap(rg, "rglru_scan")
+    return seen
+
+
+def _mismatches(tree, spec_tree, mesh) -> list:
+    """Leaves of ``tree`` whose placements differ from those their specs
+    resolve to on ``mesh``."""
+    from repro_torch.ckpt.tree import tree_leaves
+    from repro_torch.models import shardings_tree
+    want = tree_leaves(shardings_tree(spec_tree, mesh))
+    got = tree_leaves(tree)
+    if len(want) != len(got):
+        return [f"{len(got)} leaves against {len(want)} specs"]
+    return [f"leaf {i}: {tuple(x.placements)} != {tuple(w.placements)}"
+            for i, (x, w) in enumerate(zip(got, want))
+            if tuple(x.placements) != tuple(w.placements)]
+
+
+def _placed_batch(batch: dict, mesh):
+    from repro_torch.models.spec import ParamSpec
+    from repro_torch.parallel import sharding as shd
+    spec = {k: ParamSpec((B, S), ("batch", "seq"), "int32") for k in batch}
+    return shd.place_tree({k: torch.from_numpy(v) for k, v in batch.items()},
+                          spec, mesh)
+
+
+def _sharded_step(arch: str, np_params, mesh) -> dict:
+    """One bf16 train step on the mesh: the loss, the new parameters
+    (whole), and the placements against the specs."""
+    from repro_torch.ckpt.tree import tree_leaves
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    cfg = _cfg(arch, "bfloat16")
+    model = build(cfg)
+    ocfg = adamw.AdamWConfig(**OPT)
+    pspec = model.param_spec()
+    params = shd.place_tree(params_from_numpy(np_params, cfg, device="cpu"),
+                            pspec, mesh)
+    opt = adamw.init_state(params, ocfg)
+    step = model.make_train_step(ocfg, microbatches=MICRO)
+    new_p, new_o, met = step(params, opt, _placed_batch(_batch(arch), mesh))
+    return {"loss": float(met["loss"]),
+            "loss_replicated": all(p.is_replicate()
+                                   for p in met["loss"].placements),
+            "leaves": [_np(x) for x in tree_leaves(new_p)],
+            "param_mismatches": _mismatches(new_p, pspec, mesh),
+            "opt_mismatches": _mismatches(new_o, adamw.state_spec(pspec,
+                                                                  ocfg),
+                                          mesh),
+            "opt_before_mismatches": _mismatches(
+                opt, adamw.state_spec(pspec, ocfg), mesh)}
+
+
+def _f32_step(case: str, np_params, mesh=None, move_first: bool = False,
+              qk_scale: float = QK_SCALE) -> dict:
+    """The f32 train step with ``MICRO`` microbatches (q and k scaled by
+    ``qk_scale``), on ``mesh`` when given: its loss and gradient norm, and
+    the accumulated gradients it hands AdamW (recorded there), as numpy
+    with whether each kept its parameter's placements.  ``move_first``
+    moves the first leaf (the embedding table) up by one ulp."""
+    from repro_torch.ckpt.tree import tree_flatten, tree_leaves, \
+        tree_unflatten
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    cfg = _cfg(case, "float32")
+    model = build(cfg)
+    params = params_from_numpy(_scale_qk(np_params, qk_scale), cfg,
+                               device="cpu")
+    if move_first:
+        leaves, td = tree_flatten(params)
+        leaves[0] = torch.nextafter(leaves[0],
+                                    torch.full_like(leaves[0], np.inf))
+        params = tree_unflatten(td, leaves)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(_arch(case)).items()}
+    if mesh is not None:
+        params = shd.place_tree(params, model.param_spec(), mesh)
+        batch = _placed_batch(_batch(_arch(case)), mesh)
+    ocfg = adamw.AdamWConfig(**OPT)
+    seen, inner = [], adamw.apply_updates
+
+    def record(opt_cfg, ps, grads, state):
+        seen.append(tree_leaves(grads))
+        return inner(opt_cfg, ps, grads, state)
+    adamw.apply_updates = record
+    try:
+        _, _, met = model.make_train_step(ocfg, microbatches=MICRO)(
+            params, adamw.init_state(params, ocfg, device="cpu"), batch)
+    finally:
+        adamw.apply_updates = inner
+    (grads,) = seen
+    return {"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+            "grads": [_np(g) for g in grads],
+            "grad_mismatches": [
+                i for i, (g, p) in enumerate(zip(grads, tree_leaves(params)))
+                if mesh is not None
+                and tuple(g.placements) != tuple(p.placements)]}
+
+
+def _adamw_on_shards(np_params, mesh) -> dict:
+    """AdamW alone on starcoder2-3b's placed f32 params and seeded
+    gradients: a factored second moment (its row and col means over split
+    dims) against the same update on plain tensors, and the update sliced
+    by ``UPDATE_CHUNK`` on each shard against the whole-leaf one."""
+    from repro_torch.ckpt.tree import tree_flatten, tree_leaves, \
+        tree_unflatten
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    cfg = _cfg("starcoder2-3b", "float32")
+    pspec = build(cfg).param_spec()
+    plain = params_from_numpy(np_params, cfg, device="cpu")
+    leaves, td = tree_flatten(plain)
+    gen = torch.Generator().manual_seed(5)
+    grads = tree_unflatten(td, [torch.randn(x.shape, generator=gen)
+                                for x in leaves])
+    params = shd.place_tree(plain, pspec, mesh)
+    sgrads = shd.place_tree(grads, pspec, mesh)
+    ocfg = adamw.AdamWConfig(factored_second_moment=True, **OPT)
+    want = adamw.apply_updates(ocfg, plain, grads,
+                               adamw.init_state(plain, ocfg, device="cpu"))
+    state = adamw.init_state(params, ocfg)
+    got = adamw.apply_updates(ocfg, params, sgrads, state)
+    pairs = list(zip(tree_leaves((got[0], got[1].m, got[1].v)),
+                     tree_leaves((want[0], want[1].m, want[1].v))))
+    out = {"factored_max_abs": max(float(np.abs(_np(a) - _np(b)).max())
+                                   for a, b in pairs),
+           "factored_leaves": len(pairs),
+           "grad_norm": [float(got[2]["grad_norm"]),
+                         float(want[2]["grad_norm"])],
+           "factored_mismatches": _mismatches(
+               got[1], adamw.state_spec(pspec, ocfg), mesh)}
+    ocfg = adamw.AdamWConfig(**OPT)
+    state = adamw.init_state(params, ocfg)
+    whole = adamw.apply_updates(ocfg, params, sgrads, state)
+    chunk, adamw.UPDATE_CHUNK = adamw.UPDATE_CHUNK, 1000
+    try:
+        sliced = adamw.apply_updates(ocfg, params, sgrads, state)
+    finally:
+        adamw.UPDATE_CHUNK = chunk
+    out["sliced_leaves"] = sum(shd.local(x).numel() > 1000
+                               for x in tree_leaves(params))
+    out["sliced_bitwise"] = all(
+        torch.equal(shd.local(a), shd.local(b)) for a, b in zip(
+            tree_leaves((whole[0], whole[1].m, whole[1].v)),
+            tree_leaves((sliced[0], sliced[1].m, sliced[1].v))))
+    return out
+
+
+def _split_sequence_raises(mesh) -> str:
+    """Flash on a q split along its sequence: the error's text, or ''."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.kernels import ops
+    q = distribute_tensor(torch.zeros((2, 8, 4, 16)), mesh,
+                          [Shard(1), Replicate()])
+    try:
+        ops.flash_attention(q, q, q)
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def _uneven_split_errors(mesh) -> dict:
+    """The sharded step's microbatch check on starcoder2-3b's labels: one
+    masked label (its microbatches then hold 255 and 256 labels) against
+    one masked label a row (every microbatch 252)."""
+    from repro_torch.models import _check_split, build
+    from repro_torch.optim import adamw
+    batch = _batch("starcoder2-3b")
+    uneven = dict(batch, labels=batch["labels"].copy())
+    uneven["labels"][0, 0] = -1
+    even = dict(batch, labels=batch["labels"].copy())
+    even["labels"][:, -1] = -1
+    step = build(_cfg("starcoder2-3b", "float32")).make_train_step(
+        adamw.AdamWConfig(**OPT), microbatches=MICRO)
+    out = {}
+    try:
+        # raises before it reads the parameters
+        step(None, None, _placed_batch(uneven, mesh))
+        out["uneven"] = ""
+    except ValueError as e:
+        out["uneven"] = str(e)
+    _check_split(_placed_batch(even, mesh)["labels"], MICRO)
+    out["even"] = "passed"
+    return out
+
+
+def _rank_main(rank: int, store_path: str, inbox, queue) -> None:
+    try:
+        out = _rank_run(rank, store_path, inbox)
+        if rank == 0:
+            queue.put(out)
+    except BaseException:
+        # the test process reads this and stops the ranks still waiting
+        queue.put({"error": f"rank {rank}: {traceback.format_exc()}"})
+        raise
+    finally:
+        queue.close()
+        queue.join_thread()
+
+
+def _rank_run(rank: int, store_path: str, inbox) -> dict:
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel import sharding as shd
+    torch.set_num_threads(1)
+    # DTensor logs each multi-step redistribution and gloo's all-to-all
+    # fallback at WARNING, once a rank
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, WORLD),
+                            rank=rank, world_size=WORLD)
+    params = inbox.get(timeout=SPAWN_TIMEOUT)
+    try:
+        mesh = make_test_mesh(WORLD, device="cpu")
+        shapes = _record_local_shapes()
+        out = {"world": dist.get_world_size(),
+               "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+        with shd.use_mesh(mesh):
+            for arch in ARCHS:
+                out[arch] = _sharded_step(arch, params[arch], mesh)
+            for case in F32_CASES:
+                out[f"f32 {case}"] = _f32_step(case, params[_arch(case)],
+                                               mesh)
+            out["adamw"] = _adamw_on_shards(params["starcoder2-3b"], mesh)
+            out["split_sequence_error"] = _split_sequence_raises(mesh)
+            out["uneven_split"] = _uneven_split_errors(mesh)
+        out["local_shapes"] = {k: sorted(set(v)) for k, v in shapes.items()}
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The test process
+# ---------------------------------------------------------------------------
+
+def _ref_params() -> dict:
+    """The reference's init of each arch as numpy trees."""
+    import jax
+    from repro.models import build as ref_build
+    out = {}
+    for arch in ARCHS:
+        rm = ref_build(_cfg(arch, "bfloat16", ref=True))
+        out[arch] = jax.device_get(jax.jit(rm.init)(jax.random.key(0)))
+    return out
+
+
+def _single_device(ref_params) -> dict:
+    """The port's single-device bf16 step and f32 step's gradients, and
+    the reference's jitted bf16 step, from the same numpy parameters."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import build as ref_build
+    from repro.optim import AdamWConfig as RefAdamWConfig
+    from repro.optim import init_state as ref_init_state
+    from repro_torch.ckpt.tree import tree_leaves
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+    out = {}
+    for arch in ARCHS:
+        batch = _batch(arch)
+        tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+        cfg = _cfg(arch, "bfloat16")
+        params = params_from_numpy(ref_params[arch], cfg, device="cpu")
+        ocfg = adamw.AdamWConfig(**OPT)
+        step = build(cfg).make_train_step(ocfg, microbatches=MICRO)
+        new_p, _, met = step(params, adamw.init_state(params, ocfg,
+                                                      device="cpu"), tb)
+        rm = ref_build(_cfg(arch, "bfloat16", ref=True))
+        rp = jax.tree.map(jnp.asarray, ref_params[arch])
+        rstep = jax.jit(rm.make_train_step(RefAdamWConfig(**OPT),
+                                           microbatches=MICRO))
+        rnew, _, rmet = rstep(rp, ref_init_state(rp),
+                              {k: jnp.asarray(v) for k, v in batch.items()})
+        out[arch] = {"loss": float(met["loss"]),
+                     "leaves": [x.float().numpy() for x in
+                                tree_leaves(new_p)],
+                     "ref_loss": float(rmet["loss"]),
+                     "ref_leaf": np.asarray(jax.tree.leaves(rnew)[0],
+                                            np.float32)}
+    for case in F32_CASES:
+        out[f"f32 {case}"] = _f32_step(case, ref_params[_arch(case)])
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """{"sharded": rank 0's results, "single": the test process's,
+    "ref_params": the reference's numpy parameters}.  The
+    ranks start while the reference's parameters are made, and the
+    single-device runs go on while the ranks work."""
+    import queue as queue_mod
+    import torch.multiprocessing as mp
+    store = str(tmp_path_factory.mktemp("sharded_store") / "store")
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    inboxes = [ctx.Queue() for _ in range(WORLD)]
+    procs = [ctx.Process(target=_rank_main, args=(r, store, inboxes[r], q),
+                         daemon=True) for r in range(WORLD)]
+    for p in procs:
+        p.start()
+    try:
+        ref_params = _ref_params()
+        for box in inboxes:
+            box.put(ref_params)
+        single = _single_device(ref_params)
+        try:
+            sharded = q.get(timeout=SPAWN_TIMEOUT)
+        except queue_mod.Empty:
+            pytest.fail(f"the ranks gave no result in {SPAWN_TIMEOUT} s")
+        assert "error" not in sharded, sharded.get("error")
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    return {"sharded": sharded, "single": single, "ref_params": ref_params}
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a / b - 1.0)
+
+
+def _frob(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def test_ran_on_a_two_by_four_mesh_of_eight_ranks(runs):
+    assert runs["sharded"]["world"] == WORLD
+    assert runs["sharded"]["mesh"] == {"data": 2, "model": 4}
+
+
+@pytest.mark.parametrize("against", ["port", "reference"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sharded_bf16_step_matches_single_device(runs, arch, against):
+    """The reference test's bounds: loss rel 2e-2, parameters after one
+    update max-abs < 5e-2 (every leaf against the port's single-device
+    step; the first leaf against the reference's, as its test holds)."""
+    sh, one = runs["sharded"][arch], runs["single"][arch]
+    if against == "port":
+        assert _rel(sh["loss"], one["loss"]) <= LOSS_RTOL
+        diffs = [float(np.abs(a - b).max())
+                 for a, b in zip(sh["leaves"], one["leaves"])]
+        assert len(diffs) == len(one["leaves"]) and max(diffs) < LEAF_ATOL
+    else:
+        assert _rel(sh["loss"], one["ref_loss"]) <= LOSS_RTOL
+        assert float(np.abs(sh["leaves"][0] - one["ref_leaf"]).max()) \
+            < LEAF_ATOL
+
+
+@pytest.mark.parametrize("case", sorted(F32_CASES))
+def test_sharded_f32_loss_and_gradients_match_single_device(runs, case):
+    sh, one = runs["sharded"][f"f32 {case}"], runs["single"][f"f32 {case}"]
+    assert _rel(sh["loss"], one["loss"]) <= F32_LOSS_RTOL
+    assert _rel(sh["grad_norm"], one["grad_norm"]) <= F32_LOSS_RTOL
+    errs = [_frob(a, b) for a, b in zip(sh["grads"], one["grads"])]
+    assert len(errs) == len(one["grads"])
+    assert max(errs) <= F32_GRAD_TOL, errs
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_leaf_keeps_its_placements(runs, arch):
+    sh = runs["sharded"][arch]
+    assert sh["opt_before_mismatches"] == []
+    assert sh["param_mismatches"] == []
+    assert sh["opt_mismatches"] == []
+    assert sh["loss_replicated"]
+    grads = runs["sharded"][f"f32 {arch}"]
+    assert grads["grad_mismatches"] == []
+
+
+def test_kernels_ran_on_local_shards(runs):
+    """Flash on (B_local * H / 4, S, Dh) with B_local = the microbatch's 4
+    rows / 2; the RG-LRU on (B_local, S, W / 4).  No whole-batch or
+    whole-head call."""
+    seen = runs["sharded"]["local_shapes"]
+    H, Dh, W = 4, 16, 64
+    rows = B // MICRO
+    flash = {((rows // 2) * (H // 4), S, Dh)}
+    lru = {(rows // 2, S, W // 4)}
+    assert {tuple(s) for s in seen["flash_attention"]} == flash
+    assert {tuple(s) for s in seen["rglru_scan"]} == lru
+
+
+def test_adamw_on_shards_matches_single_device(runs):
+    """A factored second moment on DTensors (its means over split dims
+    reduced) against the plain update; the leaf sliced by
+    ``UPDATE_CHUNK`` on each shard bitwise the whole-leaf update."""
+    ad = runs["sharded"]["adamw"]
+    assert ad["factored_leaves"] > 0 and ad["factored_max_abs"] <= 1e-6
+    gn, want = ad["grad_norm"]
+    assert _rel(gn, want) <= F32_LOSS_RTOL
+    assert ad["factored_mismatches"] == []
+    assert ad["sliced_leaves"] > 0 and ad["sliced_bitwise"]
+
+
+def _ulp_sensitivity(case: str, np_params, qk_scale: float,
+                     unmoved=None) -> float:
+    """The largest relative Frobenius change of an f32 step's gradient
+    leaf on one device when the embedding table moves by one ulp
+    (``unmoved``: the step's gradients without the move, if known)."""
+    if unmoved is None:
+        unmoved = _f32_step(case, np_params, qk_scale=qk_scale)["grads"]
+    moved = _f32_step(case, np_params, move_first=True,
+                      qk_scale=qk_scale)["grads"]
+    return max(_frob(b, a) for a, b in zip(unmoved, moved))
+
+
+@pytest.mark.parametrize("case", sorted(F32_CASES))
+def test_one_ulp_moves_f32_gradients_within_the_bound_only_when_scaled(
+        runs, case):
+    """Why (c) scales q and k: at the reference's init one ulp of the
+    embedding table moves some gradient leaf by more than ``F32_GRAD_TOL``
+    on one device; with q and k scaled by ``QK_SCALE``, by under a third
+    of it."""
+    np_params = runs["ref_params"][_arch(case)]
+    assert _ulp_sensitivity(case, np_params, 1.0) > F32_GRAD_TOL
+    assert _ulp_sensitivity(case, np_params, QK_SCALE, runs["single"][
+        f"f32 {case}"]["grads"]) <= F32_GRAD_TOL / 3
+
+
+def test_a_sequence_split_raises(runs):
+    assert "'seq' axis" in runs["sharded"]["split_sequence_error"]
+
+
+def test_uneven_masked_microbatches_raise(runs):
+    """With unmasked label counts that differ between the sharded split
+    (rows 0-1 and 4-5, then 2-3 and 6-7) and the unsharded one (rows 0-3,
+    then 4-7), the sharded step raises; with one masked label a row the
+    counts agree and the check passes."""
+    got = runs["sharded"]["uneven_split"]
+    assert "[255, 256] (sharded split) and [255, 256]" in got["uneven"]
+    assert got["even"] == "passed"
+
+
+@pytest.mark.parametrize("sizes,want", [
+    ({"data": 1, "model": 1}, (None, None)),
+    ({"data": 2, "model": 1}, (0, None)),
+    ({"data": 2, "model": 4}, (0, 2))])
+def test_a_mesh_dim_of_size_one_replicates(sizes, want):
+    """A dim split over a mesh dim of size 1 is whole there: its placement
+    is ``Replicate()`` (DTensor's views refuse to merge a dim sharded
+    over it, which stopped a world-1 step at ``project_heads``)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.parallel import sharding as shd
+    spec = shd.resolve_pspec(("batch", "seq", "kv_heads", "head_dim"), sizes,
+                             shape=(8, 64, 4, 16))
+    assert spec == shd.PartitionSpec("data", None, "model")
+    assert shd.placements(spec, sizes) == tuple(
+        Replicate() if d is None else Shard(d) for d in want)
