@@ -409,9 +409,9 @@ Phases (any failure exits non-zero; no result line is printed then):
    run of every phase also holds each kernel's work model where it binds:
    no row of the kernels line (phases 7-9's timed shapes, each part) runs
    faster than its bound (``_hold_bounds``).
-19. the train step sharded (run last), every line with the card's name
-   and power limit, each run's counts set to 0 just before it and read
-   just after.  A world-1 NCCL group on a ``HashStore`` and
+19. the train step and decode sharded (run last), every line with the
+   card's name and power limit, each run's counts set to 0 just before it
+   and read just after.  A world-1 NCCL group on a ``HashStore`` and
    ``make_test_mesh(1)`` on ``cuda``; (a) starcoder2-3b at full width
    (d 3072, 24 heads of 128 over 2, d_ff 12288, window 4096, vocab
    49,152) cut to 2 of 30 layers, B 4 x S 4096; (b) recurrentgemma-9b at
@@ -428,7 +428,28 @@ Phases (any failure exits non-zero; no result line is printed then):
    a DTensor, flash launched twice an attention layer a step and the
    RG-LRU scan three times an RG-LRU layer a step in each run, no other
    kernel and no plain version.  Each run prints its step seconds and
-   peak memory.  The group is destroyed at the end.
+   peak memory.  (e) xlstm-125m at full width (d 768, 4 heads, mLSTM Dh
+   384, chunk 256) cut to 2 layers, B 8 x S 256 (``ELASTIC``'s cut), the
+   same way: the mLSTM on each rank's (batch, heads) shard, the sLSTM's
+   loop on each rank's rows, mLSTM launches a forward per mLSTM layer a
+   step and its recompute.  (c) decode: starcoder2-3b and
+   recurrentgemma-9b at (a)'s and (b)'s cuts prefill ``S`` seeded tokens
+   and take 8 decode steps (``SHARD_DECODE_STEPS``) fed seeded tokens, on
+   DTensors (the KV cache laid out by ``kv_seq_mp``: whole on one rank,
+   so the decode kernel runs on all of it and no merge runs) and on plain
+   tensors, each run's counts set to 0 just before it: every step's
+   logits and the cache's leaves bitwise (else within decode's bf16
+   tolerance, the reason printed), flash once per attention layer, decode
+   once per attention layer a step, the RG-LRU once per RG-LRU layer for
+   the prefill and a step, nothing else; each run's prefill seconds and
+   each decode step's ms (synchronised) are printed.  (d) the decode kernel with its
+   log-sum-exp on M in (2, 4, 8) slot slices of a cache
+   (``SHARD_MERGE``: zoo-rg9b's decode at lengths 2048 and 1000,
+   internvl2-1b's Dh 64, a Dh 128 cache in f32 and bf16), merged by
+   ``merge_partials``, against the whole-cache kernel and the plain
+   version within ``ZOO_TOL``, and every log-sum-exp within 1e-5
+   (relative) of the plain version's; then phase 8's decode row timed
+   with the log-sum-exp off and on.  The group is destroyed at the end.
 
 Near the end it prints one JSON line ``{"gates": {...}}`` with every
 gate's numbers, then one ``{"kernels": [...]}`` line, then the card's name
@@ -444,6 +465,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -6680,11 +6702,55 @@ SHARD_SMALL = dict(B=2, S=64)
 SHARD_LOSS_RTOL, SHARD_LEAF_ATOL = 2e-2, 5e-2
 
 
+#: part (c): a prefill of ``S`` (``SHARD``'s) tokens, then
+#: ``SHARD_DECODE_STEPS`` decode steps fed seeded tokens.
+SHARD_DECODE_STEPS = 8
+#: part (d): the decode kernel with its log-sum-exp on M slot slices of a
+#: cache, merged: zoo-rg9b's decode (phase 8's ``DECODE``; length 1000
+#: leaves the last slices empty), internvl2-1b's Dh 64 decode and a Dh 128
+#: cache (starcoder2-3b's 24 heads x B 4 over 4096 slots) in f32 and bf16.
+SHARD_MERGE = {"zoo-rg9b": dict(BH=2048, S=2048, Dh=256, dtype="bfloat16",
+                                lengths=(2048, 1000)),
+               "internvl2-1b": dict(BH=224, S=2080, Dh=64, dtype="bfloat16",
+                                    lengths=(2080, 1000)),
+               "dh128 f32": dict(BH=96, S=4096, Dh=128, dtype="float32",
+                                 lengths=(4096, 1537)),
+               "dh128 bf16": dict(BH=96, S=4096, Dh=128, dtype="bfloat16",
+                                  lengths=(4096, 1537))}
+SHARD_MERGE_SMALL = dict(BH=4, S=64, Dh=64, lengths=(64, 21))
+SHARD_SLICES = (2, 4, 8)
+#: the kernel's log-sum-exp against the plain version's, relative.
+SHARD_LSE_RTOL = 1e-5
+#: phase 8's decode row (``DECODE``, both lengths) as PERF.md's kernel
+#: table last read it before the log-sum-exp output existed, in ms: the
+#: kernel with and without its log-sum-exp is read against it.
+SHARD_DECODE_ROW_MS = 2.0426
+
+
 def _shard_cfg(name: str, rehearse: bool):
+    if name == ELASTIC["arch"]:      # part (e): ELASTIC's cut
+        return _elastic_cfg(rehearse)
     cut = SHARD[name]["cut"]
     if rehearse:
         return _train16_reduced(name, "bfloat16", **cut)
     return _train16_cfg(name, **cut)
+
+
+def _shard_shape(name: str, rehearse: bool) -> tuple:
+    if name == ELASTIC["arch"]:
+        E = ELASTIC_SMALL if rehearse else ELASTIC
+        return E["B"], E["S"]
+    if rehearse:
+        return SHARD_SMALL["B"], SHARD_SMALL["S"]
+    return SHARD[name]["B"], SHARD[name]["S"]
+
+
+def _shard_want(cfg, dev) -> dict:
+    """Launches of one train step: flash and the RG-LRU as phase 16
+    counts them, the mLSTM a forward per mLSTM layer (and its recompute
+    under ``remat="full"``); none on the CPU."""
+    want = dict(_train16_launches(cfg), mlstm_scan=_mlstm_per_step(cfg))
+    return want if dev.type == "cuda" else {k: 0 for k in want}
 
 
 def _shard_run(name: str, dev, mesh, rehearse: bool) -> dict:
@@ -6702,8 +6768,7 @@ def _shard_run(name: str, dev, mesh, rehearse: bool) -> dict:
     from repro_torch.optim import adamw
     from repro_torch.parallel import sharding as shd
     cfg = _shard_cfg(name, rehearse)
-    B, S = ((SHARD_SMALL["B"], SHARD_SMALL["S"]) if rehearse
-            else (SHARD[name]["B"], SHARD[name]["S"]))
+    B, S = _shard_shape(name, rehearse)
     model = build(cfg)
     on_card = dev.type == "cuda"
     _free(dev)
@@ -6746,7 +6811,7 @@ def _shard_run(name: str, dev, mesh, rehearse: bool) -> dict:
     out["cfg"] = {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
                   "n_heads": cfg.n_heads, "vocab": cfg.vocab_size, "B": B,
                   "S": S}
-    out["want_per_step"] = _train16_want(cfg, dev)
+    out["want_per_step"] = _shard_want(cfg, dev)
     del params, opt, batch, step, model, met, leaves
     _free(dev)
     return out
@@ -6754,7 +6819,6 @@ def _shard_run(name: str, dev, mesh, rehearse: bool) -> dict:
 
 def _shard_part(name: str, dev, mesh, tlog, rehearse: bool) -> dict:
     """One arch: the DTensor run, then the plain run, held together."""
-    import torch
     runs = {"dtensor": _shard_run(name, dev, mesh, rehearse),
             "plain": _shard_run(name, dev, None, rehearse)}
     d, p = runs["dtensor"], runs["plain"]
@@ -6764,14 +6828,15 @@ def _shard_part(name: str, dev, mesh, tlog, rehearse: bool) -> dict:
     loss_rel = [abs(a / b - 1.0) for a, b in zip(d["losses"], p["losses"])]
     out = {"runs": runs, "leaf_max_abs": leaf_diff, "loss_rel": loss_rel,
            "bitwise": bitwise}
+    kernels = tuple(runs["plain"]["want_per_step"])
     for key, r in runs.items():
         tlog(f"shard {name} {key}: {r['cfg']}, {SHARD_STEPS} steps, losses "
              f"{r['losses']}, grad norms {r['grad_norms']}, step s "
              f"{r['step_s']}, setup {r['setup_s']:.2f} s, peak "
              f"{r['peak_gib']:.2f} GiB, DTensor leaves {r['dtensors']}; "
-             f"launches flash {r['launches']['flash_attention']}, rglru "
-             f"{r['launches']['rglru_scan']} (want "
-             f"{r['want_per_step']} a step), plain calls "
+             f"launches " + ", ".join(f"{k} {r['launches'][k]}"
+                                      for k in kernels)
+             + f" (want {r['want_per_step']} a step), plain calls "
              f"{r['launches']['plain']}")
     tlog(f"shard {name}: DTensor vs plain: bitwise {bitwise}; loss rel "
          f"{loss_rel}; every leaf's max |diff| {leaf_diff}")
@@ -6790,50 +6855,287 @@ def _shard_part(name: str, dev, mesh, tlog, rehearse: bool) -> dict:
              f"{p['dtensors']}")
     for key, r in runs.items():
         c, want = r["launches"], r["want_per_step"]
-        others = {k: v for k, v in c.items() if v and k not in (
-            "flash_attention", "rglru_scan") and (k != "plain"
-                                                  or dev.type == "cuda")}
-        if (c["flash_attention"] != want["flash_attention"] * SHARD_STEPS
-                or c["rglru_scan"] != want["rglru_scan"] * SHARD_STEPS
-                or others):
+        others = {k: v for k, v in c.items() if v and k not in kernels
+                  and (k != "plain" or dev.type == "cuda")}
+        if any(c[k] != want[k] * SHARD_STEPS for k in kernels) or others:
             fail(f"shard {name} {key}: launches {c}, want {want} a step "
                  f"and nothing else")
     return out
 
 
-def phase_shard(dev, card: str, rehearse: bool = False) -> dict:
-    """Phase 19: the train step on DTensors on a world-1 mesh against the
-    same step on plain tensors (see the module docstring), every line with
-    the card's name and power limit; ``rehearse`` runs it on the CPU at
-    reduced widths on a gloo group.  The group is made on a ``HashStore``
-    and destroyed at the end."""
+def _shard_decode_run(name: str, dev, mesh, rehearse: bool) -> dict:
+    """Part (c), one run: prefill ``S`` seeded tokens, then
+    ``SHARD_DECODE_STEPS`` decode steps fed seeded tokens, on DTensors
+    placed on ``mesh`` (given) or on plain tensors, its counts set to 0
+    just before and read just after.  Each step's logits and the final
+    cache's leaves come back on the host."""
+    import contextlib
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.ckpt.tree import tree_leaves
+    from repro_torch.models import build
+    from repro_torch.models.spec import ParamSpec
+    from repro_torch.parallel import sharding as shd
+    cfg = _shard_cfg(name, rehearse)
+    B, S = _shard_shape(name, rehearse)
+    steps = SHARD_DECODE_STEPS
+    model = build(cfg)
+    _free(dev)
+    gen = torch.Generator(device=dev).manual_seed(TRAIN["seed"])
+    params = model.init(gen, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + steps), generator=gen,
+                         device=dev, dtype=torch.int32)
+    prompt = {"tokens": toks[:, :S]}
+    place = lambda t: t
+    host = lambda x: (x.full_tensor() if isinstance(x, DTensor) else x) \
+        .detach().to("cpu")
+    out = {"logits": []}
+    with (shd.use_mesh(mesh) if mesh is not None
+          else contextlib.nullcontext()), torch.no_grad():
+        if mesh is not None:
+            params = shd.place_tree(params, model.param_spec(), mesh)
+            prompt = shd.place_tree(prompt, {"tokens": ParamSpec(
+                (B, S), ("batch", "seq"), "int32")}, mesh)
+            place = lambda t: shd.place_tree(
+                t, ParamSpec((B, 1), ("batch", None), "int32"), mesh)
+        _dev_sync(dev)
+        _reset_counts()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, prompt, max_cache_seq=S + steps)
+        out["logits"].append(host(logits))
+        out["prefill_s"] = time.perf_counter() - t0
+        out["step_ms"] = []
+        for i in range(S, S + steps):
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(params, cache,
+                                              place(toks[:, i:i + 1]))
+            _dev_sync(dev)
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["logits"].append(host(logits))
+        out["launches"] = _counts()
+        leaves = tree_leaves(cache["layers"])
+        out["dtensors"] = sum(isinstance(x, DTensor) for x in leaves)
+        out["cache"] = [host(x) for x in leaves]
+    want = _serve_expected(cfg, types.SimpleNamespace(
+        waves=1, batch=B, new_tokens=steps + 1))
+    out["want"] = want if dev.type == "cuda" else {k: 0 for k in want}
+    out["cfg"] = {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                  "vocab": cfg.vocab_size, "B": B, "S": S, "steps": steps}
+    del params, cache, logits, leaves, toks, prompt
+    _free(dev)
+    return out
+
+
+def _shard_decode_part(name: str, dev, mesh, tlog, rehearse: bool) -> dict:
+    """Part (c), one arch: the DTensor run against the plain run, bitwise
+    expected (one slice on a world-1 mesh: no merge, the kernel's output
+    the same with its log-sum-exp), else held at decode's bf16 tolerance
+    with the reason printed."""
+    runs = {"dtensor": _shard_decode_run(name, dev, mesh, rehearse),
+            "plain": _shard_decode_run(name, dev, None, rehearse)}
+    d, p = runs["dtensor"], runs["plain"]
+    pairs = (list(zip(d.pop("logits"), p.pop("logits")))
+             + list(zip(d.pop("cache"), p.pop("cache"))))
+    bitwise = all(_bitwise(a, b) for a, b in pairs)
+    out = {"runs": runs, "bitwise": bitwise, "compared": len(pairs)}
+    for key, r in runs.items():
+        tlog(f"shard decode {name} {key}: {r['cfg']}, prefill "
+             f"{r['prefill_s']:.3f} s, decode step ms: the first "
+             f"{r['step_ms'][0]:.3f}, the others' median "
+             f"{statistics.median(r['step_ms'][1:]):.3f} "
+             f"({', '.join(f'{x:.3f}' for x in r['step_ms'])}), cache "
+             f"DTensor leaves {r['dtensors']}; launches "
+             + ", ".join(f"{k} {r['launches'][k]}" for k in r["want"])
+             + f" (want {r['want']}), plain calls {r['launches']['plain']}")
+    if not bitwise:
+        errs = [_close(a.float(), b.float(), ZOO_TOL["bf16"])
+                for a, b in pairs]
+        out["max_abs_err"] = max(e[1] for e in errs)
+        tlog(f"shard decode {name}: DTensor vs plain not bitwise (the merge "
+             f"is skipped on one rank, so a difference comes from the "
+             f"prefill's DTensor ops); max |diff| {out['max_abs_err']:.3e}")
+        if not all(e[0] for e in errs):
+            fail(f"shard decode {name}: the DTensor decode left the plain "
+                 f"one beyond decode's bf16 tolerance")
+    tlog(f"shard decode {name}: DTensor vs plain bitwise {bitwise} over "
+         f"{len(pairs)} logits and cache leaves")
+    if (not pairs or p["dtensors"]
+            or d["dtensors"] != len(pairs) - SHARD_DECODE_STEPS - 1):
+        fail(f"shard decode {name}: {len(pairs)} logits and leaves "
+             f"compared; cache DTensor leaves {d['dtensors']} (DTensor "
+             f"run), {p['dtensors']} (plain run)")
+    for key, r in runs.items():
+        c, want = r["launches"], r["want"]
+        others = {k: v for k, v in c.items() if v and k not in want
+                  and (k != "plain" or dev.type == "cuda")}
+        if any(c[k] != want[k] for k in want) or others:
+            fail(f"shard decode {name} {key}: launches {c}, want {want} "
+                 f"and nothing else")
+    return out
+
+
+def _bitwise(a, b) -> bool:
+    """Same shape, dtype and bits."""
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        torch.equal(a, b))
+
+
+def _shard_merge(dev, tlog, peaks, rehearse: bool) -> dict:
+    """Part (d): the decode kernel with ``return_lse`` on each of M slot
+    slices of a cache (each slice's valid slots a prefix), then
+    ``merge_partials``, against the whole-cache kernel and the plain
+    version at the kernel's tolerances (``ZOO_TOL``), and the kernel's
+    log-sum-exp against the plain version's (``SHARD_LSE_RTOL``).  Then
+    phase 8's decode row timed with the log-sum-exp off and on.  These are
+    checks, not the main path: their launches count nowhere."""
+    import torch
+    from repro_torch.kernels import cost
+    from repro_torch.kernels import decode_attention as da
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(ZOO_SEED + 19)
+    randn = _randn(gen, dev)
+    shapes = ({f"small {d}": dict(SHARD_MERGE_SMALL, dtype=d)
+               for d in ("float32", "bfloat16")} if rehearse
+              else SHARD_MERGE)
+    report = {"cases": [], "max_abs_err": 0.0, "lse_max_rel": 0.0}
+    for label, c in shapes.items():
+        dt = getattr(torch, c["dtype"])
+        BH, S, Dh = c["BH"], c["S"], c["Dh"]
+        q1 = randn(BH, 1, Dh).to(dt)
+        k, v = (randn(BH, S, Dh).to(dt) for _ in range(2))
+        tol = _tol("decode_attention", dt)
+        for length in c["lengths"]:
+            whole, lse = da.decode_attention(q1, k, v, length,
+                                             return_lse=True)
+            plain, plain_lse = da.decode_attention_plain(q1, k, v, length,
+                                                         return_lse=True)
+            same = _bitwise(whole, da.decode_attention(q1, k, v, length))
+            lse_rel = float(((lse - plain_lse).abs()
+                             / plain_lse.abs().clamp_min(1e-30)).max())
+            row = {"shape": label, "length": length, "lse_max_rel": lse_rel,
+                   "out_same_without_lse": same, "slices": {}}
+            ok = same and lse_rel <= SHARD_LSE_RTOL
+            for M in SHARD_SLICES:
+                n = S // M
+                pieces = [da.decode_attention(
+                    q1, k[:, r * n:(r + 1) * n], v[:, r * n:(r + 1) * n],
+                    min(max(length - r * n, 0), n), return_lse=True)
+                    for r in range(M)]
+                merged, L = da.merge_partials([x for x, _ in pieces],
+                                              [y for _, y in pieces])
+                ok_p, err_p, frob_p = _close(merged, plain, tol)
+                ok_k, err_k, frob_k = _close(merged, whole, tol)
+                L_rel = float(((L - plain_lse).abs()
+                               / plain_lse.abs().clamp_min(1e-30)).max())
+                empty = sum(min(max(length - r * n, 0), n) == 0
+                            for r in range(M))
+                row["slices"][M] = {"vs_plain": err_p, "frob_plain": frob_p,
+                                    "vs_kernel": err_k,
+                                    "frob_kernel": frob_k, "lse_rel": L_rel,
+                                    "empty_slices": empty}
+                ok = ok and ok_p and ok_k and L_rel <= SHARD_LSE_RTOL
+                report["max_abs_err"] = max(report["max_abs_err"], err_p)
+                report["lse_max_rel"] = max(report["lse_max_rel"], L_rel)
+                del pieces, merged, L
+            report["lse_max_rel"] = max(report["lse_max_rel"], lse_rel)
+            tlog(f"shard merge {label} BH {BH} S {S} Dh {Dh} "
+                 f"{c['dtype']} length {length}: lse vs plain max rel "
+                 f"{lse_rel:.3e}, out unchanged by lse {same}; "
+                 + "; ".join(f"M {M}: vs plain {x['vs_plain']:.3e} "
+                             f"(frob {x['frob_plain']:.2e}), vs kernel "
+                             f"{x['vs_kernel']:.3e}, merged lse rel "
+                             f"{x['lse_rel']:.2e}, {x['empty_slices']} "
+                             f"empty" for M, x in row["slices"].items()))
+            report["cases"].append(row)
+            if not ok:
+                fail(f"shard merge {label} length {length}: the sliced "
+                     f"kernel and merge, or its lse, left the whole cache "
+                     f"({row})")
+            del whole, lse, plain, plain_lse
+        del q1, k, v
+        _free(dev)
+    if rehearse:
+        return report
+    # phase 8's decode row (both lengths), the log-sum-exp off and on
+    d = DECODE
+    q1 = randn(d["BH"], 1, d["Dh"]).to(torch.bfloat16)
+    k, v = (randn(d["BH"], d["S"], d["Dh"]).to(torch.bfloat16)
+            for _ in range(2))
+    times = {}
+    for on in (False, True):
+        ms = [_events_ms(lambda: da.decode_attention(q1, k, v, n,
+                                                     return_lse=on))
+              for n in d["lengths"]]
+        bound = sum(cost.bound_ms(cost.decode_work(
+            d["BH"], n, d["Dh"], k.dtype, lse=on), peaks)["bound_ms"]
+            for n in d["lengths"])
+        times["lse_on" if on else "lse_off"] = {
+            "ms": sum(ms), "ms_by_length": ms, "bound_ms": bound}
+    for key, t in times.items():
+        tlog(f"time decode_attention {tuple(k.shape)} bf16 lengths "
+             f"{d['lengths']} {key}: {t['ms']:.4f} ms "
+             f"({t['ms'] / SHARD_DECODE_ROW_MS:.3f} of phase 8's "
+             f"{SHARD_DECODE_ROW_MS} ms), bound {t['bound_ms']:.4f} ms")
+    report["times"] = times
+    del q1, k, v
+    _free(dev)
+    return report
+
+
+def phase_shard(dev, card: str, rehearse: bool = False, peaks=None) -> dict:
+    """Phase 19: the train step (parts (a), (b), (e)) and prefill and
+    decode (part (c)) on DTensors on a world-1 mesh against the same runs
+    on plain tensors, and the decode kernel's slot slices merged (part
+    (d)); see the module docstring.  Every line carries the card's name
+    and power limit; ``rehearse`` runs it on the CPU at reduced widths on a
+    gloo group.  The group is made on a ``HashStore`` and destroyed at the
+    end."""
     import torch.distributed as dist
     from repro_torch.launch import make_test_mesh
     tlog = lambda msg: log(f"{msg} [{card}]")
-    report, t_phase = {"parts": {}}, time.perf_counter()
+    report = {"parts": {}, "decode": {}}
+    t_phase = time.perf_counter()
     backend = "nccl" if dev.type == "cuda" else "gloo"
     dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                             world_size=1)
     try:
         mesh = make_test_mesh(1, device=dev.type)
         report["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
-        for name in SHARD:
+        for name in tuple(SHARD) + (ELASTIC["arch"],):
             t0 = time.perf_counter()
             report["parts"][name] = _shard_part(name, dev, mesh, tlog,
                                                 rehearse)
             report["parts"][name]["part_s"] = time.perf_counter() - t0
+        for name in SHARD:
+            t0 = time.perf_counter()
+            report["decode"][name] = _shard_decode_part(name, dev, mesh,
+                                                        tlog, rehearse)
+            report["decode"][name]["part_s"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
-    report["launches"] = {
-        k: sum(r["launches"][k] for part in report["parts"].values()
-               for r in part["runs"].values())
-        for k in ("flash_attention", "rglru_scan")}
+    t0 = time.perf_counter()
+    if peaks is None and not rehearse:
+        import torch
+        from repro_torch.kernels import cost
+        peaks = cost.PEAKS[cost.variant(torch.cuda.get_device_name(dev))]
+    report["merge"] = _shard_merge(dev, tlog, peaks, rehearse)
+    report["merge"]["part_s"] = time.perf_counter() - t0
+    runs = [r for part in (*report["parts"].values(),
+                           *report["decode"].values())
+            for r in part["runs"].values()]
+    report["launches"] = {k: sum(r["launches"][k] for r in runs) for k in (
+        "flash_attention", "rglru_scan", "decode_attention", "mlstm_scan")}
     report["phase_s"] = time.perf_counter() - t_phase
     tlog(f"shard phase {report['phase_s']:.1f} s on a {backend} mesh "
          f"{report['mesh']} (" + ", ".join(
              f"{k} {v['part_s']:.1f}" for k, v in report["parts"].items())
-         + f"); bitwise " + ", ".join(
+         + ", decode " + ", ".join(
+             f"{k} {v['part_s']:.1f}" for k, v in report["decode"].items())
+         + f", merge {report['merge']['part_s']:.1f}); bitwise " + ", ".join(
              f"{k} {v['bitwise']}" for k, v in report["parts"].items())
+         + ", decode " + ", ".join(
+             f"{k} {v['bitwise']}" for k, v in report["decode"].items())
          + f"; launches {report['launches']}")
     return report
 
@@ -7232,7 +7534,7 @@ def main(argv=None) -> None:
     # against the plain step, each run's counts read around it
     if ph.on(19):
         with ph.span(19):
-            report["shard"] = phase_shard(dev, card)
+            report["shard"] = phase_shard(dev, card, peaks=peaks)
             torch.cuda.empty_cache()
 
     if ph.selected != set(PHASES):
@@ -7347,6 +7649,8 @@ def main(argv=None) -> None:
             full.append(report["train"]["kernel_checks"]["h"]["max_abs_err"])
             full += [report["ft"][k]["mlstm_check"]["max_abs_err"]
                      for k in ("run", "smoke")]
+        if name == "decode_attention":
+            full.append(report["shard"]["merge"]["max_abs_err"])
         lib = [v["library_ms"] for v in parts]
         kernels.append({
             "name": name, "route": "cuda",
@@ -7362,6 +7666,7 @@ def main(argv=None) -> None:
                                   "train": train_ml, "ft": ft_ml,
                                   "serve": serve_n[name],
                                   "mesh": mesh_n[name],
+                                  "shard": shard_n.get(name, 0),
                                   "tooling": tool_n[name]}
                                  if name == "mlstm_scan" else
                                  {"zoo": zoo_counts[name],
@@ -7378,6 +7683,9 @@ def main(argv=None) -> None:
                else {}),
             **({"dh64": ztimes[name + "_dh64"]}
                if name + "_dh64" in ztimes else {}),
+            **({"with_lse": report["shard"]["merge"]["times"],
+                "lse_max_rel": report["shard"]["merge"]["lse_max_rel"]}
+               if name == "decode_attention" else {}),
             **({"on_train_step": {
                 k: report["train"]["profile"].get(k) for k in (
                     "mlstm_launch_ms", "mlstm_bound_ms", "mlstm_bound_by",

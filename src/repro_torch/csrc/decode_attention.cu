@@ -6,7 +6,10 @@
 // (BH, 1, Dh); k, v: (BH, S, Dh); contiguous, f32 or bf16; out (BH, 1, Dh)
 // in q1's dtype.  Slots at or past `length` are masked; q is scaled in
 // f32, the softmax runs online in f32 and its sum is floored at 1e-30, so
-// length 0 gives zeros, as on the TPU.
+// length 0 gives zeros, as on the TPU.  Where `lse` is not null it takes
+// each row's log-sum-exp of the scaled scores, m + log(l) (-1e30 for a row
+// with no slot), so that the outputs of disjoint slot ranges merge into
+// the whole softmax (the cache split across ranks).
 //
 // Bound: device-memory bytes.  Each cache row is read once for one dot and
 // one axpy: at RecurrentGemma-9B's decode (BH = 2048, S = 2048, Dh = 256,
@@ -107,8 +110,9 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
 template <int DH, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 decode_kernel(const T* __restrict__ q1, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ out, int64_t BH,
-              int64_t S, int64_t length, float scale) {
+              const T* __restrict__ v, T* __restrict__ out,
+              float* __restrict__ lse, int64_t BH, int64_t S, int64_t length,
+              float scale) {
   using R = Ring<DH, T>;
   constexpr int EPL = R::kEPL;
   extern __shared__ uint8_t ring_raw[];
@@ -231,6 +235,8 @@ decode_kernel(const T* __restrict__ q1, const T* __restrict__ k,
       L += w_l[w] * f[w];
     }
     const float inv_l = 1.0f / fmaxf(L, 1e-30f);
+    if (lse != nullptr && threadIdx.x == 0)  // L >= 1 once a slot is read
+      lse[bh] = L > 0.f ? M + logf(L) : kNegInf;
     for (int d = threadIdx.x; d < DH; d += 32 * kWarps) {
       float o = 0.f;
 #pragma unroll
@@ -243,7 +249,7 @@ decode_kernel(const T* __restrict__ q1, const T* __restrict__ k,
 
 template <int DH, typename T>
 int launch(const void* q1, const void* k, const void* v, void* out,
-           int64_t BH, int64_t S, int64_t length, float scale,
+           float* lse, int64_t BH, int64_t S, int64_t length, float scale,
            cudaStream_t stream) {
   const int bytes = kStages * kStageBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -258,21 +264,22 @@ int launch(const void* q1, const void* k, const void* v, void* out,
   const unsigned grid = (unsigned)(BH < sms ? BH : sms);
   decode_kernel<DH, T><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q1), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), BH, S, length, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, BH, S, length,
+      scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(int64_t Dh, const void* q1, const void* k, const void* v,
-             void* out, int64_t BH, int64_t S, int64_t length, float scale,
-             cudaStream_t st) {
+             void* out, float* lse, int64_t BH, int64_t S, int64_t length,
+             float scale, cudaStream_t st) {
   switch (Dh) {
     case 64:
-      return launch<64, T>(q1, k, v, out, BH, S, length, scale, st);
+      return launch<64, T>(q1, k, v, out, lse, BH, S, length, scale, st);
     case 128:
-      return launch<128, T>(q1, k, v, out, BH, S, length, scale, st);
+      return launch<128, T>(q1, k, v, out, lse, BH, S, length, scale, st);
     case 256:
-      return launch<256, T>(q1, k, v, out, BH, S, length, scale, st);
+      return launch<256, T>(q1, k, v, out, lse, BH, S, length, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -282,17 +289,19 @@ int dispatch(int64_t Dh, const void* q1, const void* k, const void* v,
 
 // Plain C entry point (bound with ctypes).  q1, out: (BH, 1, Dh); k, v:
 // (BH, S, Dh); contiguous, 16-byte aligned, f32 (bf16 == 0) or bf16
-// (bf16 == 1); Dh 64, 128 or 256; 0 <= length <= S; scale = float32(Dh **
-// -0.5).  Launches on `stream` and returns cudaGetLastError() (0 on
-// success); does not synchronize.
+// (bf16 == 1); lse: null, or (BH,) f32 for each row's log-sum-exp; Dh 64,
+// 128 or 256; 0 <= length <= S; scale = float32(Dh ** -0.5).  Launches on
+// `stream` and returns cudaGetLastError() (0 on success); does not
+// synchronize.
 extern "C" int repro_decode_attention(int bf16, const void* q1,
                                       const void* k, const void* v,
-                                      void* out, int64_t BH, int64_t S,
-                                      int64_t Dh, int64_t length,
+                                      void* out, float* lse, int64_t BH,
+                                      int64_t S, int64_t Dh, int64_t length,
                                       float scale, void* stream) {
   if (BH <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(Dh, q1, k, v, out, BH, S, length,
-                                        scale, st)
-              : dispatch<float>(Dh, q1, k, v, out, BH, S, length, scale, st);
+  return bf16 ? dispatch<__nv_bfloat16>(Dh, q1, k, v, out, lse, BH, S,
+                                        length, scale, st)
+              : dispatch<float>(Dh, q1, k, v, out, lse, BH, S, length, scale,
+                                st);
 }

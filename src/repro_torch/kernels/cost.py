@@ -290,15 +290,17 @@ def flash_work(BH: int, Sq: int, Skv: int, Dh: int, dtype, mode: str,
                 {unit: 4 * Dh * BH * pairs}, flops=4 * Dh * BH * visited)
 
 
-def decode_work(BH: int, length: int, Dh: int, dtype) -> Work:
+def decode_work(BH: int, length: int, Dh: int, dtype,
+                lse: bool = False) -> Work:
     """One query against the first ``length`` cache slots: those slots of k
-    and v read once, the query read and the output written; the two
-    products in f32 on the CUDA cores."""
+    and v read once, the query read and the output written (and, with
+    ``lse``, one f32 log-sum-exp a row); the two products in f32 on the
+    CUDA cores."""
     item = _item(dtype)
     flops = 4 * BH * length * Dh
     return Work("decode_attention", item * (2 * BH * length * Dh
-                                            + 2 * BH * Dh),
-                {"f32": flops}, flops=flops)
+                                            + 2 * BH * Dh)
+                + (4 * BH if lse else 0), {"f32": flops}, flops=flops)
 
 
 # ---------------------------------------------------------------------------

@@ -13,11 +13,13 @@ device of its input: the kernel on CUDA, its plain version on the CPU.
   ``autograd.Function`` (``flash_attention.FlashAttention``,
   ``rglru_scan.RGLRUScan``), so they have a gradient on either device;
   :func:`mlstm_scan_trainable` is the mLSTM with a gradient
-  (``mlstm_scan.MLSTMScan``), the models' path.  :func:`flash_attention`
-  and :func:`rglru_scan` also take DTensors (a sharded train step): they
-  run the same code on each rank's local shard
+  (``mlstm_scan.MLSTMScan``), the models' path.  :func:`flash_attention`,
+  :func:`rglru_scan` and the mLSTM also take DTensors (a sharded train
+  step): they run the same code on each rank's local shard
   (``parallel/sharding.py::on_local_shards``), batch and heads (or the
-  LRU width) split, and raise for a split sequence or head vector.
+  LRU width) split, and raise for a split sequence or head vector;
+  :func:`decode_attention` runs on each rank's slots of a cache split
+  along them and merges the pieces across ranks.
   The TPU tiling arguments of the
   reference (``qb``, ``kb``, ``bb``, ``sb``, ``wb``) have no counterpart.
 * :func:`quantize_array` and :func:`dequantize_array` take arrays of any
@@ -32,7 +34,8 @@ from __future__ import annotations
 
 import torch
 
-from ..parallel.sharding import on_local_shards
+from ..parallel.sharding import (constrain, is_dtensor, on_local_shards,
+                                 on_local_slots)
 from . import decode_attention as _da
 from . import flash_attention as _fa
 from . import mlstm_scan as _ml
@@ -76,24 +79,50 @@ def decode_attention(q1: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, 1, H, Dh), k/v (B, Sc, H, Dh) (already expanded to the q heads);
     ``length`` (a host int) leading cache slots are attended.  Returns
     (B, 1, H, Dh).  A cache laid out head-major in memory (what
-    ``models/attention.py::expand_kv`` makes) folds without a copy."""
-    B, _, H, Dh = q1.shape
-    fold = lambda t: t.transpose(1, 2).reshape(B * H, t.shape[1], Dh)
-    out = _da.decode_attention(fold(q1), fold(k), fold(v), length)
-    return out.reshape(B, H, 1, Dh).transpose(1, 2)
+    ``models/attention.py::expand_kv`` makes) folds without a copy.  On a
+    DTensor cache the kernel runs on each rank's local slots (and batch and
+    heads, as they are split), returning its log-sum-exp, and the pieces
+    merge across the ranks that split the slots
+    (``parallel/sharding.py::on_local_slots``, ``merge_across``); the
+    output leaves under the reference's ``("batch", "seq", "heads",
+    "head_dim")``."""
+    def local(q1, k, v, length, return_lse=True):
+        B, _, H, Dh = q1.shape
+        fold = lambda t: t.transpose(1, 2).reshape(B * H, t.shape[1], Dh)
+        got = _da.decode_attention(fold(q1), fold(k), fold(v), length,
+                                   return_lse=return_lse)
+        unfold = lambda o: o.reshape(B, H, 1, Dh).transpose(1, 2)
+        if not return_lse:
+            return unfold(got)
+        return unfold(got[0]), got[1].reshape(B, 1, H)
+
+    if not any(is_dtensor(t) for t in (q1, k, v)):
+        return local(q1, k, v, length, return_lse=False)
+    out = on_local_slots(local, q1, k, v, length, _da.merge_across,
+                         "decode_attention")
+    return constrain(out, ("batch", "seq", "heads", "head_dim"))
+
+
+#: the mLSTM's layouts: q, k, v, then the two gates.
+_MLSTM_AXES = ((("batch", "heads", "seq", "head_dim"),) * 3
+               + (("batch", "heads", "seq"),) * 2)
 
 
 def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                li: torch.Tensor, lf: torch.Tensor, *,
                chunk: int = 256) -> torch.Tensor:
     """The mLSTM in the model layout: q/k/v (B, H, S, Dh), li/lf
-    (B, H, S); returns (B, H, S, Dh)."""
-    B, H, S, Dh = q.shape
-    fold = lambda t: t.reshape(B * H, S, Dh)
-    fold2 = lambda t: t.reshape(B * H, S)
-    out = _ml.mlstm_scan(fold(q), fold(k), fold(v), fold2(li), fold2(lf),
-                         chunk=chunk)
-    return out.reshape(B, H, S, Dh)
+    (B, H, S); returns (B, H, S, Dh).  On DTensors the kernel runs on each
+    rank's (B / data, H / model) shard."""
+    def local(q, k, v, li, lf):
+        B, H, S, Dh = q.shape
+        fold = lambda t: t.reshape(B * H, S, Dh)
+        fold2 = lambda t: t.reshape(B * H, S)
+        out = _ml.mlstm_scan(fold(q), fold(k), fold(v), fold2(li),
+                             fold2(lf), chunk=chunk)
+        return out.reshape(B, H, S, Dh)
+    return on_local_shards(local, (q, k, v, li, lf), _MLSTM_AXES,
+                           "mlstm_scan")
 
 
 def mlstm_scan_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -102,8 +131,12 @@ def mlstm_scan_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The mLSTM from zero state with a gradient, in the model layout: q/k/v
     (B, H, S, Dh), li/lf (B, H, S), f32.  Returns ``(h, (C, n, m))``: h
     (B, H, S, Dh) and the last chunk's starting state (no gradient flows
-    through it), from which one ``_mlstm_chunk`` gives the final state."""
-    h, C, n, m = _ml.MLSTMScan.apply(q, k, v, li, lf, chunk)
+    through it), from which one ``_mlstm_chunk`` gives the final state.
+    On DTensors the kernel runs on each rank's (B / data, H / model)
+    shard, and all four come back split so."""
+    h, C, n, m = on_local_shards(
+        lambda *a: _ml.MLSTMScan.apply(*a, chunk), (q, k, v, li, lf),
+        _MLSTM_AXES, "mlstm_scan", n_out=4)
     return h, (C, n, m)
 
 

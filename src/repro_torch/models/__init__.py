@@ -10,16 +10,15 @@ of a workload shape's inputs (with their shardings on a device mesh).
 
 The train step also runs sharded: with parameters, optimizer state and a
 batch that are DTensors (``parallel/sharding.py::place_tree``) under an
-active mesh, each microbatch takes each rank's own rows, the gradients
-come back in their parameters' placements (the data-parallel sums reduced
-there) and the loss is a replicated scalar.  Those microbatches hold other
-rows than the unsharded split's, which gives the same step only while
-every microbatch of either split has as many unmasked labels; a sharded
-step with ``microbatches > 1`` raises otherwise.
+active mesh, each microbatch takes the reference's global rows (laid out
+over the batch axes again), the gradients come back in their parameters'
+placements (the data-parallel sums reduced there) and the loss is a
+replicated scalar.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -74,8 +73,9 @@ class Model:
         bw = B // waves
         outs = []
         for w in range(waves):
-            wb = {k: (None if x is None else x[w * bw:(w + 1) * bw])
-                  for k, x in batch.items()}
+            wb = batch if waves == 1 else {
+                k: (None if x is None else x[w * bw:(w + 1) * bw])
+                for k, x in batch.items()}
             outs.append(tfm.forward(self.cfg, params, wb["tokens"],
                                     prefix=wb.get("prefix"),
                                     frames=wb.get("frames"),
@@ -117,9 +117,10 @@ class Model:
             if k == 1:
                 loss, grads, td = value_and_grad(cfg, params, batch)
             else:
-                _check_split(batch["labels"], k)
-                mbs = [{key: _microbatch(x, k, i) for key, x in
-                        batch.items()} for i in range(k)]
+                parts = {key: _microbatches(x, k)
+                         for key, x in batch.items()}
+                mbs = [{key: p[i] for key, p in parts.items()}
+                       for i in range(k)]
                 acc, losses = None, []
                 for mb in mbs:
                     l, g, td = value_and_grad(cfg, params, mb)
@@ -153,49 +154,28 @@ def value_and_grad(cfg: ArchConfig, params, batch):
     return shd.replicate(loss.detach()), grads, td
 
 
-def _microbatch(x, k: int, i: int):
-    """Rows ``i`` of ``k`` equal parts of a batch leaf.  Of a DTensor, each
-    rank's part ``i`` of its own rows (no rows cross ranks): the
-    microbatches then differ from the unsharded split's, and their mean
-    loss and summed gradients are the same sums in another order when
-    every microbatch has as many unmasked labels (:func:`_check_split`)."""
-    from torch.distributed.tensor import DTensor
-    part = shd.local(x).chunk(k, dim=0)[i]
-    if not isinstance(x, DTensor):
-        return part
-    return DTensor.from_local(part, x.device_mesh, x.placements,
-                              run_check=False)
-
-
-def _check_split(labels, k: int) -> None:
-    """Raise unless :func:`_microbatch`'s split of a batch-sharded
-    ``labels`` gives the unsharded split's step: the loss is a mean of the
-    ``k`` microbatches' masked means, so the two agree only when every
-    microbatch of both splits holds as many labels >= 0 (or when the
-    batch is not split, and the splits are one).  Reads the labels' row
-    counts on the host."""
-    from torch.distributed.tensor import DTensor
-    if not isinstance(labels, DTensor):
-        return
-    mesh = labels.device_mesh
-    shards = 1
-    for dim, p in enumerate(labels.placements):
-        if p.is_shard(0):
-            shards *= mesh.size(dim)
-    B = labels.shape[0]
-    if B % (shards * k):
-        raise ValueError(f"a batch of {B} rows on {shards} shards does not "
-                         f"split into {k} microbatches a shard")
-    if shards == 1:
-        return
-    rows = (labels >= 0).sum(-1).full_tensor()          # (B,) every rank
-    counts = torch.cat([rows.reshape(shards, k, -1).sum((0, 2)),
-                        rows.reshape(k, -1).sum(1)]).tolist()
-    if len(set(counts)) > 1:
-        raise ValueError(
-            f"unmasked labels per microbatch {counts[:k]} (sharded split) "
-            f"and {counts[k:]} (unsharded split) differ: the sharded step "
-            f"would weigh the rows otherwise than the unsharded one")
+def _microbatches(x, k: int) -> list:
+    """The ``k`` microbatches of a batch leaf, as the reference splits it:
+    microbatch ``i`` holds global rows ``[i B/k, (i+1) B/k)``.  Of a
+    batch-sharded DTensor, the rows are gathered once (a few MB of ints)
+    and each microbatch is laid out as the leaf was, its rows split over
+    the same mesh axes where they divide them (else replicated there)."""
+    B = x.shape[0]
+    if B % k:
+        raise ValueError(f"a batch of {B} rows does not split into {k} "
+                         f"microbatches")
+    if not shd.is_dtensor(x):
+        return list(x.chunk(k, dim=0))
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh, rows = x.device_mesh, B // k
+    split = [d for d, p in enumerate(x.placements) if p.is_shard(0)]
+    keep = rows % math.prod(mesh.size(d) for d in split) == 0
+    pl = tuple(Replicate() if p.is_shard(0) and not keep else p
+               for p in x.placements)
+    whole = shd.replicate(x).to_local()
+    return [DTensor.from_local(part, mesh, (Replicate(),) * mesh.ndim,
+                               run_check=False).redistribute(mesh, pl)
+            for part in whole.chunk(k, dim=0)]
 
 
 def build(cfg: ArchConfig) -> Model:

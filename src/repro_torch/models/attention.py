@@ -17,7 +17,9 @@ reads it.
 * :func:`decode_attention` maps the reference's ``slot_pos`` mask to the
   number of leading cache slots it allows (:func:`decode_length`, worked
   out on the host) and launches ``kernels/ops.py::decode_attention`` on
-  the KV cache expanded to the q heads.
+  the KV cache expanded to the q heads; a cache split over ``model``
+  along its slots (the reference's ``kv_seq_mp``) is read where it lies
+  and the ranks' pieces merged (flash-decoding across ranks).
 * :func:`cross_attention` (whisper's decoder over the encoder output) is
   flash in the ``bidir`` mode with Sq != Skv; its decode
   (:func:`cross_decode_attention`) reads all of the cross cache.
@@ -61,7 +63,7 @@ def _head_mask(cfg, device=None) -> torch.Tensor:
     return torch.arange(padded_heads(cfg), device=device) < cfg.n_heads
 
 
-def expand_kv(cfg, kv: torch.Tensor) -> torch.Tensor:
+def expand_kv(cfg, kv: torch.Tensor, seq: str = "seq") -> torch.Tensor:
     """(B, S, Hkv, Dh) -> (B, S, Hq_pad, Dh): the reference's per-head
     gather, KV head j serving q heads j*G .. j*G + G - 1 (G = n_heads //
     Hkv) and any head past Hkv * G (padded, or a group size that does not
@@ -70,7 +72,10 @@ def expand_kv(cfg, kv: torch.Tensor) -> torch.Tensor:
     the kernels' fold of heads (``t.transpose(1, 2).reshape(B * H, S,
     Dh)``) is a view of it (``index_select`` on the transposed cache runs
     as a gather at a quarter of the rate on the H100, PERF.md §6).  Heads
-    past Hkv * G add a second copy; no config of the port has them."""
+    past Hkv * G add a second copy; no config of the port has them.  The
+    result is constrained as ``("batch", seq, "heads", "head_dim")``: a
+    decode cache passes ``seq="kv_seq_mp"``, which keeps each rank's slots
+    where they are (the heads then stay whole on a rank)."""
     B, S, Hkv, Dh = kv.shape
     G = cfg.n_heads // Hkv
     pad = padded_heads(cfg) - Hkv * G
@@ -79,7 +84,7 @@ def expand_kv(cfg, kv: torch.Tensor) -> torch.Tensor:
     if pad:
         heads = torch.cat([heads, heads[:, -1:].expand(B, pad, S, Dh)], 1)
     return constrain(heads.transpose(1, 2),
-                     ("batch", "seq", "heads", "head_dim"))
+                     ("batch", seq, "heads", "head_dim"))
 
 
 # ---------------------------------------------------------------------------
@@ -161,10 +166,13 @@ def decode_attention(cfg, q1: torch.Tensor, ck: torch.Tensor,
     cache (:func:`decode_length`), so no slot positions are read here.
 
     The cache is expanded to the q heads (one copy, ``expand_kv``) and
-    read by the decode kernel, one query row per (batch, head)."""
+    read by the decode kernel, one query row per (batch, head).  A cache
+    split over its slots (``kv_seq_mp``) stays so: each rank expands and
+    reads its own slots, and ``ops.decode_attention`` merges the ranks'
+    softmax pieces."""
     length = decode_length(mode, int(pos), ck.shape[1], window, chunk)
-    return kops.decode_attention(q1, expand_kv(cfg, ck), expand_kv(cfg, cv),
-                                 length)
+    return kops.decode_attention(q1, expand_kv(cfg, ck, "kv_seq_mp"),
+                                 expand_kv(cfg, cv, "kv_seq_mp"), length)
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,8 @@ recurrences run in float32.
   forward kept.  From a given state it scans :func:`_mlstm_chunk` (the
   reference's ``lax.scan`` over ``jax.checkpoint(_mlstm_chunk)``).
 * The sLSTM is a sequential scan, a Python loop over time steps: neither
-  package has a kernel for it.
+  package has a kernel for it.  On DTensors it runs on each rank's local
+  rows.
 * The RG-LRU computes its gates as the reference does and runs its
   linear scan through ``kernels/ops.py::rglru_scan`` from the state's h,
   whose gradient is the reverse scan through the same kernel (the
@@ -21,9 +22,10 @@ recurrences run in float32.
 The reference's sharding constraints stand at its points
 (``parallel/sharding.py::constrain``).  On DTensors the RG-LRU's initial
 state h0 and conv pad are made on the input's mesh, batch and width split as
-the activations are (``sharding.sharded_full``), and its scan runs on
-each rank's shard; the mLSTM and sLSTM carry their constraints, but their
-DTensor run is not held yet.
+the activations are (``sharding.sharded_full``; the zero states likewise),
+and its scan runs on each rank's shard; the mLSTM kernel runs on each
+rank's (batch, heads) shard, its heads kept whole on a rank from the
+projections on, and the sLSTM's loop on each rank's rows.
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kops
-from ..parallel.sharding import constrain, sharded_full
+from ..parallel.sharding import (constrain, elementwise, on_local_shards,
+                                 replicated, sharded_full)
 from .layers import act_fn
 from .spec import ParamSpec
 
@@ -79,12 +82,24 @@ class RGLRUState(NamedTuple):
     conv: torch.Tensor    # (B, conv_width - 1, w) conv tail
 
 
-def rglru_zero_state(cfg, batch: int, dtype=F32,
-                     device=None) -> RGLRUState:
+def _zeros(shape, logical, dtype, device, like):
+    """Zeros of ``shape``: on ``like``'s mesh under ``logical`` (each rank
+    making its shard) when ``like`` is a DTensor, else on ``device`` (or
+    ``like``'s)."""
+    if like is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return sharded_full(shape, 0, logical, like, dtype)
+
+
+def rglru_zero_state(cfg, batch: int, dtype=F32, device=None,
+                     like=None) -> RGLRUState:
+    """The zero state, laid out as ``cache_spec``'s: on ``like``'s mesh
+    when ``like`` (an input) is a DTensor."""
     w = cfg.lru_width or cfg.d_model
-    return RGLRUState(h=torch.zeros((batch, w), dtype=dtype, device=device),
-                      conv=torch.zeros((batch, cfg.conv_width - 1, w),
-                                       dtype=dtype, device=device))
+    return RGLRUState(
+        h=_zeros((batch, w), ("batch", "lru"), dtype, device, like),
+        conv=_zeros((batch, cfg.conv_width - 1, w), ("batch", None, "lru"),
+                    dtype, device, like))
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -190,12 +205,15 @@ class MLSTMState(NamedTuple):
     m: torch.Tensor  # (B, H) running max exponent, f32
 
 
-def mlstm_zero_state(cfg, batch: int, device=None) -> MLSTMState:
+def mlstm_zero_state(cfg, batch: int, device=None, like=None) -> MLSTMState:
+    """The zero state, laid out as ``cache_spec``'s: on ``like``'s mesh
+    when ``like`` (an input) is a DTensor."""
     h = cfg.n_heads
     dh = 2 * cfg.d_model // h
-    z = lambda *s: torch.zeros(s, dtype=F32, device=device)
-    return MLSTMState(C=z(batch, h, dh, dh), n=z(batch, h, dh),
-                      m=z(batch, h))
+    z = lambda shape, logical: _zeros(shape, logical, F32, device, like)
+    return MLSTMState(C=z((batch, h, dh, dh), ("batch", "heads", None, None)),
+                      n=z((batch, h, dh), ("batch", "heads", None)),
+                      m=z((batch, h), ("batch", "heads")))
 
 
 def _mlstm_chunk(q, k, v, li, lf, state: MLSTMState):
@@ -209,7 +227,8 @@ def _mlstm_chunk(q, k, v, li, lf, state: MLSTMState):
 
     # per-position stabilizer
     intra_exp = b[..., :, None] - b[..., None, :] + li[..., None, :]
-    causal = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
+    causal = replicated(torch.ones((L, L), dtype=torch.bool,
+                                   device=q.device).tril(), q)
     intra_exp = torch.where(causal, intra_exp, -torch.inf)
     m_intra = intra_exp.amax(dim=-1)                 # (B,H,L)
     m_inter = m0[..., None] + b                      # (B,H,L)
@@ -259,16 +278,16 @@ def mlstm_inputs(cfg, p: dict, x: torch.Tensor, compute_dtype):
     Dh = 2 * d // H
     xm = constrain(x @ p["up"].to(cd), ("batch", "seq", "lru"))
 
-    def heads(w):
-        y = xm @ w.to(cd)
-        return y.reshape(B, S, H, Dh).transpose(1, 2).to(F32)
+    def heads(w):        # columns split by whole heads, as project_heads
+        y = constrain(xm @ w.to(cd), ("batch", "seq", "heads"), (B, S, H))
+        return y.unflatten(-1, (H, Dh)).transpose(1, 2).to(F32)
 
     q = heads(p["wq"]) * (Dh ** -0.5)
     k = heads(p["wk"]) * (Dh ** -0.5)
     v = heads(p["wv"])
     gif = x.to(F32) @ p["w_if"].to(F32) + p["b_if"].to(F32)
     li = gif[..., :H].transpose(1, 2)                # (B,H,S) log input gate
-    lf = F.logsigmoid(gif[..., H:]).transpose(1, 2)
+    lf = elementwise(F.logsigmoid, gif[..., H:]).transpose(1, 2)
     L = min(cfg.mlstm_chunk, S)
     if S % L:
         L = S
@@ -324,8 +343,10 @@ class SLSTMState(NamedTuple):
     h: torch.Tensor  # (B, d) hidden, f32
 
 
-def slstm_zero_state(cfg, batch: int, device=None) -> SLSTMState:
-    z = torch.zeros((batch, cfg.d_model), dtype=F32, device=device)
+def slstm_zero_state(cfg, batch: int, device=None, like=None) -> SLSTMState:
+    """The zero state, laid out as ``cache_spec``'s: on ``like``'s mesh
+    when ``like`` (an input) is a DTensor."""
+    z = _zeros((batch, cfg.d_model), ("batch", "lru"), F32, device, like)
     return SLSTMState(c=z, n=z, m=z, h=z)
 
 
@@ -361,20 +382,36 @@ def _slstm_step(cfg, p, state: SLSTMState, wx_t: torch.Tensor,
     return SLSTMState(c=c_new, n=n_new, m=m_new, h=h_new)
 
 
+def _slstm_scan(cfg, wx, r32, *state):
+    """The time loop from ``state`` (c, n, m, h) over ``wx`` (B, S, 4d), on
+    plain tensors: (h_seq (B, S, d) f32, c, n, m, h)."""
+    st = SLSTMState(*state)
+    one = wx.new_ones(())
+    hs = []
+    for t in range(wx.shape[1]):
+        st = _slstm_step(cfg, None, st, wx[:, t], r32, one)
+        hs.append(st.h)
+    return (torch.stack(hs, dim=1), *st)
+
+
 def slstm_block(cfg, p: dict, x: torch.Tensor, compute_dtype,
                 state: Optional[SLSTMState] = None):
-    """x: (B, S, d) -> (y, new_state)."""
+    """x: (B, S, d) -> (y, new_state).  On DTensors the time loop runs on
+    each rank's batch rows with ``wx`` whole over its ``4d`` axis (one
+    redistribution a block: the z, i, f, o gates of a unit lie on
+    different ranks of ``model`` otherwise), so its steps pay no DTensor
+    dispatch; the state then takes ``cache_spec``'s layout."""
     B, S, d = x.shape
     cd = compute_dtype
     wx = x.to(F32) @ p["w"].to(F32) + p["b"].to(F32)
-    st = state if state is not None else slstm_zero_state(cfg, B, x.device)
-    r32 = p["r"].to(F32)
-    one = wx.new_ones(())
-    hs = []
-    for t in range(S):
-        st = _slstm_step(cfg, p, st, wx[:, t], r32, one)
-        hs.append(st.h)
-    h_seq = torch.stack(hs, dim=1).to(cd)            # (B, S, d)
+    st = state if state is not None else slstm_zero_state(cfg, B, like=x)
+    row = ("batch", None)
+    out = on_local_shards(
+        lambda *a: _slstm_scan(cfg, *a), (wx, p["r"].to(F32), *st),
+        (("batch", "seq", None), (None, None, None)) + (row,) * 4, "slstm",
+        n_out=5)
+    st = SLSTMState(*(constrain(t, ("batch", "lru")) for t in out[1:]))
+    h_seq = constrain(out[0], ("batch", "seq", "act_embed")).to(cd)
     a = act_fn(cfg.act)
     g = h_seq @ p["ffn_g"].to(cd)
     u = h_seq @ p["ffn_u"].to(cd)

@@ -43,7 +43,8 @@ from ..ckpt.tree import tree_flatten, tree_map, tree_unflatten
 from . import attention as attn
 from . import moe as moe_mod
 from . import recurrent as rec
-from ..parallel.sharding import constrain, replicated
+from ..parallel.sharding import (constrain, like_placements, replicated,
+                                 set_index)
 from .layers import (apply_norm, norm_spec, mlp_spec, apply_mlp, embed_spec,
                      embed_lookup, unembed, cross_entropy,
                      sinusoidal_positions)
@@ -336,10 +337,14 @@ def _ffn(cfg, kind: str, p: dict, x: torch.Tensor, cd) -> torch.Tensor:
 
 def _to_cache(k: torch.Tensor, Sc: int) -> torch.Tensor:
     """Lay out prefilled K/V (B, S, H, Dh) as a ring buffer of length Sc
-    where absolute position p sits at slot p % Sc."""
+    where absolute position p sits at slot p % Sc.  The roll is two
+    slices joined (``torch.roll`` has no DTensor rule in every torch the
+    port runs on)."""
     S = k.shape[1]
     if S >= Sc:
-        return torch.roll(k[:, -Sc:], (S - Sc) % Sc, dims=1)
+        last, r = k[:, -Sc:], (S - Sc) % Sc
+        return torch.cat([last[:, Sc - r:], last[:, :Sc - r]], dim=1) \
+            if r else last
     pad = k.new_zeros((k.shape[0], Sc - S) + tuple(k.shape[2:]))
     return torch.cat([k, pad], dim=1)
 
@@ -547,7 +552,8 @@ def apply_layer_decode(cfg, kind: str, p: dict, x: torch.Tensor, entry,
                        pos, enc_out=None):
     """One block for a single token.  x: (B, 1, d); pos: the host int
     position.  Returns (x, new_entry): an attention kind's new K/V are
-    written into ``entry``'s tensors at slot ``pos % Sc`` (in place), a
+    written into ``entry``'s tensors at slot ``pos % Sc`` (in place; of a
+    cache split over its slots, by the rank that holds the slot), a
     recurrent kind's state is new.  An ``xattn`` block also attends the
     entry's cross K/V, all of it."""
     cd = torch_dtype(cfg.compute_dtype)
@@ -579,15 +585,14 @@ def apply_layer_decode(cfg, kind: str, p: dict, x: torch.Tensor, entry,
     if cfg.kv_cache_dtype == "int8":
         k1q, k1s = _kv_quant(k1)
         v1q, v1s = _kv_quant(v1)
-        ck[:, slot] = k1q[:, 0]
-        cv[:, slot] = v1q[:, 0]
-        entry["k_scale"][:, slot] = k1s[:, 0]
-        entry["v_scale"][:, slot] = v1s[:, 0]
+        for key, new in (("k", k1q), ("v", v1q), ("k_scale", k1s),
+                         ("v_scale", v1s)):
+            set_index(entry[key], 1, slot, new[:, 0])
         ck_c = _kv_dequant(ck, entry["k_scale"], cd)
         cv_c = _kv_dequant(cv, entry["v_scale"], cd)
     else:
-        ck[:, slot] = k1[:, 0]
-        cv[:, slot] = v1[:, 0]
+        set_index(ck, 1, slot, k1[:, 0])
+        set_index(cv, 1, slot, v1[:, 0])
         ck_c, cv_c = ck, cv
     out = attn.decode_attention(cfg, q, ck_c, cv_c, pos, mode=mode,
                                 window=cfg.window, chunk=cfg.chunk)
@@ -607,7 +612,8 @@ def decode_step(cfg, params, cache, token):
     The cache's K/V and state tensors are updated in place (the cache
     passed in is consumed); the new cache shares them, with ``pos`` one
     further and the current slot marked in ``slot_pos``.  Nothing here
-    reads the device: ``pos`` and ``slot_pos`` live on the host."""
+    reads the device: ``pos`` and ``slot_pos`` live on the host.  A cache
+    of DTensors (a sharded prefill's) keeps every leaf's placements."""
     pat, n, tail = super_block(cfg)
     pos = int(cache["pos"])
     # the reference's slot positions, kept in the cache's tree; the mask
@@ -620,8 +626,8 @@ def decode_step(cfg, params, cache, token):
     x = _embed_inputs(cfg, params, token)
     if cfg.is_encoder_decoder:
         cd = torch_dtype(cfg.compute_dtype)
-        x = x + sinusoidal_positions(1, cfg.d_model, offset=pos,
-                                     device=x.device).to(cd)
+        x = x + replicated(sinusoidal_positions(
+            1, cfg.d_model, offset=pos, device=x.device).to(cd), x)
 
     pslices = [_unstack(stage, n) for stage in params["stages"]]
     stages = cache["layers"]["stages"]
@@ -634,12 +640,14 @@ def decode_step(cfg, params, cache, token):
             if kind in RECURRENT_KINDS:     # into the stacked state, in place
                 for old, new in zip(tree_flatten(ent)[0],
                                     tree_flatten(ne)[0]):
-                    old.copy_(new)
+                    old.copy_(like_placements(new, old))
 
     new_tail = []
     for kind, psl, ent in zip(tail, params["tail"],
                               cache["layers"]["tail"]):
         x, ne = apply_layer_decode(cfg, kind, psl, x, ent, pos)
+        if kind in RECURRENT_KINDS:         # in the cache's placements
+            ne = type(ne)(*(like_placements(a, b) for a, b in zip(ne, ent)))
         new_tail.append(ne)
 
     logits = _logits(cfg, params, x)

@@ -36,8 +36,11 @@ DTensors (:func:`place_tree`, the reference's ``jax.device_put``) runs
 sharded: DTensor's own rules propagate the placements between those
 points, and a fresh tensor that meets a DTensor enters as a replicated
 one (:func:`replicated`, :func:`sharded_full`).  The kernels run on each
-rank's local shard (:func:`on_local_shards`).  Without an active mesh every
-one of these is the identity.
+rank's local shard (:func:`on_local_shards`; decode on each rank's slots
+of the KV cache, merged across ranks: :func:`on_local_slots`), and decode
+writes its cache in place on the rank that holds the slot
+(:func:`set_index`).  Without an active mesh every one of these is the
+identity.
 
 A mesh is a :class:`torch.distributed.device_mesh.DeviceMesh` with mesh
 dim names, or any mapping ``{axis name: size}`` in mesh order (what a
@@ -340,6 +343,10 @@ def _dtensor():
     return DTensor
 
 
+def is_dtensor(x) -> bool:
+    return isinstance(x, _dtensor())
+
+
 def replicated(t, like):
     """``t``, a plain tensor with the same values on every rank (an
     ``arange``, a table of constants), as a DTensor replicated on the mesh
@@ -432,18 +439,21 @@ def _local_placements(x, logical, mesh, what: str) -> tuple:
 
 
 def on_local_shards(fn, args: Sequence, in_logical: Sequence,
-                    what: str = "fn"):
+                    what: str = "fn", n_out: int = 1):
     """``fn(*args)`` on each rank's local shards.
 
     Where an argument is a DTensor, each argument is placed under the
     sharding its logical axes (``in_logical``, one tuple an argument)
     resolve to on its mesh under the active rules (a plain tensor enters as
     a replicated DTensor first), ``fn`` runs on the local tensors, and its
-    one output, of the first argument's shape, comes back as a DTensor
-    with the first argument's placements
+    output (``n_out`` of them, a tuple, when ``n_out > 1``) comes back as
+    DTensors with the first argument's placements: each output shares the
+    first argument's leading dims up to the last one split there
     (``torch.distributed.tensor.experimental.local_map``, whose autograd
-    carries the local gradients through).  Without a DTensor argument this
-    is ``fn(*args)``."""
+    carries the local gradients through; an argument replicated on a mesh
+    dim that splits another takes a partial gradient there, summed by the
+    redistribution that follows).  Without a DTensor argument this is
+    ``fn(*args)``."""
     DTensor = _dtensor()
     like = next((a for a in args if isinstance(a, DTensor)), None)
     if like is None:
@@ -456,5 +466,111 @@ def on_local_shards(fn, args: Sequence, in_logical: Sequence,
         pl = _local_placements(a, lg, mesh, what)
         placed.append(_redistribute(a, mesh, pl))
         in_pl.append(pl)
-    return local_map(fn, out_placements=(in_pl[0],),
-                     in_placements=tuple(in_pl), device_mesh=mesh)(*placed)
+    # an argument whole on a mesh dim that splits another one (the sLSTM's
+    # recurrent weights against its rows) gets a partial sum there from
+    # each rank's slice of the work: its gradient is Partial on that dim
+    from torch.distributed.tensor import Partial, Shard
+    split = {d for pl in in_pl for d, p in enumerate(pl)
+             if isinstance(p, Shard)}
+    grad_pl = tuple(tuple(Partial() if d in split and p.is_replicate()
+                          else p for d, p in enumerate(pl)) for pl in in_pl)
+    out_pl = (in_pl[0],) if n_out == 1 else (in_pl[0],) * n_out
+    return local_map(fn, out_placements=out_pl, in_placements=tuple(in_pl),
+                     in_grad_placements=grad_pl, device_mesh=mesh)(*placed)
+
+
+def elementwise(fn, x):
+    """``fn(x)`` for an elementwise ``fn`` that DTensor has no rule for
+    (``logsigmoid``'s backward): of a DTensor, ``fn`` on its local tensor,
+    the result laid out as ``x`` (a partial sum reduced first), through
+    ``local_map``, whose autograd carries the gradient."""
+    DTensor = _dtensor()
+    if not isinstance(x, DTensor):
+        return fn(x)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    x = _redistribute(x, x.device_mesh, pl)
+    return local_map(fn, out_placements=(pl,), in_placements=(pl,),
+                     device_mesh=x.device_mesh)(x)
+
+
+def split_range(x, dim: int, what: str = "fn") -> tuple:
+    """``(mesh dims, start, size)`` of this rank's piece of ``x``'s dim
+    ``dim``: the mesh dims that split it (DTensor splits over them left to
+    right, major first), the global index of the piece's first element and
+    its length.  Raises where the split is uneven."""
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    dims = [i for i, p in enumerate(x.placements)
+            if isinstance(p, Shard) and p.dim == dim]
+    n = math.prod(mesh.size(i) for i in dims)
+    if x.shape[dim] % n:
+        raise ValueError(f"{what}: dim {dim} of {tuple(x.shape)} is split "
+                         f"over {n} ranks, which do not divide it")
+    idx = 0
+    for i in dims:
+        idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+    size = x.shape[dim] // n
+    return dims, idx * size, size
+
+
+def set_index(x, dim: int, index: int, value) -> None:
+    """``x.select(dim, index).copy_(value)``, in place.  Of a DTensor, the
+    rank (or ranks) whose local shard holds ``index`` along ``dim`` write
+    it there, ``value`` laid out as ``x``'s other dims (a plain ``value``
+    enters as a replicated DTensor); no shard of ``x`` moves."""
+    DTensor = _dtensor()
+    if not isinstance(x, DTensor):
+        x.select(dim, index).copy_(value)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    pl = tuple(Replicate() if not isinstance(p, Shard) or p.dim == dim
+               else Shard(p.dim - (p.dim > dim)) for p in x.placements)
+    value = _redistribute(replicated(value, x), mesh, pl)
+    _, start, size = split_range(x, dim, "set_index")
+    if start <= index < start + size:
+        x.to_local().select(dim, index - start).copy_(value.to_local())
+
+
+def on_local_slots(fn, q1, k, v, length: int, merge, what: str = "fn"):
+    """One query against a KV cache on each rank's local slots.
+
+    ``q1`` (B, 1, H, Dh); ``k``, ``v`` (B, Sc, H, Dh), the cache; the first
+    ``length`` (a host int) slots are attended.  Where the cache is a
+    DTensor, each rank keeps its shard as it is laid out: batch and heads
+    split as they are, and along the slots (the reference's ``kv_seq_mp``)
+    the rank at piece r of M holds slots [r Sc / M, (r + 1) Sc / M), a
+    prefix of which, ``clamp(length - r Sc / M, 0, Sc / M)`` slots, is
+    valid.  ``q1`` enters laid out as the cache with its slot splits
+    replicated (an all-gather of a few KB), ``fn(q1, k, v, local_length)``
+    gives ``(out, lse)`` on the local tensors, and ``merge(out, lse,
+    groups)`` joins the pieces across the mesh dims that split the slots
+    (``groups``: ``(mesh, dim)`` pairs).  The output is a DTensor laid out
+    as ``q1`` entered.  Without a DTensor this is ``fn(q1, k, v,
+    length)[0]``.  A cache split along ``head_dim``, or along its slots
+    unevenly, raises."""
+    DTensor = _dtensor()
+    like = next((a for a in (k, v, q1) if isinstance(a, DTensor)), None)
+    if like is None:
+        return fn(q1, k, v, length)[0]
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = like.device_mesh
+    k = replicated(k, like)
+    v = _redistribute(replicated(v, like), mesh, k.placements)
+    for p in k.placements:
+        if p.is_partial() or (isinstance(p, Shard) and p.dim == 3):
+            raise ValueError(f"{what}: the cache is laid out as "
+                             f"{tuple(k.placements)}; the kernel takes whole "
+                             f"head vectors of summed values")
+    dims, start, size = split_range(k, 1, what)
+    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+               for p in k.placements)
+    q1 = _redistribute(replicated(q1, like), mesh, pl)
+    out, lse = fn(q1.to_local(), k.to_local(), v.to_local(),
+                  min(max(length - start, 0), size))
+    if dims:
+        out = merge(out, lse, [(mesh, i) for i in dims])
+    return DTensor.from_local(out, mesh, pl, run_check=False,
+                              shape=q1.shape, stride=q1.stride())

@@ -1,17 +1,17 @@
-"""Sharded execution of the port's train step on eight ranks, against the
-single-device step (the counterpart of the reference's
+"""Sharded execution of the port's train step and decode on eight ranks,
+against the single-device runs (the counterpart of the reference's
 ``tests/test_sharded_execution.py``).
 
 One module fixture starts eight processes of a ``gloo`` group (they meet
 on a ``FileStore`` under a temporary directory, so no port is taken) and
 runs every case in that one spawn.  Their mesh is
 ``make_test_mesh(8, device="cpu")``: data 2 x model 4.  The archs are the
-reference test's: reduced starcoder2-3b, dbrx-132b and recurrentgemma-9b
-with ``head_pad_multiple=4``, AdamW (lr 1e-3, warm-up 1), microbatches 2,
-a batch of 8 x 64 drawn from a numpy seed; the parameters are the
-reference's ``init`` carried over by ``interop.params_from_numpy``, placed
-on the mesh by ``sharding.place_tree``, and the batch is placed along its
-``batch`` axis.
+reference test's, reduced starcoder2-3b, dbrx-132b and recurrentgemma-9b
+with ``head_pad_multiple=4``, and reduced xlstm-125m (d 64, 4 heads, mLSTM
+chunk 16); AdamW (lr 1e-3, warm-up 1), microbatches 2, a batch of 8 x 64
+drawn from a numpy seed; the parameters are the reference's ``init``
+carried over by ``interop.params_from_numpy``, placed on the mesh by
+``sharding.place_tree``, and the batch is placed along its ``batch`` axis.
 
 * (a) the mesh is (2, 4) on eight ranks;
 * (b) bf16 compute: the sharded step against the port's single-device
@@ -20,31 +20,39 @@ on the mesh by ``sharding.place_tree``, and the batch is placed along its
   single-device step from the same numpy parameters (the loss and the
   first leaf);
 * (c) f32 compute, the train step with microbatches 2 on both sides (each
-  rank's microbatch holds its own rows, the single device's contiguous
-  global rows): the loss and the gradient norm within 1e-6 (relative) and
-  every accumulated gradient leaf AdamW is handed within 1e-5 (relative
-  Frobenius) of the single-device port's, also for dbrx on the capacity
-  path.  These bounds are near the f32 noise of
-  these random models: at the reference's init, attention is near
-  one-hot, and one ulp of the embedding table moves some gradient leaf by
-  more than 1e-5 on one device.  The q and k projections are therefore
-  scaled by ``QK_SCALE`` for this case (the same ulp then moves every leaf
-  by under a third of the bound; a test holds both); a wrong reduction
-  moves a leaf by O(1) at either scale;
+  microbatch the reference's global rows, on the mesh laid out over
+  ``data`` again): the loss and the gradient norm within 1e-6 (relative)
+  and every accumulated gradient leaf AdamW is handed within 1e-5
+  (relative Frobenius) of the single-device port's, also for dbrx on the
+  capacity path and for a batch with one masked label (microbatches of
+  255 and 256 labels).  These bounds are near the f32 noise of these
+  random models: at the reference's init, attention is near one-hot, and
+  one ulp of the embedding table moves some gradient leaf by more than
+  1e-5 on one device.  The q and k projections of attention are
+  therefore scaled by ``QK_SCALE`` for this case (the same ulp then moves
+  every leaf by under a third of the bound; a test holds both); a wrong
+  reduction moves a leaf by O(1) at either scale;
 * (d) every parameter and AdamW leaf after the step has the placements
   ``shardings_tree`` and the state spec give, the gradients their
   parameters' and the loss is replicated;
-* (e) the flash and RG-LRU wrappers ran on local shards (batch / 2,
-  heads / 4, LRU width / 4), and a sequence split raises;
-* a sharded step with microbatches whose unmasked label counts differ
-  between the sharded and the unsharded split raises;
+* (e) the flash, RG-LRU and mLSTM wrappers ran on local shards (batch /
+  2, heads / 4, LRU width / 4), and a sequence split raises;
+* (f) decode: starcoder2-3b and recurrentgemma-9b prefill 64 tokens, then
+  take 8 decode steps through their 32-slot window ring, the KV cache
+  split over ``model`` along its slots (8 a rank; the decode kernel runs
+  on each rank's slots, and the pieces merge by their log-sum-exps), q and
+  k scaled by ``QK_SCALE``: f32 logits within 1e-5 of each step's largest
+  |logit| and the written slots and states within 1e-6, bf16 next-token
+  losses within 2e-2, and every cache leaf keeps ``cache_spec``'s
+  placements;
 * AdamW alone on placed params: a factored second moment against the
   plain update (1e-6), the global norm (1e-6 relative), and the update
   sliced by ``UPDATE_CHUNK`` on each shard bitwise the whole-leaf one;
 * a mesh dim of size 1 takes ``Replicate()`` (no group needed).
 
 The rank processes import neither ``jax`` nor ``repro``; the reference
-runs in the test process.  The file takes 80 to 140 s alone on eight CPU cores.
+runs in the test process.  The file takes about 100 s alone on eight CPU
+cores.
 """
 import dataclasses
 import logging
@@ -54,7 +62,7 @@ import numpy as np
 import pytest
 import torch
 
-ARCHS = ("starcoder2-3b", "dbrx-132b", "recurrentgemma-9b")
+ARCHS = ("starcoder2-3b", "dbrx-132b", "recurrentgemma-9b", "xlstm-125m")
 #: the f32 gradient cases: each arch, and dbrx through the capacity path
 #: (the top-k scatter-add).
 F32_CASES = {arch: {} for arch in ARCHS}
@@ -65,6 +73,17 @@ OPT = dict(lr=1e-3, warmup_steps=1)
 LOSS_RTOL, LEAF_ATOL = 2e-2, 5e-2
 F32_LOSS_RTOL, F32_GRAD_TOL = 1e-6, 1e-5
 QK_SCALE = 0.25
+#: the decode cases: a prompt of ``PROMPT`` tokens prefilled, then
+#: ``NEW_TOKENS`` decode steps through the 32-slot window ring (8 slots a
+#: rank on ``model``), so the ring wraps.
+DECODE_ARCHS = ("starcoder2-3b", "recurrentgemma-9b")
+DECODE_CASES = [(arch, cd) for arch in DECODE_ARCHS
+                for cd in ("float32", "bfloat16")]
+PROMPT, NEW_TOKENS = 64, 8
+#: f32 logits within ``DECODE_F32_TOL`` of the step's largest |logit|, the
+#: slots and states a step writes within ``CACHE_TOL`` (relative
+#: Frobenius); bf16 logits within the reference test's 2e-2 of it.
+DECODE_F32_TOL, CACHE_TOL, DECODE_BF16_TOL = 1e-5, 1e-6, 2e-2
 #: the fixture's limit on the ranks' run, in seconds.
 SPAWN_TIMEOUT = 900
 
@@ -107,6 +126,12 @@ def _batch(arch: str) -> dict:
             for k in ("tokens", "labels")}
 
 
+def _tokens(arch: str) -> np.ndarray:
+    """A decode case's prompt and the tokens fed to its decode steps."""
+    rng = np.random.default_rng(100 + ARCHS.index(arch))
+    return rng.integers(0, 512, (B, PROMPT + NEW_TOKENS)).astype(np.int32)
+
+
 # ---------------------------------------------------------------------------
 # The ranks (no jax here)
 # ---------------------------------------------------------------------------
@@ -119,21 +144,29 @@ def _np(x) -> np.ndarray:
 
 
 def _record_local_shapes() -> dict:
-    """Wrap the flash and RG-LRU kernel wrappers (the functions their
-    autograd Functions call) to record the shapes they are called on."""
+    """Wrap the flash, RG-LRU and decode kernel wrappers and the mLSTM's
+    plain version (the functions the autograd Functions and
+    ``ops.decode_attention`` call on the CPU) to record the shapes they are
+    called on: the first argument's, the cache's for decode."""
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mlstm_scan as ml
     from repro_torch.kernels import rglru_scan as rg
-    seen = {"flash_attention": [], "rglru_scan": []}
+    seen = {"flash_attention": [], "rglru_scan": [], "decode_attention": [],
+            "mlstm_scan_plain": []}
 
-    def wrap(mod, name):
+    def wrap(mod, name, arg=0):
         inner = getattr(mod, name)
 
-        def rec(x, *args, **kw):
-            seen[name].append(tuple(x.shape))
-            return inner(x, *args, **kw)
+        def rec(*args, **kw):
+            seen[name].append(tuple(args[arg].shape))
+            return inner(*args, **kw)
+        rec.__dict__.update(inner.__dict__)     # its counters
         setattr(mod, name, rec)
     wrap(fa, "flash_attention")
     wrap(rg, "rglru_scan")
+    wrap(da, "decode_attention", 1)
+    wrap(ml, "mlstm_scan_plain")
     return seen
 
 
@@ -189,12 +222,14 @@ def _sharded_step(arch: str, np_params, mesh) -> dict:
 
 
 def _f32_step(case: str, np_params, mesh=None, move_first: bool = False,
-              qk_scale: float = QK_SCALE) -> dict:
+              qk_scale: float = QK_SCALE, mask_one: bool = False) -> dict:
     """The f32 train step with ``MICRO`` microbatches (q and k scaled by
     ``qk_scale``), on ``mesh`` when given: its loss and gradient norm, and
     the accumulated gradients it hands AdamW (recorded there), as numpy
     with whether each kept its parameter's placements.  ``move_first``
-    moves the first leaf (the embedding table) up by one ulp."""
+    moves the first leaf (the embedding table) up by one ulp; ``mask_one``
+    masks the first label, so that the microbatches hold 255 and 256
+    labels."""
     from repro_torch.ckpt.tree import tree_flatten, tree_leaves, \
         tree_unflatten
     from repro_torch.interop import params_from_numpy
@@ -210,10 +245,13 @@ def _f32_step(case: str, np_params, mesh=None, move_first: bool = False,
         leaves[0] = torch.nextafter(leaves[0],
                                     torch.full_like(leaves[0], np.inf))
         params = tree_unflatten(td, leaves)
-    batch = {k: torch.from_numpy(v) for k, v in _batch(_arch(case)).items()}
+    nb = _batch(_arch(case))
+    if mask_one:
+        nb["labels"][0, 0] = -1
+    batch = {k: torch.from_numpy(v) for k, v in nb.items()}
     if mesh is not None:
         params = shd.place_tree(params, model.param_spec(), mesh)
-        batch = _placed_batch(_batch(_arch(case)), mesh)
+        batch = _placed_batch(nb, mesh)
     ocfg = adamw.AdamWConfig(**OPT)
     seen, inner = [], adamw.apply_updates
 
@@ -299,28 +337,65 @@ def _split_sequence_raises(mesh) -> str:
     return ""
 
 
-def _uneven_split_errors(mesh) -> dict:
-    """The sharded step's microbatch check on starcoder2-3b's labels: one
-    masked label (its microbatches then hold 255 and 256 labels) against
-    one masked label a row (every microbatch 252)."""
-    from repro_torch.models import _check_split, build
-    from repro_torch.optim import adamw
-    batch = _batch("starcoder2-3b")
-    uneven = dict(batch, labels=batch["labels"].copy())
-    uneven["labels"][0, 0] = -1
-    even = dict(batch, labels=batch["labels"].copy())
-    even["labels"][:, -1] = -1
-    step = build(_cfg("starcoder2-3b", "float32")).make_train_step(
-        adamw.AdamWConfig(**OPT), microbatches=MICRO)
-    out = {}
-    try:
-        # raises before it reads the parameters
-        step(None, None, _placed_batch(uneven, mesh))
-        out["uneven"] = ""
-    except ValueError as e:
-        out["uneven"] = str(e)
-    _check_split(_placed_batch(even, mesh)["labels"], MICRO)
-    out["even"] = "passed"
+def _written(cache, pos: int) -> list:
+    """What decode wrote at position ``pos``: each K/V leaf's slot
+    ``pos % Sc`` (and int8 scales') and every recurrent state leaf, as
+    numpy copies (later steps write the same tensors in place)."""
+    from repro_torch.ckpt.tree import tree_leaves
+    out = []
+    for lead, entries in ((1, cache["layers"]["stages"]),
+                          (0, cache["layers"]["tail"])):
+        for e in entries:
+            if isinstance(e, dict):
+                for key in sorted(e):
+                    if key in ("k", "v", "k_scale", "v_scale"):
+                        x = _np(e[key])
+                        out.append(x.take(pos % x.shape[lead + 1],
+                                          axis=lead + 1))
+            else:
+                out += [_np(x).copy() for x in tree_leaves(e)]
+    return out
+
+
+def _decode_run(arch: str, compute_dtype: str, np_params,
+                mesh=None) -> dict:
+    """Prefill ``PROMPT`` tokens, then ``NEW_TOKENS`` decode steps fed the
+    case's tokens, on ``mesh`` when given (parameters, prompt and tokens
+    placed by their specs); f32 with q and k scaled by ``QK_SCALE``.  Each
+    step's logits and what it wrote (:func:`_written`), and on the mesh
+    the cache leaves whose placements left ``cache_spec``'s."""
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.models import build
+    from repro_torch.models.spec import ParamSpec
+    from repro_torch.parallel import sharding as shd
+    cfg = _cfg(arch, compute_dtype)
+    model = build(cfg)
+    np_params = _scale_qk(np_params, QK_SCALE)
+    params = params_from_numpy(np_params, cfg, device="cpu")
+    toks = torch.from_numpy(_tokens(arch))
+    prompt = {"tokens": toks[:, :PROMPT]}
+    place = lambda t: t
+    if mesh is not None:
+        params = shd.place_tree(params, model.param_spec(), mesh)
+        prompt = shd.place_tree(prompt, {"tokens": ParamSpec(
+            (B, PROMPT), ("batch", "seq"), "int32")}, mesh)
+        place = lambda t: shd.place_tree(
+            t, ParamSpec((B, 1), ("batch", None), "int32"), mesh)
+    spec = model.cache_spec(B, PROMPT + NEW_TOKENS)["layers"]
+    out = {"logits": [], "written": [], "mismatches": []}
+    with torch.no_grad():
+        logits, cache = model.prefill(params, prompt,
+                                      max_cache_seq=PROMPT + NEW_TOKENS)
+        for pos in range(PROMPT, PROMPT + NEW_TOKENS):
+            if mesh is not None:
+                out["mismatches"] += _mismatches(cache["layers"], spec, mesh)
+            out["logits"].append(_np(logits))
+            logits, cache = model.decode_step(params, cache,
+                                              place(toks[:, pos:pos + 1]))
+            out["written"].append(_written(cache, pos))
+        out["logits"].append(_np(logits))
+        if mesh is not None:
+            out["mismatches"] += _mismatches(cache["layers"], spec, mesh)
     return out
 
 
@@ -360,9 +435,14 @@ def _rank_run(rank: int, store_path: str, inbox) -> dict:
             for case in F32_CASES:
                 out[f"f32 {case}"] = _f32_step(case, params[_arch(case)],
                                                mesh)
+            out["f32 masked"] = _f32_step("starcoder2-3b",
+                                          params["starcoder2-3b"], mesh,
+                                          mask_one=True)
+            for arch, cd in DECODE_CASES:
+                out[f"decode {arch} {cd}"] = _decode_run(arch, cd,
+                                                         params[arch], mesh)
             out["adamw"] = _adamw_on_shards(params["starcoder2-3b"], mesh)
             out["split_sequence_error"] = _split_sequence_raises(mesh)
-            out["uneven_split"] = _uneven_split_errors(mesh)
         out["local_shapes"] = {k: sorted(set(v)) for k, v in shapes.items()}
         return out
     finally:
@@ -420,6 +500,10 @@ def _single_device(ref_params) -> dict:
                                             np.float32)}
     for case in F32_CASES:
         out[f"f32 {case}"] = _f32_step(case, ref_params[_arch(case)])
+    out["f32 masked"] = _f32_step("starcoder2-3b", ref_params["starcoder2-3b"],
+                                  mask_one=True)
+    for arch, cd in DECODE_CASES:
+        out[f"decode {arch} {cd}"] = _decode_run(arch, cd, ref_params[arch])
     return out
 
 
@@ -513,15 +597,81 @@ def test_every_leaf_keeps_its_placements(runs, arch):
 
 def test_kernels_ran_on_local_shards(runs):
     """Flash on (B_local * H / 4, S, Dh) with B_local = the microbatch's 4
-    rows / 2; the RG-LRU on (B_local, S, W / 4).  No whole-batch or
-    whole-head call."""
+    rows / 2 (and a prefill's B / 2); the RG-LRU on (B_local, S, W / 4)
+    (and a decode step's S of 1); the mLSTM on (B_local * H / 4, S, Dh)
+    with its Dh of 2 d / H.  No whole-batch or whole-head call."""
     seen = runs["sharded"]["local_shapes"]
     H, Dh, W = 4, 16, 64
     rows = B // MICRO
-    flash = {((rows // 2) * (H // 4), S, Dh)}
-    lru = {(rows // 2, S, W // 4)}
+    flash = {((rows // 2) * (H // 4), S, Dh), ((B // 2) * (H // 4), PROMPT,
+                                                Dh)}
+    lru = {(rows // 2, S, W // 4), (B // 2, PROMPT, W // 4),
+           (B // 2, 1, W // 4)}
+    mlstm = {((rows // 2) * (H // 4), S, 2 * W // H)}
     assert {tuple(s) for s in seen["flash_attention"]} == flash
     assert {tuple(s) for s in seen["rglru_scan"]} == lru
+    assert {tuple(s) for s in seen["mlstm_scan_plain"]} == mlstm
+
+
+def test_decode_ran_on_local_slots(runs):
+    """The decode kernel read each rank's 8 of the 32 window slots, for its
+    B / 2 rows and every one of the 4 heads (the slots, not the heads,
+    split over ``model``)."""
+    seen = runs["sharded"]["local_shapes"]["decode_attention"]
+    assert {tuple(s) for s in seen} == {((B // 2) * 4, 32 // 4, 16)}
+
+
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_sharded_f32_decode_matches_single_device(runs, arch):
+    """Prefill and 8 decode steps on the mesh, the KV cache split over
+    ``model`` along its slots: each step's logits within ``DECODE_F32_TOL``
+    of its largest |logit|, and every slot and state a step writes within
+    ``CACHE_TOL`` of the single-device step's."""
+    sh = runs["sharded"][f"decode {arch} float32"]
+    one = runs["single"][f"decode {arch} float32"]
+    assert len(sh["logits"]) == len(one["logits"]) == NEW_TOKENS + 1
+    for a, b in zip(sh["logits"], one["logits"]):
+        assert np.abs(a - b).max() <= DECODE_F32_TOL * np.abs(b).max()
+    for got, want in zip(sh["written"], one["written"]):
+        assert len(got) == len(want) > 0
+        assert max(_frob(a, b) for a, b in zip(got, want)) <= CACHE_TOL
+
+
+def _next_token_loss(logits: np.ndarray, tokens: np.ndarray) -> float:
+    """The mean cross-entropy of (B, 1, V) logits against ``tokens``."""
+    lg = logits[:, 0].astype(np.float64)
+    top = lg.max(-1)
+    lse = top + np.log(np.exp(lg - top[:, None]).sum(-1))
+    return float(np.mean(lse - lg[np.arange(len(tokens)), tokens]))
+
+
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_sharded_bf16_decode_matches_single_device(runs, arch):
+    """bf16: each step's next-token loss within the reference test's 2e-2
+    (relative) of the single-device step's, and its logits no farther from
+    them (relative Frobenius) than twice the single-device bf16 logits lie
+    from the f32 ones: rounding at other points (partial sums over
+    ``model``) moves them by that much (0.017-0.022 for
+    recurrentgemma-9b's, whose largest |logit| moves by up to 3%)."""
+    sh = runs["sharded"][f"decode {arch} bfloat16"]
+    one = runs["single"][f"decode {arch} bfloat16"]
+    f32 = runs["single"][f"decode {arch} float32"]
+    toks = _tokens(arch)
+    for i, (a, b, c) in enumerate(zip(sh["logits"], one["logits"],
+                                      f32["logits"])):
+        if i < NEW_TOKENS:
+            want = _next_token_loss(b, toks[:, PROMPT + i])
+            assert _rel(_next_token_loss(a, toks[:, PROMPT + i]), want) \
+                <= DECODE_BF16_TOL
+        assert _frob(a, b) <= 2 * _frob(b, c)
+
+
+@pytest.mark.parametrize("arch,cd", DECODE_CASES)
+def test_decode_cache_keeps_its_placements(runs, arch, cd):
+    """After the prefill and after every decode step, each cache leaf has
+    the placements ``cache_spec`` gives (the K/V slots split over
+    ``model``): the in-place writes moved no shard."""
+    assert runs["sharded"][f"decode {arch} {cd}"]["mismatches"] == []
 
 
 def test_adamw_on_shards_matches_single_device(runs):
@@ -548,7 +698,8 @@ def _ulp_sensitivity(case: str, np_params, qk_scale: float,
     return max(_frob(b, a) for a, b in zip(unmoved, moved))
 
 
-@pytest.mark.parametrize("case", sorted(F32_CASES))
+@pytest.mark.parametrize("case", sorted(c for c in F32_CASES
+                                         if "xlstm" not in c))
 def test_one_ulp_moves_f32_gradients_within_the_bound_only_when_scaled(
         runs, case):
     """Why (c) scales q and k: at the reference's init one ulp of the
@@ -565,14 +716,17 @@ def test_a_sequence_split_raises(runs):
     assert "'seq' axis" in runs["sharded"]["split_sequence_error"]
 
 
-def test_uneven_masked_microbatches_raise(runs):
-    """With unmasked label counts that differ between the sharded split
-    (rows 0-1 and 4-5, then 2-3 and 6-7) and the unsharded one (rows 0-3,
-    then 4-7), the sharded step raises; with one masked label a row the
-    counts agree and the check passes."""
-    got = runs["sharded"]["uneven_split"]
-    assert "[255, 256] (sharded split) and [255, 256]" in got["uneven"]
-    assert got["even"] == "passed"
+def test_a_masked_label_weighs_as_on_one_device(runs):
+    """One masked label (microbatches of 255 and 256 labels): the sharded
+    f32 step takes the reference's global rows, so its loss, gradient norm
+    and accumulated gradients are the single-device step's."""
+    sh, one = runs["sharded"]["f32 masked"], runs["single"]["f32 masked"]
+    assert _rel(sh["loss"], one["loss"]) <= F32_LOSS_RTOL
+    assert _rel(sh["grad_norm"], one["grad_norm"]) <= F32_LOSS_RTOL
+    errs = [_frob(a, b) for a, b in zip(sh["grads"], one["grads"])]
+    assert len(errs) == len(one["grads"]) and max(errs) <= F32_GRAD_TOL
+    assert sh["loss"] != runs["sharded"]["f32 starcoder2-3b"]["loss"]
+    assert sh["grad_mismatches"] == []
 
 
 @pytest.mark.parametrize("sizes,want", [
