@@ -400,10 +400,12 @@ Phases (any failure exits non-zero; no result line is printed then):
    beside the count committed from the CPU, the CUDA kernels (profiler)
    and the sync debug mode's syncs, the leak check by
    ``memory_allocated``.  (c) the dry run's estimate of a reduced cell
-   (``TOOL_CELL``: starcoder2-3b, 2 layers, train B 2 x 2048, a one-rank
-   mesh on a ``fake`` group) against the same step run for real:
-   ``max_memory_allocated``, less what earlier phases left allocated,
-   within ``TOOL_PEAK_BAND`` of ``peak_bytes_est``.  (d) ``bench_sweep
+   (``TOOL_CELL``: starcoder2-3b, 2 layers, train B 2 x 2048, its
+   tensor-parallel step traced on meta DTensors over a one-rank mesh of a
+   ``fake`` group) against the same DTensor step run for real on a
+   world-1 NCCL group on a ``HashStore`` (every mesh dim replicates, so no
+   collective runs): ``max_memory_allocated``, less what earlier phases
+   left allocated, within ``TOOL_PEAK_BAND`` of ``peak_bytes_est``.  (d) ``bench_sweep
    --quick``.  At section 2's 64 x 64 lanes the kernels run hundreds of
    times above their bounds, so (a)'s rule checks only the plumbing; a
    run of every phase also holds each kernel's work model where it binds:
@@ -6568,37 +6570,39 @@ def _tool_sanitize(dev, tlog) -> dict:
 
 def _tool_dryrun(dev, tlog) -> dict:
     """(c): the dry run of the reduced cell (``TOOL_CELL``) on a one-rank
-    mesh, then the same step for real; on the card the measured peak must
+    mesh of a ``fake`` group (the tensor-parallel step traced on meta
+    DTensors), then the same DTensor step for real on a world-1 group
+    (NCCL on the card) from the seed; on the card the measured peak must
     lie within ``TOOL_PEAK_BAND`` of the estimate."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun, make_test_mesh
-    from repro_torch.models import build
+    from repro_torch.models import batch_spec, build
     from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
     c = TOOL_CELL
     shape = ShapeConfig("train_2k", "train", c["S"], c["B"])
-    owned = not dist.is_initialized()
-    if owned:
-        dryrun.init_fake_group(1)
+    if dist.is_initialized():
+        fail("tooling: a process group is already initialised")
+    dryrun.init_fake_group(1)
     try:
         mesh = make_test_mesh(1, device=dev.type)
         rec = dryrun.run_cell(c["arch"], shape.name, shape=shape,
                               n_layers=c["layers"], mesh=mesh, save=False,
                               device=dev.type)
     finally:
-        if owned:
-            dist.destroy_process_group()
+        dist.destroy_process_group()
     mem = rec["memory"]
     out = {"record": {k: rec[k] for k in ("mesh", "n_chips",
                                            "flops_per_device", "fits_hbm",
                                            "timings_s")},
            "memory": mem, "band": TOOL_PEAK_BAND}
     tlog(f"tooling (c) dry run {c['arch']} {c['layers']} layers, train "
-         f"B {c['B']} x {c['S']} on {rec['mesh']}: arguments "
-         f"{mem['argument_bytes']} B sharded, {mem['rank_argument_bytes']} B "
-         f"as the rank holds them, outputs {mem['output_bytes']} B, temps "
-         f"{mem['temp_bytes']} B, peak estimate {mem['peak_bytes_est']} B, "
+         f"B {c['B']} x {c['S']} on {rec['mesh']}, traced on meta DTensors: "
+         f"arguments {mem['argument_bytes']} B sharded, outputs "
+         f"{mem['output_bytes']} B, temps {mem['temp_bytes']} B, peak "
+         f"estimate {mem['peak_bytes_est']} B, "
          f"{rec['flops_per_device']:.4g} FLOPs, trace "
          f"{rec['timings_s']['trace']} s")
     if dev.type != "cuda":
@@ -6606,34 +6610,44 @@ def _tool_dryrun(dev, tlog) -> dict:
     cfg = dataclasses.replace(dryrun.cell_config(c["arch"], shape),
                               n_layers=c["layers"])
     model = build(cfg)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(c["seed"])
-    opt_cfg = dryrun.opt_config(cfg)
-    # what earlier phases left allocated is no part of the step
-    torch.cuda.synchronize(dev)
-    base = torch.cuda.memory_allocated(dev)
-    params = model.init(gen, device=dev)
-    opt = adamw.init_state(params, opt_cfg, device=dev)
-    batch = {k: torch.randint(0, cfg.vocab_size, (c["B"], c["S"]),
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_test_mesh(1, device=dev.type)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(c["seed"])
+        opt_cfg = dryrun.opt_config(cfg)
+        # what earlier phases left allocated is no part of the step
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        params = shd.place_tree(model.init(gen, device=dev),
+                                model.param_spec(), mesh)
+        opt = adamw.init_state(params, opt_cfg, device=dev)
+        batch = shd.place_tree(
+            {k: torch.randint(0, cfg.vocab_size, (c["B"], c["S"]),
                               generator=gen, device=dev, dtype=torch.int32)
-             for k in ("tokens", "labels")}
-    step = model.make_train_step(opt_cfg)
-    torch.cuda.synchronize(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    held = torch.cuda.memory_allocated(dev) - base
-    new_p, new_o, metrics = step(params, opt, batch)
-    loss = float(metrics["loss"])
-    torch.cuda.synchronize(dev)
-    peak = torch.cuda.max_memory_allocated(dev) - base
-    del new_p, new_o, metrics, params, opt, batch
-    torch.cuda.empty_cache()
+             for k in ("tokens", "labels")}, batch_spec(cfg, shape), mesh)
+        step = dryrun.train_step(cfg, dryrun.microbatches(cfg, shape, mesh))
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev) - base
+        with shd.use_mesh(mesh):
+            new_p, new_o, metrics = step(params, opt, batch)
+        loss = float(shd.local(metrics["loss"]))
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        del new_p, new_o, metrics, params, opt, batch
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
     ratio = peak / mem["peak_bytes_est"]
     out.update(measured_peak_bytes=peak, held_before_bytes=held,
                earlier_phases_bytes=base, ratio=ratio, loss=loss)
-    tlog(f"tooling (c) the step on the card: loss {loss:.4f}, arguments "
-         f"held {held} B (estimated {mem['rank_argument_bytes']} B), "
-         f"max_memory_allocated {peak} B above the {base} B earlier phases "
-         f"left, {ratio:.4f} of the estimate (band {TOOL_PEAK_BAND})")
+    tlog(f"tooling (c) the DTensor step on the card: loss {loss:.4f}, "
+         f"arguments held {held} B (estimated {mem['argument_bytes']} B "
+         f"sharded), max_memory_allocated {peak} B above the {base} B "
+         f"earlier phases left, {ratio:.4f} of the estimate (band "
+         f"{TOOL_PEAK_BAND})")
     if not math.isfinite(loss):
         fail(f"tooling: the reduced cell's loss is {loss}")
     if not TOOL_PEAK_BAND[0] <= ratio <= TOOL_PEAK_BAND[1]:

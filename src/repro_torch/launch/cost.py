@@ -25,18 +25,18 @@ work (``kernels/cost.py``):
   * ``coll_bytes`` / ``coll_counts`` -- by collective kind: the functional
                      collectives that ops on DTensors dispatch (bytes from
                      their results; counts also read by
-                     ``torch.distributed.tensor.debug.CommDebugMode``), and
-                     what :func:`grad_reduction` models for a train step.
+                     ``torch.distributed.tensor.debug.CommDebugMode``).
 
 ``CostVec`` adds and scales as the reference's does; it also keeps
-``ops`` (the kernels' typed operations, ``kernels/cost.py``), ``kernels``
-(calls by wrapper) and ``modelled`` (which collectives were modelled
-rather than seen).  The port's models run on DTensors (a step whose
-parameters and batch are placed on a mesh, ``sharding.place_tree``), and
-:func:`analyze` sees the collectives such a step dispatches; the dry run
-(``launch/dryrun.py``) still traces a data-parallel rank on plain meta
-tensors, so its cells' tensor-parallel activation collectives are not
-seen: tracing the tensor-parallel step is later work (ROADMAP A12b).
+``ops`` (the kernels' typed operations, ``kernels/cost.py``) and
+``kernels`` (calls by wrapper).  On DTensors the counts are one rank's:
+the dispatch mode leaves each op on DTensors to DTensor
+(``NotImplemented``, as ``CommDebugMode`` does), which runs it as the
+local ops of one rank's shards and the collectives they need, and the
+mode counts those.  The dry run (``launch/dryrun.py``) traces each cell's
+tensor-parallel step so, on meta DTensors over a ``fake`` group of 256 or
+512 ranks: its FLOPs, bytes and collectives are one device's, every
+collective traced, none modelled.
 """
 from __future__ import annotations
 
@@ -50,6 +50,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
 from ..kernels import cost as kcost
+from ..parallel import sharding as shd
 
 #: aten ops that move no data: allocations without a write, metadata.
 _FREE = frozenset({
@@ -74,14 +75,12 @@ class CostVec:
     coll_counts: Optional[Counter] = None
     ops: Optional[Counter] = None
     kernels: Optional[Counter] = None
-    modelled: Optional[dict] = None
 
     def __post_init__(self):
         self.coll_bytes = self.coll_bytes or Counter()
         self.coll_counts = self.coll_counts or Counter()
         self.ops = self.ops or Counter()
         self.kernels = self.kernels or Counter()
-        self.modelled = self.modelled or {}
 
     def __iadd__(self, other: "CostVec"):
         self.flops += other.flops
@@ -90,14 +89,13 @@ class CostVec:
         self.coll_counts.update(other.coll_counts)
         self.ops.update(other.ops)
         self.kernels.update(other.kernels)
-        self.modelled.update(other.modelled)
         return self
 
     def scaled(self, k: float) -> "CostVec":
         sc = lambda c: Counter({a: b * k for a, b in c.items()})
         return CostVec(self.flops * k, self.hbm_bytes * k,
                        sc(self.coll_bytes), sc(self.coll_counts),
-                       sc(self.ops), sc(self.kernels), dict(self.modelled))
+                       sc(self.ops), sc(self.kernels))
 
 
 def _bytes(x) -> int:
@@ -105,7 +103,44 @@ def _bytes(x) -> int:
                if isinstance(t, torch.Tensor))
 
 
-class CostMode(TorchDispatchMode):
+def _fake_mode():
+    return torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE)
+
+
+class LocalOps(TorchDispatchMode):
+    """A dispatch mode that sees the ops one rank runs: an op on DTensors
+    is left to DTensor (``NotImplemented``, as ``CommDebugMode`` does),
+    which runs it as local ops on each shard and the collectives they
+    need, and those come back here.  The ops DTensor runs on fake tensors
+    at the global shapes to work out an op's output (a ``FakeTensorMode``
+    entered after this mode) run uncounted.  Subclasses count in
+    :meth:`see`."""
+
+    def __init__(self):
+        super().__init__()
+        from torch.distributed.tensor import DTensor
+        self._dtensor = DTensor
+        self._fake0 = None
+
+    def __enter__(self):
+        self._fake0 = _fake_mode()
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, self._dtensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        fake = _fake_mode()
+        if fake is None or fake is self._fake0:
+            self.see(func, args, kwargs, out)
+        return out
+
+    def see(self, func, args, kwargs, out) -> None:
+        raise NotImplementedError
+
+
+class CostMode(LocalOps):
     """Adds every dispatched aten op's FLOPs and bytes to ``self.cost``;
     the kernel wrappers report to :meth:`kernel` (``kernels/cost.py``),
     and the ops they dispatch themselves are skipped."""
@@ -122,22 +157,22 @@ class CostMode(TorchDispatchMode):
         self.cost.ops.update(work.ops)
         self.cost.kernels[name] += 1
 
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        out = func(*args, **kwargs)
+    def see(self, func, args, kwargs, out) -> None:
         if kcost.suspended():
-            return out
+            return
         ns = func.namespace
         name = func.overloadpacket.__name__
         if ns in ("_c10d_functional", "c10d_functional", "c10d"):
+            # waits and the autograd wrapper of a result are no transfers
+            if name.startswith(("wait", "_wrap")):
+                return
             kind = name.rstrip("_").replace("_into_tensor_coalesced", "") \
                 .replace("_coalesced", "").replace("_", "-")
-            if not kind.startswith("wait"):
-                self.cost.coll_bytes[kind] += _bytes(out)
-                self.cost.coll_counts[kind] += 1
-            return out
+            self.cost.coll_bytes[kind] += _bytes(out)
+            self.cost.coll_counts[kind] += 1
+            return
         if func.is_view or name in _FREE:
-            return out
+            return
         packet = func.overloadpacket
         if name in _TRANSCENDENTAL:
             self.cost.ops["transcendental"] += sum(
@@ -147,15 +182,15 @@ class CostMode(TorchDispatchMode):
             self.cost.flops += self.registry[packet](*args, **kwargs,
                                                      out_val=out)
         self.cost.hbm_bytes += _bytes(args) + _bytes(kwargs) + _bytes(out)
-        return out
 
 
 def analyze(fn, *args, **kwargs) -> CostVec:
     """Run ``fn(*args, **kwargs)`` once and return its :class:`CostVec`
-    (the result is dropped).  When an argument is a DTensor, its
-    collectives are also counted by ``CommDebugMode``; where its counts
-    exceed what the dispatch mode saw, they are kept.  (The mode is not
-    entered otherwise: it costs a module-tracking step an op.)"""
+    (the result is dropped).  When it runs on DTensors (an argument is
+    one, or a mesh is active: ``sharding.use_mesh``), its collectives are
+    also counted by ``CommDebugMode``; where its counts exceed what the
+    dispatch mode saw, they are kept.  (The mode is not entered otherwise:
+    it costs a module-tracking step an op.)"""
     mode = CostMode()
     comm = _comm_mode((args, kwargs))
     with kcost.counting(mode), comm, mode:
@@ -173,32 +208,8 @@ def _comm_mode(args):
     if not (dist.is_available() and dist.is_initialized()):
         return contextlib.nullcontext()
     from torch.distributed.tensor import DTensor
-    if not any(isinstance(x, DTensor) for x in tree_flatten(args)[0]):
+    if shd.active_mesh() is None and not any(
+            isinstance(x, DTensor) for x in tree_flatten(args)[0]):
         return contextlib.nullcontext()
     from torch.distributed.tensor.debug import CommDebugMode
     return CommDebugMode()
-
-
-def grad_reduction(abstract_params, grad_dtype=None) -> CostVec:
-    """The gradient reduction of a data-parallel train step, modelled from
-    each parameter leaf's sharding: a leaf (a DTensor stand-in,
-    ``models.spec.abstract_tree`` on a mesh) that is replicated over mesh
-    axes of more than one rank all-reduces its local gradient (its local
-    shard's elements in ``grad_dtype``, default the leaf's) over them.
-    Leaves that are plain tensors (no mesh) reduce nothing."""
-    from torch.distributed.tensor import DTensor, Replicate
-    out = CostVec(modelled={"all-reduce": "gradient reduction modelled "
-                            "from each leaf's sharding (local gradient "
-                            "bytes over the axes it is replicated on)"})
-    for x in tree_flatten(abstract_params)[0]:
-        if not isinstance(x, DTensor):
-            continue
-        mesh = x.device_mesh
-        over = [d for d, p in enumerate(x.placements)
-                if isinstance(p, Replicate) and mesh.size(d) > 1]
-        if not over:
-            continue
-        item = torch.empty((), dtype=grad_dtype or x.dtype).element_size()
-        out.coll_bytes["all-reduce"] += x.to_local().numel() * item
-        out.coll_counts["all-reduce"] += 1
-    return out

@@ -2,45 +2,47 @@
 meshes: does it fit an H100, and where does its work go.
 
 Counterpart of the reference's ``repro/launch/dryrun.py``.  The reference
-lowers and compiles each cell for 256 or 512 virtual devices
-(``XLA_FLAGS=--xla_force_host_platform_device_count``) and reads XLA's
-memory and cost analyses.  The port compiles nothing, so:
+lowers and compiles each cell's sharded program for 256 or 512 virtual
+devices (``XLA_FLAGS=--xla_force_host_platform_device_count``) and reads
+one device's memory and cost from XLA's analyses.  The port compiles
+nothing, so:
 
 * the meshes are ``DeviceMesh``\\ es over a ``fake`` process group of 256
   or 512 ranks in this process (``launch/mesh.py``); the caller
   initialises it (:func:`main` does, for a command-line run);
 * the parameters, the AdamW state (``adamw.state_spec``) and the inputs
-  (``models.input_specs``) are stand-ins that allocate nothing
-  (``models.spec.abstract_tree``: meta DTensors with the mesh's
-  placements), and ``memory.argument_bytes`` is the exact sum of one
-  rank's local shard bytes of them;
-* the step is traced once on plain ``meta`` tensors (every kernel wrapper
-  has a shape-only path, ``kernels/cost.py``) for one rank: the models run
-  tensor-parallel on DTensors (ROADMAP A12), but this trace is of a
-  data-parallel rank, which runs the whole model at the global widths on
-  its data shard (the batch cut by the ``pod`` and ``data`` axes); tracing
-  the tensor-parallel step on the ``fake`` group is later work (A12b).  ``memory.temp_bytes`` is the high-water
-  mark of the live storages the trace makes beyond what the step returns
-  (``output_bytes``), and ``walked`` is ``launch/cost.py``'s count of the
-  same trace, the train step's gradient reduction modelled from each
-  leaf's sharding (``cost.grad_reduction``).  The record's
-  ``memory.method`` says so.  For a mesh of more than one rank that is an
-  upper bound of a tensor-parallel step's temporaries;
-* ``memory.peak_bytes_est`` and ``fits_hbm`` are of that same
-  data-parallel rank: its whole arguments
-  (``memory.rank_argument_bytes``: every parameter and optimizer leaf
-  whole, the inputs or cache at its batch) plus the trace's outputs and
-  temporaries.  ``argument_bytes`` stays the sharded layout's, the
-  reference's number, which a tensor-parallel step would hold.
+  or cache (``models.input_specs``) are meta DTensors at their global
+  shapes with the mesh's placements (``models.spec.abstract_tree``), which
+  allocate nothing; ``memory.argument_bytes`` is the exact sum of one
+  rank's local shard bytes of them, the reference's number;
+* the step -- the model's own train step with the reference's
+  microbatches, the prefill, or one decode step -- runs once on those
+  stand-ins with the mesh active (``sharding.use_mesh``): one rank's
+  tensor-parallel step, as the models run on DTensors (every kernel
+  wrapper has a shape-only path, ``kernels/cost.py``).  The ``fake``
+  group's functional collectives run their meta kernels, so nothing
+  moves;
+* ``launch/cost.py`` counts that run's local ops (the dispatch modes let
+  DTensor break each op into the ops one rank runs on its shards, and see
+  those and the collectives they need), so ``flops_per_device``,
+  ``bytes_accessed_per_device`` and the collectives are one rank's;
+  ``memory.temp_bytes`` is the high-water mark of the local storages the
+  run makes (redistribution buffers and collective outputs included)
+  beyond what the step returns (``output_bytes``);
+* ``memory.peak_bytes_est = argument_bytes + output_bytes + temp_bytes -
+  alias_bytes``, and ``fits_hbm`` compares it with ``launch/mesh.py``'s
+  ``H100["hbm_bytes"]``.  The port donates no buffer (``alias_bytes`` 0),
+  so the step's outputs stand beside its arguments, where the reference
+  subtracts what it donates.  The record's ``memory.method`` says so.
 
-``hbm_per_chip`` and ``fits_hbm`` are against ``launch/mesh.py``'s
-``H100["hbm_bytes"]``.  Records go to ``build/repro_torch_results/dryrun/``.
+Records go to ``build/repro_torch_results/dryrun/``.
 
     python -m repro_torch.launch.dryrun --all --both-meshes --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
@@ -50,7 +52,6 @@ from pathlib import Path
 from typing import Optional
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten as pt_flatten
 
 from .._device import resolve_device
@@ -60,19 +61,18 @@ from ..configs.base import SHAPES, ArchConfig, ShapeConfig
 from ..models import build, input_specs
 from ..models.spec import abstract_tree
 from ..optim import adamw
+from ..parallel import sharding as shd
 from . import cost
 from .mesh import H100, make_production_mesh
 
 MEMORY_METHOD = (
     "argument_bytes: exact, one rank's local shard bytes of params, AdamW "
-    "state and inputs or cache on the mesh; rank_argument_bytes: exact, "
-    "the same arguments as the traced rank holds them (whole params and "
-    "AdamW state, the inputs or cache at its batch); temp_bytes: "
-    "high-water mark of live storages in a meta trace of that rank's step "
-    "(global widths, the batch cut by the data axes) beyond its outputs; "
-    "peak_bytes_est: rank_argument_bytes + output_bytes + temp_bytes, of "
-    "a data-parallel rank (the tensor-parallel step is not traced); "
-    "alias_bytes: 0 (the port donates no buffer)")
+    "state and inputs or cache on the mesh; output_bytes and temp_bytes: "
+    "one rank's local storages in a trace of the tensor-parallel step on "
+    "meta DTensors over the mesh (what the step returns; the high-water "
+    "mark of the rest, redistribution and collective buffers included); "
+    "peak_bytes_est: argument_bytes + output_bytes + temp_bytes - "
+    "alias_bytes; alias_bytes: 0 (the port donates no buffer)")
 
 
 def results_dir() -> Path:
@@ -115,7 +115,7 @@ def opt_config(cfg: ArchConfig) -> adamw.AdamWConfig:
 
 
 def dp_size(mesh) -> int:
-    names = tuple(mesh.mesh_dim_names or ())
+    names = tuple(mesh.mesh_dim_names or ()) if mesh is not None else ()
     n = 1
     for ax in ("pod", "data"):
         if ax in names:
@@ -161,13 +161,6 @@ def argument_bytes(cfg: ArchConfig, shape: ShapeConfig, mesh) -> int:
                argument_trees(cfg, shape, mesh).values())
 
 
-def rank_shape(shape: ShapeConfig, mesh) -> ShapeConfig:
-    """``shape`` with the batch one rank holds: cut by the data axes (at
-    least one row)."""
-    return dataclasses.replace(
-        shape, global_batch=max(1, -(-shape.global_batch // dp_size(mesh))))
-
-
 def _host_positions(cache, seq_len: int):
     """A decode cache of meta stand-ins with its ``pos`` and ``slot_pos``
     leaves (host int32 tensors in the port's serving path) made real on
@@ -180,45 +173,52 @@ def _host_positions(cache, seq_len: int):
     return cache
 
 
+def microbatches(cfg: ArchConfig, shape: ShapeConfig, mesh) -> int:
+    """The reference's microbatch count of a train cell on ``mesh``."""
+    return max(1, shape.global_batch
+               // (dp_size(mesh) * cfg.microbatch_rows_per_device))
+
+
+def train_step(cfg: ArchConfig, k: int):
+    """The model's train step with ``k`` microbatches, accumulated as the
+    reference accumulates them (bf16 from 8 microbatches)."""
+    return build(cfg).make_train_step(
+        opt_config(cfg), microbatches=k,
+        accum_dtype="bfloat16" if k >= 8 else "float32")
+
+
 def build_cell(cfg: ArchConfig, shape: ShapeConfig, mesh):
-    """(callable, args) of one rank's step on meta stand-ins: the train
-    step with its microbatches, the prefill, or one decode step."""
+    """(callable, args) of the cell's step on its arguments as meta DTensors
+    on ``mesh`` (:func:`argument_trees`): the train step with the
+    reference's microbatches (:func:`microbatches`), the prefill, or one
+    decode step, to be run with ``mesh`` active (``sharding.use_mesh``)."""
     model = build(cfg)
-    pspec = model.param_spec()
-    params = abstract_tree(pspec)
-    local = rank_shape(shape, mesh)
+    trees = argument_trees(cfg, shape, mesh)
+    params, inp = trees["params"], trees["inputs"]
     if shape.kind == "train":
-        opt_cfg = opt_config(cfg)
-        opt = abstract_tree(adamw.state_spec(pspec, opt_cfg))
-        k = max(1, shape.global_batch
-                // (dp_size(mesh) * cfg.microbatch_rows_per_device))
-        k = min(k, local.global_batch)
-        step = model.make_train_step(
-            opt_cfg, microbatches=k,
-            accum_dtype="bfloat16" if k >= 8 else "float32")
-        return step, (params, opt, input_specs(cfg, local))
+        step = train_step(cfg, microbatches(cfg, shape, mesh))
+        return step, (params, trees["opt"], inp)
     if shape.kind == "prefill":
         def prefill(params, batch):
             return model.prefill(params, batch, max_cache_seq=shape.seq_len)
-        return prefill, (params, input_specs(cfg, local))
-    inp = input_specs(cfg, local)
-    return model.decode_step, (params, _host_positions(inp["cache"],
-                                                       shape.seq_len),
-                               inp["token"])
+        return prefill, (params, inp)
+    return model.decode_step, (
+        params, _host_positions(inp["cache"], shape.seq_len), inp["token"])
 
 
-class LiveBytes(TorchDispatchMode):
-    """The live bytes of the storages that dispatched ops make, and their
-    high-water mark.  A storage counts from the first op that returns it
-    until the last tensor on it is freed; storages of tensors made before
-    the mode (the arguments) are never counted, even when an op writes
-    them in place."""
+class LiveBytes(cost.LocalOps):
+    """The live bytes of the storages that one rank's ops make
+    (``cost.LocalOps``), and their high-water mark.  A storage counts from
+    the first op that returns it until the last tensor on it is freed;
+    storages of tensors made before the mode (the arguments, or of a
+    DTensor argument its local tensor) are never counted, even when an op
+    writes them in place."""
 
     def __init__(self, exclude=()):
         super().__init__()
         self.live, self.cur, self.peak = {}, 0, 0
-        self.exclude = {t.untyped_storage()._cdata for t in exclude
-                        if isinstance(t, torch.Tensor)}
+        self.exclude = {shd.local(t).untyped_storage()._cdata
+                        for t in exclude if isinstance(t, torch.Tensor)}
 
     def _drop(self, key) -> None:
         entry = self.live.get(key)
@@ -229,12 +229,14 @@ class LiveBytes(TorchDispatchMode):
             self.cur -= entry[0]
             del self.live[key]
 
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
+    def see(self, func, args, kwargs, out) -> None:
+        # a collective's result wrapped for autograd is its input on a
+        # device (an ``AsyncCollectiveTensor``); off one, a copy
+        wraps = func.__name__.startswith("_wrap_tensor_autograd")
         for t in pt_flatten(out)[0]:
             if not isinstance(t, torch.Tensor):
                 continue
-            st = t.untyped_storage()
+            st = (args[0] if wraps else t).untyped_storage()
             key = st._cdata
             if key in self.exclude:
                 continue
@@ -244,27 +246,25 @@ class LiveBytes(TorchDispatchMode):
                 self.peak = max(self.peak, self.cur)
             self.live[key][1] += 1
             weakref.finalize(t, self._drop, key)
-        return out
 
 
-def _trace(fn, args) -> tuple:
-    """(cost vector, argument bytes, output bytes, temp bytes, seconds) of
-    one run of ``fn(*args)`` on meta stand-ins."""
-    local_args = [x.to_local() if hasattr(x, "to_local") else x
-                  for x in pt_flatten(args)[0]]
-    arg_bytes = sum(x.numel() * x.element_size() for x in local_args
-                    if isinstance(x, torch.Tensor))
+def trace(fn, args, mesh=None) -> tuple:
+    """(cost vector, output bytes, temp bytes, seconds) of one run of
+    ``fn(*args)`` on meta stand-ins with ``mesh`` (if any) active, one
+    rank's."""
     t0 = time.perf_counter()
-    mem = LiveBytes(exclude=local_args)
+    mem = LiveBytes(exclude=pt_flatten(args)[0])
     box = {}
 
     def run():
         with mem:
             box["out"] = fn(*args)
-    walked = cost.analyze(run)
+    with (shd.use_mesh(mesh) if mesh is not None
+          else contextlib.nullcontext()):
+        walked = cost.analyze(run)
     out_bytes = mem.cur
     del box
-    return walked, arg_bytes, out_bytes, max(0, mem.peak - out_bytes), \
+    return walked, out_bytes, max(0, mem.peak - out_bytes), \
         time.perf_counter() - t0
 
 
@@ -272,25 +272,36 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
              save: bool = True, device="cuda", mesh=None,
              shape: Optional[ShapeConfig] = None,
              n_layers: Optional[int] = None) -> dict:
-    """Trace one cell; returns the roofline-input record (the reference's
-    keys).  ``mesh`` (default the production mesh on ``device``),
-    ``shape`` (default ``SHAPES[shape_name]``) and ``n_layers`` (a cut of
-    depth) make reduced cells."""
+    """Trace one cell (:func:`cell_record`) and write its record.
+    ``mesh`` (default the production mesh on ``device``), ``shape``
+    (default ``SHAPES[shape_name]``) and ``n_layers`` (a cut of depth) make
+    reduced cells."""
     shape = shape or SHAPES[shape_name]
     cfg = cell_config(arch, shape, multi_pod)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     if mesh is None:
         mesh = make_production_mesh(multi_pod=multi_pod, device=device)
+    record = cell_record(arch, cfg, shape, mesh)
+    if save:
+        d = results_dir()
+        d.mkdir(parents=True, exist_ok=True)
+        path = d / f"{arch}__{shape.name}__{record['mesh']}.json"
+        path.write_text(json.dumps(record, indent=1))
+    return record
+
+
+def cell_record(arch: str, cfg: ArchConfig, shape: ShapeConfig,
+                mesh) -> dict:
+    """The roofline-input record (the reference's keys) of ``cfg``'s step
+    at ``shape`` traced as one rank of ``mesh``."""
     n_chips = mesh.size()
     t0 = time.perf_counter()
     arg_bytes = argument_bytes(cfg, shape, mesh)
     t_args = time.perf_counter() - t0
     fn, args = build_cell(cfg, shape, mesh)
-    walked, rank_bytes, out_bytes, temp_bytes, t_trace = _trace(fn, args)
-    if shape.kind == "train":
-        walked += cost.grad_reduction(
-            argument_trees(cfg, shape, mesh)["params"])
+    walked, out_bytes, temp_bytes, t_trace = trace(fn, args, mesh)
+    alias_bytes = 0         # the port donates no buffer
     model = build(cfg)
     coll_total = float(sum(walked.coll_bytes.values()))
     record = {
@@ -309,8 +320,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "transcendentals": float(walked.ops.get("transcendental", 0)),
         "collectives": {"bytes_by_type": dict(walked.coll_bytes),
                         "counts_by_type": dict(walked.coll_counts),
-                        "total_bytes": int(coll_total),
-                        "modelled": dict(walked.modelled)},
+                        "total_bytes": int(coll_total)},
         "walked": {
             "flops_per_device": walked.flops,
             "hbm_bytes_per_device": walked.hbm_bytes,
@@ -322,11 +332,11 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         },
         "memory": {
             "argument_bytes": arg_bytes,
-            "rank_argument_bytes": rank_bytes,
             "output_bytes": out_bytes,
             "temp_bytes": temp_bytes,
-            "alias_bytes": 0,
-            "peak_bytes_est": rank_bytes + out_bytes + temp_bytes,
+            "alias_bytes": alias_bytes,
+            "peak_bytes_est": (arg_bytes + out_bytes + temp_bytes
+                               - alias_bytes),
             "method": MEMORY_METHOD,
         },
         "hbm_per_chip": H100["hbm_bytes"],
@@ -335,11 +345,6 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     }
     record["fits_hbm"] = bool(
         record["memory"]["peak_bytes_est"] <= H100["hbm_bytes"])
-    if save:
-        d = results_dir()
-        d.mkdir(parents=True, exist_ok=True)
-        path = d / f"{arch}__{shape.name}__{record['mesh']}.json"
-        path.write_text(json.dumps(record, indent=1))
     return record
 
 
@@ -416,8 +421,6 @@ def main(argv=None):
                   f"flops/dev={rec['flops_per_device']:.3e} "
                   f"coll={rec['collectives']['total_bytes']:.3e}B "
                   f"args={rec['memory']['argument_bytes'] / 2**30:.2f}GiB "
-                  f"(whole "
-                  f"{rec['memory']['rank_argument_bytes'] / 2**30:.2f}GiB) "
                   f"peak={rec['memory']['peak_bytes_est'] / 2**30:.2f}GiB "
                   f"fits={rec['fits_hbm']} "
                   f"({time.perf_counter() - t0:.0f}s)", flush=True)

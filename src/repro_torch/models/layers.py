@@ -14,7 +14,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..parallel.sharding import constrain, replicated
+from ..parallel.sharding import (constrain, embedding, on_local_shards,
+                                 replicated)
 from .spec import ParamSpec
 
 F32 = torch.float32
@@ -144,7 +145,10 @@ def embed_spec(vocab: int, d: int, dtype: str) -> ParamSpec:
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
                  compute_dtype: torch.dtype) -> torch.Tensor:
-    out = table[replicated(tokens, table)].to(compute_dtype)
+    # on a vocab-split DTensor table each rank looks up the rows it holds
+    # and the lookups sum over ``model`` (an index would all-gather the
+    # whole table first)
+    out = embedding(table, tokens).to(compute_dtype)
     return constrain(out, ("batch", "seq", "act_embed"))
 
 
@@ -172,10 +176,26 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
     Vocab-sharded logits (a DTensor) are gathered over the vocab first
     (an all-gather of the logits over ``model``, the ``vocab`` axis's mesh
-    axis); the rest runs on batch-sharded DTensors."""
+    axis); each rank then takes its own rows' losses
+    (``sharding.on_local_shards``: DTensor would run the gather's
+    backward on the whole batch), and the mean runs on batch-sharded
+    DTensors."""
     logits = constrain(logits, ("batch", "seq", None))
     labels = replicated(labels, logits)
     mask = mask if mask is None else replicated(mask, logits)
+    nll = on_local_shards(lambda lg, lb: _nll(lg, lb, real_vocab),
+                          (logits, labels),
+                          (("batch", "seq", None), ("batch", "seq")),
+                          "cross_entropy")
+    if mask is not None:
+        m = mask.to(F32)
+        return (nll * m).sum() / torch.clamp_min(m.sum(), 1.0)
+    return nll.mean()
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor,
+         real_vocab: Optional[int]) -> torch.Tensor:
+    """Each position's negative log-likelihood of its label, f32."""
     lf = logits.to(F32)
     labels = labels[..., None].long()
     picked = torch.gather(lf, -1, labels)[..., 0]
@@ -185,9 +205,4 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         picked = torch.where(labels[..., 0] < real_vocab, picked, -1e30)
     else:
         lse = torch.logsumexp(lf, dim=-1)
-    nll = lse - picked
-    if mask is not None:
-        m = mask.to(F32)
-        return (nll * m).sum() / torch.clamp_min(m.sum(), 1.0)
-    return nll.mean()
-
+    return lse - picked

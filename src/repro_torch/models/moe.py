@@ -30,7 +30,8 @@ from __future__ import annotations
 
 import torch
 
-from ..parallel.sharding import constrain, replicated, sharded_full
+from ..parallel.sharding import (constrain, hold_layout, on_local_shards,
+                                 replicated, sharded_full)
 from .layers import act_fn
 from .spec import ParamSpec
 
@@ -78,7 +79,11 @@ def _router(cfg, p, x):
         return probs
     vals, idx = _top(probs, cfg.top_k)                   # (B, S, k)
     vals = vals / torch.clamp_min(vals.sum(-1, keepdim=True), 1e-9)
-    return torch.zeros_like(probs).scatter(-1, idx, vals)
+    # the combine's gradient comes back split over ``experts``; the
+    # scatter's backward gathers it along the experts, which DTensor makes a
+    # masked partial sum that the two uses of ``vals`` would reduce twice:
+    # it takes the combine's layout (experts whole) first
+    return hold_layout(torch.zeros_like(probs).scatter(-1, idx, vals))
 
 
 def _cast_experts(p, compute_dtype) -> tuple:
@@ -177,9 +182,13 @@ def moe_capacity(cfg, p: dict, x: torch.Tensor, compute_dtype,
         idx_inv = torch.where(top_w.reshape(B, E * C) > 0, idx_flat, S)
         slots = replicated(torch.arange(E * C, device=x.device),
                            x).expand(B, E * C)
-        inv = sharded_full((B, S + 1), -1, ("batch", None), x,
-                           slots.dtype).scatter_reduce(
-            1, idx_inv, slots, "amax")[:, :S]
+        inv = sharded_full((B, S + 1), -1, ("batch", None), x, slots.dtype)
+        # DTensor has no rule for scatter_reduce: each rank scatters its
+        # own rows
+        inv = on_local_shards(
+            lambda t, i, s: t.scatter_reduce(1, i, s, "amax"),
+            (inv, idx_inv, slots), (("batch", None),) * 3,
+            "moe combine")[:, :S]
         y = torch.gather(vals, 1, inv.clamp_min(0)[..., None].expand(
             B, S, d))
         y = torch.where((inv >= 0)[..., None], y, torch.zeros((), dtype=cd,

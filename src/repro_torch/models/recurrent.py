@@ -35,8 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kops
-from ..parallel.sharding import (constrain, elementwise, on_local_shards,
-                                 replicated, sharded_full)
+from ..parallel.sharding import (constrain, elementwise, hold_layout,
+                                 on_local_shards, replicated, sharded_full)
 from .layers import act_fn
 from .spec import ParamSpec
 
@@ -135,12 +135,17 @@ def _rglru_core(p, xw: torch.Tensor, h0: torch.Tensor):
     scan through the same wrapper."""
     B, S, W = xw.shape
     nb, wb, _ = p["gate_a"].shape
+    # the width split by whole blocks before it unflattens, as
+    # ``attention.project_heads`` splits heads
+    xw = constrain(xw, ("batch", "seq", "lru_blocks"), (B, S, nb))
     x4 = constrain(xw.reshape(B, S, nb, wb),
                    ("batch", "seq", "lru_blocks", None))
 
     def gate(w, bias):           # einsum("bshw,hwv->bshv") + bias
         y = torch.einsum("bshw,hwv->bshv", x4, w.to(F32))
-        return torch.sigmoid(y.reshape(B, S, W) + bias.to(F32))
+        # the gradient meets the reshape laid out as the blocks are
+        return torch.sigmoid(hold_layout(y.reshape(B, S, W))
+                             + bias.to(F32))
 
     r = gate(p["gate_a"], p["gate_a_b"])
     i = gate(p["gate_x"], p["gate_x_b"])
@@ -299,6 +304,7 @@ def mlstm_block(cfg, p: dict, x: torch.Tensor, compute_dtype,
     """x: (B, S, d) -> (y, new_state).  S must divide by cfg.mlstm_chunk
     (or be smaller)."""
     B, S, d = x.shape
+    H = cfg.n_heads
     cd = compute_dtype
     q, k, v, li, lf, L = mlstm_inputs(cfg, p, x, cd)
     if state is None:
@@ -310,7 +316,11 @@ def mlstm_block(cfg, p: dict, x: torch.Tensor, compute_dtype,
     else:
         h_out, st = _mlstm_chunks(q, k, v, li, lf, state, L)
 
-    h_seq = h_out.transpose(1, 2).reshape(B, S, 2 * d).to(cd)
+    # whole heads on a rank, as ``heads`` splits them: the output gate's
+    # columns split over ``model`` where the heads do not would reach this
+    # reshape's backward as a split no (H, Dh) unflatten takes
+    h_seq = constrain(h_out.transpose(1, 2).reshape(B, S, 2 * d).to(cd),
+                      ("batch", "seq", "heads"), (B, S, H))
     o = torch.sigmoid(x @ p["w_o"].to(cd))
     y = (h_seq * o) @ p["down"].to(cd)
     return constrain(y, ("batch", "seq", "act_embed")), st

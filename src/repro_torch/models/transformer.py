@@ -357,6 +357,17 @@ def _unstack(tree, n: int) -> list:
     return [tree_unflatten(td, [u[i] for u in parts]) for i in range(n)]
 
 
+def _carry(x: torch.Tensor) -> torch.Tensor:
+    """A layer's output as the next layer takes it: the reference's
+    ``lax.scan`` keeps its carry in the sharding of the carry it starts
+    from, the embedding's ``("batch", "seq", "act_embed")``, so the
+    partial sums of a layer's last product are reduced at its end (left
+    ``Partial``, they would reach the next layer's products, where DTensor
+    may split the sequence instead, unevenly where ``model`` does not
+    divide it)."""
+    return constrain(x, ("batch", "seq", "act_embed"))
+
+
 def _run_stack(cfg, params, x, positions, *, collect_cache: bool,
                max_seq: int, enc_kv=None):
     """The stages' super-blocks, then the tail.  Under ``remat="full"``
@@ -374,9 +385,10 @@ def _run_stack(cfg, params, x, positions, *, collect_cache: bool,
     remat = cfg.remat == "full" and torch.is_grad_enabled()
 
     def layer(kind, xh, psl):
-        return apply_layer_full(cfg, kind, psl, xh, positions,
-                                collect_cache=collect_cache, max_seq=max_seq,
-                                enc_kv=enc_kv)
+        xh, entry = apply_layer_full(cfg, kind, psl, xh, positions,
+                                     collect_cache=collect_cache,
+                                     max_seq=max_seq, enc_kv=enc_kv)
+        return _carry(xh), entry
 
     def run(kind, xh, psl):
         if remat:
@@ -441,8 +453,8 @@ def _run_encoder(cfg, params, frames: torch.Tensor) -> torch.Tensor:
     stage = params["encoder"]["stage"]
 
     def layer(xh, psl):
-        return apply_layer_full(cfg, "enc", psl, xh, positions,
-                                collect_cache=False, max_seq=F)[0]
+        return _carry(apply_layer_full(cfg, "enc", psl, xh, positions,
+                                       collect_cache=False, max_seq=F)[0])
 
     for psl in _unstack(stage, cfg.n_encoder_layers):
         if cfg.remat == "full" and torch.is_grad_enabled():

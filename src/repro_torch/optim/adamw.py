@@ -11,7 +11,8 @@ On DTensor parameters (a sharded train step) the state is DTensors with
 each parameter's placements, the step a replicated scalar, the global norm
 the norm of the whole gradients, and the elementwise update runs on each
 rank's local shard; a factored second moment's means over a split dim are
-reduced across it.  Every new leaf has the placements its old one had.
+reduced across it, and its update runs on each rank's shard with the
+means laid out along it.  Every new leaf has the placements its old one had.
 """
 from __future__ import annotations
 
@@ -192,43 +193,69 @@ def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState):
                                                         bc1, bc2))
 
     def one(decay: bool, g, m, v, w):
-        """(w_new, m_new, v_new) in f32; w = the f32 master (or the f32
-        param itself)."""
+        """(w_new, m_new, v_new) in f32 for an unfactored leaf; w = the f32
+        master (or the f32 param itself)."""
         gf = g.to(F32) * clip_scale
         m_new = b1 * m.to(F32) + (1 - b1) * gf
-        if isinstance(v, FactoredV):
-            g2 = gf * gf
-            row_new = b2 * v.row + (1 - b2) * g2.mean(-1)
-            col_new = b2 * v.col + (1 - b2) * g2.mean(-2)
-            # rank-1 reconstruction (Adafactor): V ~ row x col / mean(row)
-            denom = torch.clamp_min(row_new.mean(-1, keepdim=True), 1e-30)
-            vh = (row_new[..., None] * col_new[..., None, :]
-                  / denom[..., None]) / bc2
-            v_new = FactoredV(row=row_new, col=col_new)
-        else:
-            v_full = b2 * v.to(F32) + (1 - b2) * gf * gf
-            vh = v_full / bc2
-            v_new = v_full
-        mh = m_new / bc1
-        delta = mh / (torch.sqrt(vh) + cfg.eps)
+        v_new = b2 * v.to(F32) + (1 - b2) * gf * gf
+        delta = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
         if decay:   # decay matrices only (1-D norms/biases exempt)
             delta = delta + cfg.weight_decay * w
         return w - lr_ * delta, m_new, v_new
 
     def upd(p, g, m, v, w):
         if isinstance(v, FactoredV):
-            w_new, m_new, v_new = one(p.ndim >= 2, g, m, v, w)
-            v_new = FactoredV(row=shd.like_placements(v_new.row, v.row),
-                              col=shd.like_placements(v_new.col, v.col))
-            return (shd.like_placements(w_new.to(p.dtype), p),
-                    shd.like_placements(m_new.to(m.dtype), m), v_new,
-                    shd.like_placements(w_new, w))
+            return upd_factored(p, g, m, v, w)
         # elementwise: on each rank's shard, every operand in p's placements
         g, m_, v_, w_ = (shd.local(shd.like_placements(t, p))
                          for t in (g, m, v, w))
         out = upd_local(p.ndim >= 2, p.dtype, g, m_, v_, w_)
         return tuple(shd.from_local(t, ref) for t, ref in
                      zip(out, (p, m, v, w)))
+
+    def upd_factored(p, g, m, v, w):
+        """The update of a leaf with an Adafactor-style factored second
+        moment: V ~ row x col / mean(row).  On DTensors the row and column
+        means are reduced across the shards and the rest runs on each
+        rank's shard in p's placements, the means laid out along its rows
+        and columns (a rank-1 reconstruction on DTensors would hold the
+        whole leaf on every rank)."""
+        from torch.distributed.tensor import Replicate, Shard
+        nd = p.ndim
+        gf = shd.like_placements(g, p).to(F32) * clip_scale
+        g2 = gf * gf
+        row_new = b2 * v.row + (1 - b2) * g2.mean(-1)
+        col_new = b2 * v.col + (1 - b2) * g2.mean(-2)
+        denom = torch.clamp_min(row_new.mean(-1, keepdim=True), 1e-30)
+
+        def lay(x, dropped, moved=None):
+            """x's local tensor, split as p is along the dims x keeps:
+            replicated where p's split dim is one of ``dropped``, split
+            along x's dim ``moved[d]`` where it is p's dim d; a plain x as
+            it is."""
+            if not shd.is_dtensor(p):
+                return x
+            pl = [Replicate() if isinstance(q, Shard) and q.dim in dropped
+                  else Shard((moved or {}).get(q.dim, q.dim))
+                  if isinstance(q, Shard) else Replicate()
+                  for q in p.placements]
+            return x.redistribute(p.device_mesh, pl).to_local()
+        row = lay(row_new, (nd - 1,))
+        col = lay(col_new, (nd - 2,), {nd - 1: nd - 2})
+        den = lay(denom, (nd - 2, nd - 1))
+        gl, ml, wl = (shd.local(shd.like_placements(t, p))
+                      for t in (gf, m, w))
+        m_new = b1 * ml.to(F32) + (1 - b1) * gl
+        vh = (row[..., None] * col[..., None, :] / den[..., None]) / bc2
+        # a factored leaf has two dims or more: it decays
+        delta = (m_new / bc1) / (torch.sqrt(vh) + cfg.eps) \
+            + cfg.weight_decay * wl
+        w_new = wl - lr_ * delta
+        return (shd.from_local(w_new.to(p.dtype), p),
+                shd.from_local(m_new.to(m.dtype), m),
+                FactoredV(row=shd.like_placements(row_new, v.row),
+                          col=shd.like_placements(col_new, v.col)),
+                shd.from_local(w_new, w))
 
     def upd_local(decay: bool, dtype, g, m, v, w):
         if w.numel() <= UPDATE_CHUNK:

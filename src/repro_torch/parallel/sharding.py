@@ -37,8 +37,9 @@ sharded: DTensor's own rules propagate the placements between those
 points, and a fresh tensor that meets a DTensor enters as a replicated
 one (:func:`replicated`, :func:`sharded_full`).  The kernels run on each
 rank's local shard (:func:`on_local_shards`; decode on each rank's slots
-of the KV cache, merged across ranks: :func:`on_local_slots`), and decode
-writes its cache in place on the rank that holds the slot
+of the KV cache, merged across ranks: :func:`on_local_slots`), the
+embedding lookup on each rank's rows of the table (:func:`embedding`),
+and decode writes its cache in place on the rank that holds the slot
 (:func:`set_index`).  Without an active mesh every one of these is the
 identity.
 
@@ -129,18 +130,20 @@ def active_rules() -> dict:
 
 class use_mesh:
     """Context manager: :func:`set_active_mesh` plus ``with mesh:`` (a
-    DeviceMesh's own current-mesh context)."""
+    DeviceMesh's own current-mesh context); the mesh active before comes
+    back on exit."""
 
     def __init__(self, mesh, rules: Optional[dict] = None):
         self.mesh, self.rules = mesh, rules
 
     def __enter__(self):
+        self.before = (active_mesh(), getattr(_STATE, "rules", None))
         set_active_mesh(self.mesh, self.rules)
         self.mesh.__enter__()
         return self.mesh
 
     def __exit__(self, *exc):
-        set_active_mesh(None, None)
+        set_active_mesh(*self.before)
         return self.mesh.__exit__(*exc)
 
 
@@ -297,6 +300,16 @@ class _Constrain(torch.autograd.Function):
         return _redistribute(g, ctx.mesh, ctx.in_placements), None, None
 
 
+def hold_layout(x):
+    """``x`` itself, with its cotangent redistributed to ``x``'s own
+    placements on its way back (the identity on anything but a DTensor):
+    a gradient that would reach ``x``'s producer split where ``x`` is
+    whole takes ``x``'s layout first."""
+    if not is_dtensor(x):
+        return x
+    return _Constrain.apply(x, x.device_mesh, tuple(x.placements))
+
+
 def can_shard(dim: int, logical_name: str) -> bool:
     """True if ``dim`` would actually be sharded under the active mesh."""
     mesh = active_mesh()
@@ -364,18 +377,21 @@ def sharded_full(shape: Sequence[int], value, logical: Sequence[Optional[str]],
                  like, dtype=None):
     """``shape`` filled with ``value`` (``dtype``, default ``like``'s): a
     DTensor on ``like``'s mesh under the sharding ``logical`` resolves to
-    there when ``like`` is a DTensor (each rank makes its own shard), else
-    a plain tensor on ``like``'s device."""
+    there when ``like`` is a DTensor (each rank makes its own shard on the
+    device of ``like``'s local tensor: a ``meta`` one in a dry run's
+    trace), else a plain tensor on ``like``'s device."""
     dtype = dtype or like.dtype
     DTensor = _dtensor()
     if not isinstance(like, DTensor):
         return torch.full(tuple(shape), value, dtype=dtype,
                           device=like.device)
-    from torch.distributed.tensor import full
     mesh = like.device_mesh
     sh = named_sharding(logical, mesh, active_rules(), tuple(shape))
-    return full(tuple(shape), value, dtype=dtype, device_mesh=mesh,
-                placements=sh.placements)
+    part = torch.full(sh.shard_shape(shape), value, dtype=dtype,
+                      device=like.to_local().device)
+    whole = torch.empty(tuple(shape), device="meta")
+    return DTensor.from_local(part, mesh, sh.placements, run_check=False,
+                              shape=whole.shape, stride=whole.stride())
 
 
 def like_placements(x, ref):
@@ -493,6 +509,44 @@ def elementwise(fn, x):
     x = _redistribute(x, x.device_mesh, pl)
     return local_map(fn, out_placements=(pl,), in_placements=(pl,),
                      device_mesh=x.device_mesh)(x)
+
+
+def embedding(table, tokens):
+    """``F.embedding(tokens, table)``.  Of a DTensor ``table`` split by
+    rows (``vocab``), each rank looks its tokens up in the rows it holds
+    and zeros the rest, and the lookups are summed over the mesh dims that
+    split the rows (``Partial``); the gradient of a rank's rows stays on
+    it, summed over the dims that split the tokens.  (DTensor's own rule
+    for the lookup keeps the whole table's gradient on every rank.)"""
+    import torch.nn.functional as F
+    DTensor = _dtensor()
+    if not isinstance(table, DTensor):
+        return F.embedding(tokens, table)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    tokens = replicated(tokens, table)
+    tpl = tuple(Shard(0) if isinstance(p, Shard) and p.dim == 0
+                else Replicate() for p in table.placements)
+    table = _redistribute(table, mesh, tpl)
+    kpl = tuple(Replicate() if isinstance(q, Shard) or p.is_partial() else p
+                for p, q in zip(tokens.placements, tpl))
+    tokens = _redistribute(tokens, mesh, kpl)
+    _, start, size = split_range(table, 0, "embedding")
+
+    def look(t, ids):
+        ids = ids - start
+        hit = ((ids >= 0) & (ids < size))[..., None]
+        out = F.embedding(torch.where(hit[..., 0], ids, 0), t)
+        return torch.where(hit, out, torch.zeros((), dtype=out.dtype,
+                                                 device=out.device))
+    out_pl = tuple(Partial() if isinstance(q, Shard) else p
+                   for p, q in zip(kpl, tpl))
+    grad_pl = tuple(Partial() if isinstance(p, Shard) else q
+                    for p, q in zip(kpl, tpl))
+    return local_map(look, out_placements=(out_pl,), in_placements=(tpl, kpl),
+                     in_grad_placements=(grad_pl, kpl),
+                     device_mesh=mesh)(table, tokens)
 
 
 def split_range(x, dim: int, what: str = "fn") -> tuple:
